@@ -1,0 +1,12 @@
+"""Data substrate: synthetic corpora and query workloads."""
+
+from repro_torch.data.datagen import (  # noqa: F401
+    make_errorlog_ext,
+    make_errorlog_int,
+    make_tpch_like,
+)
+from repro_torch.data.workload import (  # noqa: F401
+    make_errorlog_ext_workload,
+    make_errorlog_int_workload,
+    make_tpch_workload,
+)

@@ -9,6 +9,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (multi-device sharding sweeps)"
     )
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (the kernels have no CPU mode)"
+    )
 
 
 @pytest.fixture(scope="session")
