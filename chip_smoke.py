@@ -4,42 +4,59 @@
     python3 chip_smoke.py [--rows N]
 
 At the slice's full size (a 40M-row TPC-H-like table, 150-query workload,
-greedy layout of ~728 blocks learned from a 1% sample), through the
-entry points a user calls — ``LayoutEngine(tree)`` on the GPU:
-``warm_ingest`` + ``ingest`` (the ``fused_ingest`` kernel), ``route``
-(``eval_cuts`` + ``locate_leaf``), ``route_queries``, ``route_query`` and
-``skip_stats`` (``query_intersect``).  It builds the four CUDA kernels
-from ``src/repro_torch/kernels/csrc`` first, and checks:
+greedy layout of 724 blocks learned from a 1% sample), through the entry
+points a user calls — ``LayoutEngine(tree)`` on the GPU: ``warm_ingest``
++ ``ingest`` (one ``fused_ingest`` launch a batch into a running
+accumulator on the device), ``route`` (``eval_cuts`` + ``locate_leaf``),
+``route_queries``, ``route_query`` and ``skip_stats``
+(``query_intersect``).  The main path also ingests the table into a finer
+layout (1,250 blocks learned from an 8,000-row sample, built in a second
+process while the rest runs), whose aggregates do not fit a block's
+shared memory, so ``fused_ingest`` takes its global-atomic kernel there.
+It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` first,
+and checks:
 
-* each kernel equals its plain PyTorch version on the card, exactly, on a
-  small random tree with every cut kind and at the main path's shapes;
-* the whole stream's tightened descriptions equal the plain path's;
-* the first 2**18 rows equal the numpy oracle (``fused_ingest_ref``);
+* each kernel (both ``fused_ingest`` kernels) equals its plain PyTorch
+  version on the card, exactly: on small random trees with every cut kind,
+  on the finer layout, and at the main path's shapes;
+* the running accumulator folded over uneven batches (one a single row,
+  one starting at an unaligned row) equals the plain version over their
+  concatenation and the numpy oracle (``fused_ingest_ref``);
+* the whole 40M-row ingest's tightened descriptions equal the numpy
+  oracle's (``IncrementalTightener`` over the same batches, on host
+  threads), and the finer layout's equal the plain torch path's;
 * route's block ids equal ``fused_step``'s, ``route_query`` equals
   ``route_queries``, and the query hits and per-conjunct scan counts
   equal the numpy backend's;
 * every kernel launched during the main path, and a warm engine builds no
-  plan.
+  plan;
+* a traced ingest runs exactly one ``fused_ingest`` kernel a batch and
+  copies aggregates to the host once, not once a batch.
 
 Then it times: route and query latencies (median and spread of warm
 calls, host clock), whole-table ingests on fresh trees, one ingest under
-``torch.profiler`` (the device's busy share), and the per-batch host fold
-alone.  It exits non-zero on the first failure, without a CUDA device,
-and when the package is not beside it.  Output, before the last line: the
-card's name and power limit, build seconds, one ``{"kernels": [...]}``
-JSON line (launches, median CUDA-event time, bound, plain-version time,
-max difference per kernel) and one ``{"metrics": ...}`` JSON line.  The last
-line is ``{"ok": true, "device": {...}}``.  ``--rows`` cuts the row count
-(the only cut allowed; it is printed).
+``torch.profiler`` (the device's busy share), the fold of the running
+accumulator into the tightener (once an ingest), and each kernel against
+its plain version.  It exits non-zero on the first failure, without a
+CUDA device, and when the package is not beside it.  Output, before the
+last line: the card's name and power limit, build seconds, one
+``{"metrics": ...}`` JSON line and one ``{"kernels": [...]}`` JSON line
+(launches, median CUDA-event time, bound, plain-version time, max
+difference per kernel).  The last line is ``{"ok": true, "device":
+{...}}``.  ``--rows`` cuts the row count (the only cut allowed; it is
+printed).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
+import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -49,10 +66,15 @@ FULL_ROWS = 40_000_000
 BATCH = 1 << 20
 SAMPLE_EVERY = 100  # a 1% sample for the greedy build
 MIN_BLOCK = 400  # in sample records: ~40k rows a block at full size
+FINE_SAMPLE = 8_000  # TPC-H-like rows the finer layout is learned from
+FINE_MIN_BLOCK = 5  # ... giving 1,250 blocks, 250 KB of aggregates
 ORACLE_ROWS = 1 << 18
+ORACLE_CHUNK = 1 << 18  # rows a host thread routes at a time
 ROUTE_QUERY_N = 10  # queries routed one at a time on the main path
 LAT_REPS = 10  # warm calls per latency
 INGEST_REPS = 5  # untraced whole-table ingests on fresh trees
+FOLD_REPS = 5  # timed folds of one stream's accumulator
+FINE_TIMEOUT_S = 900  # the finer layout's build, at most
 SEED = 0
 
 # H100 SXM (NVIDIA data sheet): HBM rate, and the float32 rate outside the
@@ -60,16 +82,19 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 
+FUSED = "src/repro_torch/kernels/csrc/fused_ingest.cu"
+FUSED_REF = "src/repro/kernels/fused_ingest.py:213"
 KERNEL_SOURCES = {
     "eval_cuts": ("src/repro_torch/kernels/csrc/eval_cuts.cu",
                   "src/repro/kernels/route_records.py:114"),
     "locate_leaf": ("src/repro_torch/kernels/csrc/locate_leaf.cu",
                     "src/repro/kernels/route_records.py:198"),
-    "fused_ingest": ("src/repro_torch/kernels/csrc/fused_ingest.cu",
-                     "src/repro/kernels/fused_ingest.py:213"),
+    "fused_ingest_shared": (FUSED, FUSED_REF),
+    "fused_ingest_global": (FUSED, FUSED_REF),
     "query_intersect": ("src/repro_torch/kernels/csrc/query_intersect.cu",
                         "src/repro/kernels/query_intersect.py:94"),
 }
+VARIANTS = ("shared", "global")
 
 
 def log(msg: str) -> None:
@@ -90,6 +115,20 @@ def require_cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def fine_layout(seed: int) -> dict:
+    """The finer layout's arrays (run in a second process)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.greedy import GreedyConfig, build_greedy
+    from repro_torch.data.datagen import make_tpch_like
+    from repro_torch.data.workload import make_tpch_workload
+
+    schema, sample = make_tpch_like(FINE_SAMPLE, seed=seed)
+    work, _ = make_tpch_workload(schema, n_per_template=10, seed=seed)
+    tree = build_greedy(sample, work, work.candidate_cuts(),
+                        GreedyConfig(min_block=FINE_MIN_BLOCK))
+    return tree.freeze().to_arrays()
+
+
 def time_ms(fn, reps: int) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs, after a warm-up."""
     import torch
@@ -107,6 +146,11 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def spread(times: list) -> dict:
+    return {"median": float(np.median(times)), "min": min(times),
+            "max": max(times), "n": len(times)}
+
+
 def host_ms(fn, reps: int) -> dict:
     """Host-clock ms of ``fn`` (calls that end on the host): median and
     spread over ``reps`` warm calls, after a warm-up."""
@@ -116,16 +160,16 @@ def host_ms(fn, reps: int) -> dict:
         t0 = time.perf_counter()
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
-    return {"median": float(np.median(times)), "min": min(times),
-            "max": max(times), "n": reps}
+    return spread(times)
 
 
-def device_busy_ms(prof) -> tuple[float, float, int]:
+def trace_counts(prof) -> dict:
     """From a profiler trace: the union of all device activity (kernels,
-    copies, fills) in ms, and the ``fused_ingest`` kernels' ms and count."""
+    copies, fills) in ms, the ``fused_ingest`` kernels' ms and count, and
+    the device-to-host copies."""
     import torch
 
-    spans, kernel_ms, kernels = [], 0.0, 0
+    spans, kernel_ms, kernels, d2h = [], 0.0, 0, 0
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -133,12 +177,35 @@ def device_busy_ms(prof) -> tuple[float, float, int]:
         if "fused_ingest" in ev.name:
             kernel_ms += (ev.time_range.end - ev.time_range.start) / 1e3
             kernels += 1
+        if "DtoH" in ev.name:
+            d2h += 1
     busy, end = 0.0, float("-inf")
     for s, e in sorted(spans):
         if e > end:
             busy += e - max(s, end)
             end = e
-    return busy / 1e3, kernel_ms, kernels
+    return {"busy_ms": busy / 1e3, "fused_kernel_ms": kernel_ms,
+            "fused_kernels": kernels, "d2h_copies": d2h}
+
+
+def traced_kernel_ms(fn, name: str, reps: int) -> float:
+    """Median device time of the kernel ``name`` over ``reps`` calls of
+    ``fn`` under ``torch.profiler`` (one launch a call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(ev.time_range.end - ev.time_range.start) / 1e3
+             for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and name in ev.name]
+    require(len(spans) == reps,
+            f"the trace shows {len(spans)} {name} kernels for {reps} calls")
+    return float(np.median(spans))
 
 
 def max_abs_err(got, want) -> float:
@@ -206,34 +273,104 @@ def random_case(seed: int, m: int = 50_000):
     return tree.freeze(), records, qry.Workload(schema, queries)
 
 
-def compare_kernels(tree, rec, wt, dev, ctx: str) -> dict[str, float]:
-    """Each kernel against its plain version on the same inputs (exact)."""
+def route_ops(tree, dev):
     from repro_torch.engine import plan as tplan
-    from repro_torch.kernels import fused_ingest as fk
+
+    return tplan.to_device(tplan.pack_route_constants(tree), dev)
+
+
+def query_args(tree, wt, dev):
+    from repro_torch.engine import plan as tplan
     from repro_torch.kernels import ops as kops
+
+    layout = kops.query_layout(tree.schema, tree.cuts.n_adv)
+    return (tplan.to_device(tplan.pack_leaf_descs(tree, layout), dev),
+            tplan.to_device(kops.pack_workload(wt, layout), dev),
+            tplan.to_device(layout, dev))
+
+
+def fused_err(ops, batches, variant) -> float:
+    """A running accumulator folded over ``batches`` by one kernel, against
+    the plain version over their concatenation: block ids and aggregates."""
+    import torch
+    from repro_torch.kernels import fused_ingest as fk
+
+    acc, plain = fk.IngestAccumulator(ops), fk.IngestAccumulator(ops)
+    bids = torch.cat([acc.fold(b, bids=True, variant=variant)
+                      for b in batches])
+    want = fk.fused_ingest_plain(torch.cat(batches), plain)
+    return max_abs_err([bids, *acc.tensors()], [want, *plain.tensors()])
+
+
+def compare_kernels(tree, rec, wt, dev, ctx: str,
+                    variants=VARIANTS) -> dict[str, float]:
+    """Each kernel against its plain version on the same inputs (exact)."""
     from repro_torch.kernels import query_intersect as qk
     from repro_torch.kernels import route_records as rk
 
-    ops = tplan.to_device(tplan.pack_route_constants(tree), dev)
+    ops = route_ops(tree, dev)
     errs = {}
     m_k = rk.eval_cuts(rec, ops)
     errs["eval_cuts"] = max_abs_err([m_k], [rk.eval_cuts_plain(rec, ops)])
     errs["locate_leaf"] = max_abs_err([rk.locate_leaf(m_k, ops)],
                                       [rk.locate_leaf_plain(m_k, ops)])
-    errs["fused_ingest"] = max_abs_err(fk.fused_ingest(rec, ops),
-                                       fk.fused_ingest_plain(rec, ops))
-    n_adv = tree.cuts.n_adv
-    qargs = (
-        tplan.to_device(tplan.pack_leaf_descs(tree), dev),
-        tplan.to_device(kops.pack_workload(wt, n_adv), dev),
-        tplan.to_device(kops.query_layout(tree.schema, n_adv), dev),
-    )
+    for v in variants:
+        errs[f"fused_ingest_{v}"] = fused_err(ops, [rec], v)
+    qargs = query_args(tree, wt, dev)
     errs["query_intersect"] = max_abs_err(qk.query_intersect(*qargs),
                                           qk.query_intersect_plain(*qargs))
     for name, e in errs.items():
         require(e == 0.0, f"{ctx}: {name} kernel differs from its plain "
                           f"version by {e}")
     return errs
+
+
+def oracle_partial(tree, records: np.ndarray, workers: int):
+    """The numpy oracle over ``records``: host accumulators
+    (``IncrementalTightener`` on the numpy descent's block ids) over
+    chunks on ``workers`` threads, merged.  Returns (bids, partial)."""
+    from repro_torch.core.qdtree import IncrementalTightener
+    from repro_torch.kernels.ref import fused_ingest_ref
+
+    starts = range(0, records.shape[0], ORACLE_CHUNK)
+    with ThreadPoolExecutor(workers) as ex:
+        parts = list(ex.map(
+            lambda s: fused_ingest_ref(tree, records[s:s + ORACLE_CHUNK]),
+            starts,
+        ))
+    t = IncrementalTightener(tree)
+    for _, p in parts:
+        t.merge(p)
+    return np.concatenate([b for b, _ in parts]), t.as_partial()
+
+
+def running_fold(tree, rec_dev, records, bounds, dev, ctx, variants,
+                 workers) -> float:
+    """Uneven batches ``rec[bounds[i]:bounds[i+1]]`` folded into one
+    accumulator by each kernel: equal to the plain version over their
+    concatenation and to the numpy oracle."""
+    from repro_torch.kernels import fused_ingest as fk
+
+    ops = route_ops(tree, dev)
+    batches = [rec_dev[s:e] for s, e in zip(bounds, bounds[1:])]
+    want_bids, want = oracle_partial(tree, records[bounds[0]:bounds[-1]],
+                                     workers)
+    err = 0.0
+    for v in variants:
+        e = fused_err(ops, batches, v)
+        require(e == 0.0, f"{ctx}: running fold ({v}) differs from the "
+                          f"plain version over the concatenation by {e}")
+        acc = fk.IngestAccumulator(ops)
+        bids = np.concatenate([acc.fold(b, bids=True, variant=v).cpu()
+                               .numpy() for b in batches])
+        require(np.array_equal(bids, want_bids),
+                f"{ctx}: running fold ({v}) block ids vs the numpy oracle")
+        got = acc.partial(tree)
+        for f in ("counts", "lo", "hi", "cat", "adv"):
+            require(np.array_equal(getattr(got, f), getattr(want, f)),
+                    f"{ctx}: running fold ({v}) {f} vs the numpy oracle")
+        err = max(err, e)
+    return err
 
 
 def leaf_depths(tree) -> np.ndarray:
@@ -254,6 +391,21 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def fused_bound(tree, ops, bids, m: int, d: int):
+    """Least time of one fold of ``m`` records without block ids: the
+    records, cut table and nodes read once, the accumulators read and
+    written once; one operation per cut on each record's path and per
+    aggregate it folds."""
+    table = sum(int(v.numel() * v.element_size()) for k, v in ops.items()
+                if k in ("cat_off", "in_mask", "adv", "cat_dims"))
+    acc = tree.n_leaves * (8 + 4 * (2 * d + int(ops["cw"])
+                                    + 2 * int(ops["aw"])))
+    path = int(leaf_depths(tree)[bids].sum())
+    n_cat = int(ops["cat_dims"].shape[0])
+    return bound(m * d * 4 + table + 16 * tree.n_nodes + 2 * acc,
+                 path + m * (2 * d + n_cat + int(ops["n_adv"]) + 1))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=FULL_ROWS,
@@ -261,10 +413,18 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     dev = require_cuda()
     sys.path.insert(0, str(ROOT / "src"))
+    # the finer layout is learned in a second process while the rest runs
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        fine_job = pool.apply_async(fine_layout, (SEED,))
+        return run(args, dev, torch, fine_job)
+
+
+def run(args, dev, torch, fine_job) -> int:
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.core import rewards
     from repro_torch.core.greedy import GreedyConfig, build_greedy
     from repro_torch.core.qdtree import FrozenQdTree, IncrementalTightener
@@ -274,12 +434,12 @@ def main(argv=None) -> int:
     from repro_torch.engine import plan as tplan
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_ingest as fk
-    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import query_intersect as qk
     from repro_torch.kernels import route_records as rk
-    from repro_torch.kernels.ref import fused_ingest_ref, partial_from_fused
+    from repro_torch.kernels.ref import fused_ingest_ref
 
     t_start = time.perf_counter()
+    workers = max(os.cpu_count() or 1, 1)
     require(torch.backends.cuda.matmul.allow_tf32 is False,
             "float32 matmuls must not run in TF32")
     torch.backends.cudnn.allow_tf32 = False
@@ -297,15 +457,19 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     log(f"kernels built and loaded in {build_s:.1f}s")
 
-    # -- small random trees: every cut kind, each kernel vs plain ------------
+    # -- small random trees: every kernel (both fused kernels) vs plain, and
+    # the running fold over uneven batches --------------------------------
     for seed in (1, 2):
         tree, recs, work = random_case(seed)
         rec = torch.from_numpy(recs).to(dev)
         tree.tighten(recs, tree.route(recs))
-        compare_kernels(tree, rec, work.tensorize(tree.cuts), dev,
-                        f"random tree {seed}")
+        ctx = f"random tree {seed}"
+        compare_kernels(tree, rec, work.tensorize(tree.cuts), dev, ctx)
+        running_fold(tree, rec, recs, [0, 1, 777, 20_000, 20_001, 50_000],
+                     dev, ctx, VARIANTS, workers)
     torch.cuda.synchronize()
-    log("small random trees: all four kernels equal their plain versions")
+    log("small random trees: every kernel equals its plain version; the "
+        "running fold equals the plain version and the numpy oracle")
 
     # -- data, workload, layout ---------------------------------------------
     n_rows = args.rows
@@ -326,19 +490,29 @@ def main(argv=None) -> int:
         f"{cuts.n_cuts} cuts ({cuts.n_adv} adv), greedy on {sample.shape[0]}"
         f" rows in {greedy_s:.1f}s: {tree.n_leaves} leaves, {tree.n_nodes} "
         f"nodes, depth {tree.depth}")
+    t0 = time.perf_counter()
+    fine_arrays = fine_job.get(timeout=FINE_TIMEOUT_S)
+    fine_wait_s = time.perf_counter() - t0
+    fine = FrozenQdTree.from_arrays(fine_arrays)
+    log(f"finer layout: {fine.n_leaves} leaves, depth {fine.depth} (waited "
+        f"{fine_wait_s:.1f}s for it)")
     untightened = tree.to_arrays()
     rec_dev = torch.from_numpy(records).to(dev)
     slices = [rec_dev[s:s + BATCH] for s in range(0, n_rows, BATCH)]
+    sizes = {s.shape[0] for s in slices}
     torch.cuda.synchronize()
 
     # -- the main path, counted ----------------------------------------------
     engine = LayoutEngine(tree)  # backend "torch" on the GPU
+    fine_engine = LayoutEngine(fine)
     require(engine.device == dev, f"engine on {engine.device}")
     _build.reset_launch_counts()
-    engine.warm_ingest({s.shape[0] for s in slices})
+    engine.warm_ingest(sizes)
     report = engine.ingest(slices)
     require(report.builds == {},
             f"plans built during the warm ingest: {report.builds}")
+    fine_engine.warm_ingest(sizes)
+    fine_report = fine_engine.ingest(slices)
     route_bids = engine.route(slices[0])
     fused_bids, _ = engine.fused_step(slices[0])
     lists = engine.route_queries(work)
@@ -362,17 +536,30 @@ def main(argv=None) -> int:
     require(int(report.block_sizes.sum()) == n_rows
             and np.array_equal(report.block_sizes, stats.block_sizes),
             "block sizes")
-    plain_tree = FrozenQdTree.from_arrays(untightened)
-    ops = tplan.to_device(tplan.pack_route_constants(plain_tree), dev)
-    tightener = IncrementalTightener(plain_tree)
+    t0 = time.perf_counter()
+    oracle_tree = FrozenQdTree.from_arrays(untightened)
+    _, part = oracle_partial(oracle_tree, records, workers)
+    tightener = IncrementalTightener(oracle_tree)
+    tightener.merge(part)
+    tightener.apply()
+    oracle_s = time.perf_counter() - t0
+    for f in ("leaf_lo", "leaf_hi", "leaf_cat", "leaf_adv", "block_sizes"):
+        require(np.array_equal(getattr(oracle_tree, f), getattr(tree, f)),
+                f"whole-stream {f} differs from the numpy oracle")
+    log(f"whole stream: tightened descriptions equal the numpy oracle's "
+        f"({oracle_s:.1f}s on {workers} host threads)")
+    plain_fine = FrozenQdTree.from_arrays(fine_arrays)
+    plain_acc = fk.IngestAccumulator(route_ops(plain_fine, dev))
     for s in slices:
-        tightener.merge(partial_from_fused(plain_tree,
-                                           fk.fused_ingest_plain(s, ops)))
+        fk.fused_ingest_plain(s, plain_acc, bids=False)
+    tightener = IncrementalTightener(plain_fine)
+    tightener.merge(plain_acc.partial(plain_fine))
     tightener.apply()
     for f in ("leaf_lo", "leaf_hi", "leaf_cat", "leaf_adv", "block_sizes"):
-        require(np.array_equal(getattr(plain_tree, f), getattr(tree, f)),
-                f"whole-stream {f} differs from the plain torch path")
-    log("whole stream: tightened descriptions equal the plain torch path")
+        require(np.array_equal(getattr(plain_fine, f), getattr(fine, f)),
+                f"finer layout: whole-stream {f} differs from the plain "
+                f"torch path")
+    log("finer layout: tightened descriptions equal the plain torch path's")
     o_bids, o_part = engine.fused_step(rec_dev[:ORACLE_ROWS])
     w_bids, w_part = fused_ingest_ref(tree, records[:ORACLE_ROWS])
     require(np.array_equal(o_bids, w_bids), "oracle rows: block ids")
@@ -398,10 +585,8 @@ def main(argv=None) -> int:
     engine.fused_step(slices[-1], return_bids=False)
     require(tplan.build_counts() == warm, "a warm engine built a plan")
 
-    # -- ingest: its spread over fresh trees, the device's busy share from a
-    # profiler trace, and the per-batch host fold timed alone -------------
-    sizes = {s.shape[0] for s in slices}
-
+    # -- ingest: its spread over fresh trees, the device's busy share and
+    # copies from a profiler trace, and the fold once an ingest ----------
     def fresh_engine():
         eng = LayoutEngine(FrozenQdTree.from_arrays(untightened))
         eng.warm_ingest(sizes)
@@ -414,97 +599,153 @@ def main(argv=None) -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         traced = traced_eng.ingest(slices)
-    busy_ms, fused_kernel_ms, n_fused = device_busy_ms(prof)
-    require(n_fused == len(slices),
-            f"the trace shows {n_fused} fused_ingest kernels for "
+    tr = trace_counts(prof)
+    require(tr["fused_kernels"] == len(slices),
+            f"the trace shows {tr['fused_kernels']} fused_ingest kernels for "
             f"{len(slices)} batches")
+    require(tr["d2h_copies"] == 1,
+            f"the traced ingest copied to the host {tr['d2h_copies']} times; "
+            f"the aggregates should come back once")
     fold_tree = FrozenQdTree.from_arrays(untightened)
-    fold = IncrementalTightener(fold_tree)
-    fold_ms = []
+    acc = be.get_backend("torch").accumulator(fold_tree, tplan.PlanCache(),
+                                              dev)
     for s in slices:
-        out = fk.fused_ingest(s, ops)
-        torch.cuda.synchronize()
+        acc.fold(s)
+    torch.cuda.synchronize()
+    fold_ms = []
+    for _ in range(FOLD_REPS):
         t0 = time.perf_counter()
-        fold.merge(partial_from_fused(fold_tree, out))
+        IncrementalTightener(fold_tree).merge(acc.partial())
         fold_ms.append((time.perf_counter() - t0) * 1e3)
-    log(f"ingest walls {walls}; traced {traced.wall_s:.6f}s, device busy "
-        f"{busy_ms:.3f} ms, fused kernels {fused_kernel_ms:.3f} ms")
+    log(f"ingest walls {walls}; traced {traced.wall_s:.6f}s, {tr}; fold "
+        f"once an ingest {fold_ms} ms")
 
-    # -- kernels vs plain at the main path's shapes, then timing -------------
+    # -- kernels vs plain at the main path's shapes; the finer layout, too
+    # large for shared memory; the running fold over uneven batches -------
     errs = compare_kernels(tree, slices[0], wt, dev, "main path shapes")
-    leaf = tplan.to_device(tplan.pack_leaf_descs(tree), dev)
-    conj = tplan.to_device(kops.pack_workload(wt, cuts.n_adv), dev)
-    layout = tplan.to_device(kops.query_layout(schema, cuts.n_adv), dev)
-    ops = tplan.to_device(tplan.pack_route_constants(tree), dev)
+    fine_errs = compare_kernels(fine, slices[0], wt, dev, "finer layout",
+                                variants=("global",))
+    fops = route_ops(fine, dev)
+    before = _build.launch_counts()
+    fk.IngestAccumulator(fops).fold(slices[0])
+    after = _build.launch_counts()
+    require(after["fused_ingest_global"] == before["fused_ingest_global"] + 1
+            and after["fused_ingest_shared"] == before["fused_ingest_shared"],
+            "the finer layout's aggregates should take the global kernel")
+    try:
+        fk.IngestAccumulator(fops).fold(slices[0], variant="shared")
+        refused = False
+    except RuntimeError:
+        refused = True
+    require(refused, "a shared-memory request past the card's limit must "
+                     "raise")
+    errs["fused_ingest_global"] = max(errs["fused_ingest_global"],
+                                      fine_errs["fused_ingest_global"])
+    n_run = min(n_rows, 3 * BATCH // 2)
+    bounds = sorted({0, 1, 1000, min(BATCH - 3, n_run), n_run})
+    running_fold(tree, rec_dev, records, bounds, dev, "main path shapes",
+                 VARIANTS, workers)
+    log("main path shapes: every kernel equals its plain version; running "
+        "fold equal to the plain version and the numpy oracle")
+
+    # -- timing ---------------------------------------------------------------
     x = slices[0]
+    ops = route_ops(tree, dev)
+    leaf, conj, layout = query_args(tree, wt, dev)
     m_mat = rk.eval_cuts(x, ops)
+    acc_s, acc_g = fk.IngestAccumulator(ops), fk.IngestAccumulator(fops)
+    acc_p, acc_gp = fk.IngestAccumulator(ops), fk.IngestAccumulator(fops)
+    acc_gm = fk.IngestAccumulator(ops)
     runs = {
         "eval_cuts": (lambda: rk.eval_cuts(x, ops),
                       lambda: rk.eval_cuts_plain(x, ops)),
         "locate_leaf": (lambda: rk.locate_leaf(m_mat, ops),
                         lambda: rk.locate_leaf_plain(m_mat, ops)),
-        "fused_ingest": (lambda: fk.fused_ingest(x, ops),
-                         lambda: fk.fused_ingest_plain(x, ops)),
+        # as the ingest folds a batch: no block ids
+        "fused_ingest_shared": (
+            lambda: acc_s.fold(x),
+            lambda: fk.fused_ingest_plain(x, acc_p, bids=False)),
+        "fused_ingest_global": (
+            lambda: acc_g.fold(x),
+            lambda: fk.fused_ingest_plain(x, acc_gp, bids=False)),
         "query_intersect": (lambda: qk.query_intersect(leaf, conj, layout),
                             lambda: qk.query_intersect_plain(leaf, conj,
                                                              layout)),
     }
     times = {n: (time_ms(k, 20), time_ms(p, 3)) for n, (k, p) in runs.items()}
+    # the global kernel on the main layout (the same work as the shared
+    # one), and the shared kernel with one and with two buffers a warp
+    global_on_main_ms = time_ms(lambda: acc_gm.fold(x, variant="global"), 20)
+    shared_by_stages = {
+        s: time_ms(lambda: acc_s.fold(x, variant="shared", stages=s), 20)
+        for s in (1, 2)
+    }
+    # the query kernel's own device time, without the wrapper's host side
+    q_kernel_ms = traced_kernel_ms(
+        lambda: qk.query_intersect(leaf, conj, layout), "query_intersect",
+        LAT_REPS)
 
     # -- bounds from this run's inputs ---------------------------------------
     m, d = x.shape
     C, L, bits = cuts.n_cuts, tree.n_leaves, int(ops["bits"])
-    a3, n_adv = int(ops["adv"].shape[0]), cuts.n_adv
-    n_cat = int(ops["cat_dims"].shape[0])
     table = sum(int(v.numel() * v.element_size()) for k, v in ops.items()
                 if k in ("kind", "dim", "cutpoint", "in_mask", "cat_off",
                          "adv", "adv_id"))
     nodes = 4 * 4 * tree.n_nodes
     path = int(leaf_depths(tree)[route_bids].sum())  # cuts read on descent
+    fine_bids = fine_engine.route(x)
     nq = wt.n_conjuncts
     n_num = int(layout["num_dims"].shape[0])
-    bounds = {
+    n_ent, aw = int(layout["seg_word"].shape[0]), int(layout["aw"])
+    kl, kc = int(leaf["desc"].shape[1]), int(conj["desc"].shape[1])
+    bounds_ms = {
         "eval_cuts": bound(m * d * 4 + table + m * C, m * C),
         "locate_leaf": bound(path + nodes + m * 4, path),
-        "fused_ingest": bound(
-            m * d * 4 + table + nodes + m * 4
-            + L * (4 + 8 * d + bits + 2 * a3),
-            path + m * (2 * d + n_cat + n_adv + 1),
-        ),
+        "fused_ingest_shared": fused_bound(tree, ops, route_bids, m, d),
+        "fused_ingest_global": fused_bound(fine, fops, fine_bids, m, d),
         "query_intersect": bound(
-            L * (8 * d + bits + 2 * a3 + 8) + nq * (8 * d + bits + 2 * a3)
-            + L * nq + 8 * nq,
-            L * nq * (2 * n_num + bits + 2 * n_adv) + L * nq,
+            4 * (L * kl + nq * kc) + 8 * L + L * nq + 8 * nq,
+            L * nq * (2 * n_num + n_ent + 4 * aw) + L * nq,
         ),
     }
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         ms, plain_ms = times[name]
-        bound_ms, bound_by = bounds[name]
+        bound_ms, bound_by = bounds_ms[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+    n_batches = len(slices)
+    fold_med = float(np.median(fold_ms))
     metrics = {
-        "rows": n_rows, "batch": BATCH, "queries": len(work),
-        "conjuncts": nq, "cuts": C, "adv_cuts": n_adv, "cat_bits": bits,
-        "leaves": L, "nodes": tree.n_nodes, "depth": tree.depth,
+        "rows": n_rows, "batch": BATCH, "batches": n_batches,
+        "queries": len(work), "conjuncts": nq, "cuts": C, "adv_cuts":
+        cuts.n_adv, "cat_bits": bits, "leaves": L, "nodes": tree.n_nodes,
+        "depth": tree.depth, "fine_leaves": fine.n_leaves,
+        "fine_depth": fine.depth,
         "ingest_records_per_s": n_rows / float(np.median(walls)),
-        "ingest_s": {"median": float(np.median(walls)), "min": min(walls),
-                     "max": max(walls), "n": INGEST_REPS},
+        "ingest_s": spread(walls),
+        "ingest_ms_per_batch": float(np.median(walls)) * 1e3 / n_batches,
         "ingest_first_s": report.wall_s,
+        "fine_ingest_first_s": fine_report.wall_s,
         # one ingest under torch.profiler: the union of device activity
         # over that ingest's wall
         "ingest_traced_s": traced.wall_s,
-        "ingest_device_busy_ms": busy_ms,
-        "ingest_fused_kernel_ms": fused_kernel_ms,
-        "ingest_device_busy_share": busy_ms / (traced.wall_s * 1e3),
-        "fold_ms_per_batch": {
-            "median": float(np.median(fold_ms)), "min": min(fold_ms),
-            "max": max(fold_ms), "n": len(fold_ms),
-        },
+        "ingest_device_busy_ms": tr["busy_ms"],
+        "ingest_fused_kernel_ms": tr["fused_kernel_ms"],
+        "ingest_fused_kernel_ms_per_batch": tr["fused_kernel_ms"] / n_batches,
+        "ingest_d2h_copies": tr["d2h_copies"],
+        "ingest_device_busy_share": tr["busy_ms"] / (traced.wall_s * 1e3),
+        # the running accumulator's one copy back + merge, once an ingest;
+        # and that over the batches, beside the per-batch fold it replaced
+        "fold_ms_per_ingest": spread(fold_ms),
+        "fold_ms_per_ingest_over_batches": fold_med / n_batches,
+        "fused_global_on_main_layout_ms": global_on_main_ms,
+        "fused_shared_ms_by_buffers_a_warp": shared_by_stages,
+        "query_intersect_kernel_ms": q_kernel_ms,
         "route_ms_per_batch": route_ms,
         "route_queries_ms": queries_ms,
         "route_query_ms": query_ms,
@@ -512,11 +753,15 @@ def main(argv=None) -> int:
         "selectivity_lower_bound_sample": lower,
         "build_s": build_s, "build_s_per_kernel": per_kernel,
         "datagen_s": datagen_s, "greedy_s": greedy_s,
+        "fine_wait_s": fine_wait_s, "oracle_s": oracle_s,
+        "host_threads": workers,
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         "total_s": time.perf_counter() - t_start,
     }
     print(smi)
     print(f"build seconds: {build_s:.3f}")
+    print(f"fold once an ingest: {fold_med:.6f} ms "
+          f"({fold_med / n_batches:.6f} ms over each of {n_batches} batches)")
     print(json.dumps({"metrics": metrics}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

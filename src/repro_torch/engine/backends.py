@@ -4,15 +4,21 @@ Each backend registers itself under a name and implements the same
 operations against a ``FrozenQdTree``:
 
   * ``route(tree, cache, records, device)``       — record batch → BIDs
+  * ``accumulator(tree, cache, device)``          — a running fold of an
+    ingest stream: ``fold(records, return_bids)`` per batch, one
+    ``partial()`` (a TightenPartial) at the end
   * ``fused_ingest(tree, cache, records, device)`` — BIDs + TightenPartial
+    of one batch (a fresh accumulator)
   * ``query_intersect(tree, cache, wt, device)``   — (n_leaves, n_queries)
     hits and the per-conjunct Eq. 1 scan counts
 
 Two backends, bit-identical:
 
   * ``numpy`` — the oracles in ``repro_torch.core`` / ``kernels/ref.py``;
+    its accumulator is a host ``IncrementalTightener``;
   * ``torch`` — the CUDA kernels on a GPU device, their plain PyTorch
-    versions on ``cpu``.  Its packed operands come from the engine's
+    versions on ``cpu``; its accumulator stays on the device until
+    ``partial()``.  Its packed operands come from the engine's
     :class:`~repro_torch.engine.plan.PlanCache`, built once per tree (and
     per description version, and per workload, for queries).
 
@@ -28,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import query as qry
-from repro_torch.core.qdtree import FrozenQdTree
+from repro_torch.core.qdtree import FrozenQdTree, IncrementalTightener
 from repro_torch.engine import plan as planlib
 from repro_torch.engine.plan import (
     MIN_BUCKET,
@@ -42,7 +48,6 @@ from repro_torch.kernels import fused_ingest as fk
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import query_intersect as qk
 from repro_torch.kernels import route_records as rk
-from repro_torch.kernels.ref import fused_ingest_ref, partial_from_fused
 
 _REGISTRY: dict[str, "Backend"] = {}
 
@@ -87,16 +92,30 @@ class Backend:
               device: torch.device) -> np.ndarray:
         raise NotImplementedError
 
+    def accumulator(self, tree: FrozenQdTree, cache: PlanCache,
+                    device: torch.device):
+        """A running route + tighten fold over any number of batches.
+
+        ``fold(records, return_bids)`` routes a batch and folds it in
+        (its int32 block ids if ``return_bids``, else ``None``);
+        ``partial()`` returns the whole stream's ``TightenPartial``,
+        bit-identical to routing followed by ``IncrementalTightener.update``
+        over every folded record.
+        """
+        raise NotImplementedError
+
     def fused_ingest(self, tree: FrozenQdTree, cache: PlanCache, records,
                      device: torch.device, return_bids: bool = True):
         """One single-pass route + tighten step.
 
-        Returns ``(bids int32 (m,), TightenPartial)``, bit-identical to
-        routing followed by ``IncrementalTightener.update``.
-        ``return_bids=False`` skips the per-row block-id copy to the host;
-        the first element is then ``None``.
+        Returns ``(bids int32 (m,), TightenPartial)`` of a fresh
+        accumulator that folded this batch alone.  ``return_bids=False``
+        skips the per-row block-id copy to the host; the first element is
+        then ``None``.
         """
-        raise NotImplementedError
+        acc = self.accumulator(tree, cache, device)
+        bids = acc.fold(records, return_bids)
+        return bids, acc.partial()
 
     def query_intersect(self, tree: FrozenQdTree, cache: PlanCache,
                         wt: qry.WorkloadTensors, device: torch.device):
@@ -114,14 +133,30 @@ class Backend:
 # ---------------------------------------------------------------------------
 # numpy oracle
 # ---------------------------------------------------------------------------
+class HostAccumulator:
+    """The numpy backend's running fold: a host ``IncrementalTightener``."""
+
+    def __init__(self, tree: FrozenQdTree):
+        self.tree = tree
+        self.tightener = IncrementalTightener(tree)
+
+    def fold(self, records, return_bids: bool = False):
+        rec = as_host(records)
+        bids = self.tree.route(rec)
+        self.tightener.update(rec, bids)
+        return bids if return_bids else None
+
+    def partial(self):
+        return self.tightener.as_partial()
+
+
 @register_backend("numpy")
 class NumpyBackend(Backend):
     def route(self, tree, cache, records, device):
         return tree.route(as_host(records))
 
-    def fused_ingest(self, tree, cache, records, device, return_bids=True):
-        bids, partial = fused_ingest_ref(tree, as_host(records))
-        return (bids if return_bids else None), partial
+    def accumulator(self, tree, cache, device):
+        return HostAccumulator(tree)
 
     def query_intersect(self, tree, cache, wt, device):
         conj = qry.conjuncts_intersect(
@@ -152,6 +187,27 @@ def _on_device(records, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(host).to(device)
 
 
+class DeviceAccumulator:
+    """The torch backend's running fold: aggregates stay on the device.
+
+    Each ``fold`` is one ``fused_ingest`` launch (plus the block ids' copy
+    when asked); ``partial`` copies the aggregates to the host once.
+    """
+
+    def __init__(self, tree: FrozenQdTree, ops: dict, device: torch.device):
+        self.tree = tree
+        self.device = device
+        self.acc = fk.IngestAccumulator(ops)
+
+    def fold(self, records, return_bids: bool = False):
+        bids = self.acc.fold(_on_device(records, self.device),
+                             bids=return_bids)
+        return bids.cpu().numpy() if return_bids else None
+
+    def partial(self):
+        return self.acc.partial(self.tree)
+
+
 @register_backend("torch")
 class TorchBackend(Backend):
     WORKLOAD_PLANS = 16  # workloads whose operands stay on each device
@@ -178,13 +234,9 @@ class TorchBackend(Backend):
         bids = rk.locate_leaf(rk.eval_cuts(rec, ops), ops)
         return bids.cpu().numpy()
 
-    def fused_ingest(self, tree, cache, records, device, return_bids=True):
+    def accumulator(self, tree, cache, device):
         ops = self._tree_plan(tree, cache, device).operands
-        out = fk.fused_ingest(_on_device(records, device), ops)
-        partial = partial_from_fused(tree, out)
-        if not return_bids:
-            return None, partial
-        return out.bids.cpu().numpy(), partial
+        return DeviceAccumulator(tree, ops, device)
 
     def _query_plan(self, tree, cache, device) -> CompiledPlan:
         sig = planlib.tree_signature(tree)
@@ -195,13 +247,13 @@ class TorchBackend(Backend):
 
         def build():
             count_build("query:torch")
-            n_adv = tree.cuts.n_adv
+            layout = kops.query_layout(tree.schema, tree.cuts.n_adv)
             ops = {
-                "leaf": planlib.to_device(planlib.pack_leaf_descs(tree),
-                                          device),
-                "layout": planlib.to_device(
-                    kops.query_layout(tree.schema, n_adv), device
+                "leaf": planlib.to_device(
+                    planlib.pack_leaf_descs(tree, layout), device
                 ),
+                "layout": planlib.to_device(layout, device),
+                "host_layout": layout,
             }
             # tightening superseded any older description plan: drop it so
             # long ingest/score loops keep one device copy per tree
@@ -218,9 +270,11 @@ class TorchBackend(Backend):
 
         return cache.get(key, build)
 
-    def _workload_plan(self, wt, n_adv, cache, device) -> CompiledPlan:
-        """Conjunct operands, once per workload content and device."""
-        opts = ("workload", n_adv, str(device))
+    def _workload_plan(self, tree, wt, layout, cache,
+                       device) -> CompiledPlan:
+        """Conjunct operands, once per workload content, schema and cut
+        table (which fix the packing), and device."""
+        opts = ("workload", planlib.cuts_signature(tree.cuts), str(device))
         key = PlanKey(planlib.workload_signature(wt), "torch", 0, 0, 0, 0,
                       opts)
 
@@ -231,14 +285,14 @@ class TorchBackend(Backend):
                 lambda k: isinstance(k, PlanKey) and k.opts == opts,
                 keep=self.WORKLOAD_PLANS - 1,
             )
-            ops = planlib.to_device(kops.pack_workload(wt, n_adv), device)
+            ops = planlib.to_device(kops.pack_workload(wt, layout), device)
             return CompiledPlan(key=key, operands=ops, meta={})
 
         return cache.get(key, build)
 
     def query_intersect(self, tree, cache, wt, device):
         ops = self._query_plan(tree, cache, device).operands
-        conj = self._workload_plan(wt, tree.cuts.n_adv, cache,
+        conj = self._workload_plan(tree, wt, ops["host_layout"], cache,
                                    device).operands
         hits, scanned = qk.query_intersect(ops["leaf"], conj, ops["layout"])
         conj_hits = hits.cpu().numpy().astype(bool)

@@ -332,9 +332,12 @@ class LayoutEngine:
         descriptions, exactly equivalent to one-shot tightening over the
         concatenation of all batches (min/max/any are associative).
 
-        ``fused=True`` (the default) takes the single-pass path —
-        :meth:`fused_step` per batch, partials folded via ``merge``;
-        ``fused=False`` routes, then tightens on the host.  With
+        ``fused=True`` (the default) takes the single-pass path: each
+        batch is folded into the backend's running accumulator (on the
+        torch backend one ``fused_ingest`` launch a batch, the aggregates
+        kept on the device), and after the last batch its one partial is
+        merged into the tightener; ``fused=False`` routes, then tightens
+        on the host.  With
         ``observe``, every batch is also scored against the workload's
         per-leaf hit counts (Eq. 1 restricted to the batch) and the
         :class:`WindowStat` goes to ``on_observation``; the run's total
@@ -352,14 +355,16 @@ class LayoutEngine:
         use_fused = fused and tightener is not None
         n_batches = n_records = 0
         t0 = time.perf_counter()
+        acc = (
+            self._backend(backend).accumulator(self.tree, self.plans,
+                                               self.device)
+            if use_fused else None
+        )
         for batch in batches:
             if batch.shape[0] == 0:
                 continue
             if use_fused:
-                bids, part = self.fused_step(
-                    batch, backend=backend, return_bids=probe is not None
-                )
-                tightener.merge(part)
+                bids = acc.fold(batch, return_bids=probe is not None)
             else:
                 bids = self.route(batch, backend=backend)
                 if tightener is not None:
@@ -373,6 +378,8 @@ class LayoutEngine:
                     on_observation(stat)
             n_batches += 1
             n_records += batch.shape[0]
+        if use_fused:
+            tightener.merge(acc.partial())
         if tightener is not None:
             tightener.apply()
             sizes = tightener.counts.copy()

@@ -33,9 +33,10 @@ from typing import Any, Callable, Hashable
 import numpy as np
 import torch
 
-from repro_torch.core.predicates import CutTable
+from repro_torch.core.predicates import KIND_ADV, KIND_RANGE, CutTable
 from repro_torch.core.qdtree import FrozenQdTree
 from repro_torch.core.routing import cut_table_arrays
+from repro_torch.kernels.ops import pack_words, words
 
 MIN_BUCKET = 32  # one warp: the smallest bucket a size rounds up to
 
@@ -244,59 +245,116 @@ def path_matrices(tree: FrozenQdTree) -> tuple[np.ndarray, np.ndarray]:
     return pos, neg
 
 
+def pack_nodes(tree: FrozenQdTree) -> np.ndarray:
+    """(n_nodes, 4) int32: each node, its cut included, as one 16-byte load.
+
+    ``(meta, left, right, w)``; a leaf is ``(0, block id, -1, 0)``.  The
+    cut's kind sits in ``meta``'s top two bits and a column in its low 12:
+
+    * range: ``meta = dim``, ``w`` the cutpoint (``rec[dim] < w``);
+    * IN: ``meta = 1 << 30 | cat_off[dim] << 12 | dim``, ``w`` the cut's
+      first byte in ``in_mask`` (``c * bits``);
+    * advanced: ``meta = 2 << 30 | op << 24 | col_b << 12 | col_a``.
+
+    So a descent reads no cut table but ``in_mask``.  Raises when a column
+    index, a bit offset or an in_mask offset does not fit its field.
+    """
+    cuts = tree.cuts
+    ca = cut_table_arrays(cuts)
+    bits = int(ca["in_mask"].shape[1])
+    c = tree.cut_id.astype(np.int64)
+    internal = c >= 0
+    cc = np.where(internal, c, cuts.n_cuts)  # leaves read a dummy cut
+
+    def per_cut(a):
+        return np.append(np.asarray(a, np.int64), 0)[cc]
+
+    kind, dim = per_cut(ca["kind"]), per_cut(ca["dim"])
+    adv = np.concatenate([ca["adv"].astype(np.int64), np.zeros((1, 3),
+                                                               np.int64)])
+    a = adv[np.where(kind == KIND_ADV, per_cut(ca["adv_id"]), -1)]
+    col_a, op, col_b = a[:, 0], a[:, 1], a[:, 2]
+    off = ca["cat_off"].astype(np.int64)[dim]
+    fields = ((dim, 1 << 12), (col_a, 1 << 12), (col_b, 1 << 12),
+              (off, 1 << 18), (op, 1 << 6), (cc * bits, 1 << 31))
+    if any(((v[internal] < 0) | (v[internal] >= top)).any()
+           for v, top in fields):
+        raise ValueError("a cut does not fit the packed node format")
+    meta = np.select(
+        [kind == KIND_RANGE, kind == KIND_ADV],
+        [dim, 2 << 30 | op << 24 | col_b << 12 | col_a],
+        1 << 30 | off << 12 | dim,
+    )
+    w = np.where(kind == KIND_RANGE, per_cut(ca["cutpoint"]),
+                 np.where(kind == KIND_ADV, 0, cc * bits))
+    out = np.stack([
+        np.where(internal, meta, 0),
+        np.where(internal, tree.left, tree.leaf_bid),
+        np.where(internal, tree.right, -1),
+        np.where(internal, w, 0),
+    ], axis=1)
+    # meta's top bit makes advanced nodes negative as int32: wrap, not clip
+    return np.ascontiguousarray(out.astype(np.uint32).view(np.int32))
+
+
 def pack_route_constants(tree: FrozenQdTree) -> dict:
     """Operands of the route and ingest kernels (numpy, host).
 
     The cut table (:func:`~repro_torch.core.routing.cut_table_arrays`), the
-    node arrays the kernels descend, the path matrices the plain
-    ``locate_leaf`` uses, the categorical dims whose presence bits ingest
-    sets, and the integer sizes.
+    node arrays the kernels descend (``nodes`` packed for the ingest
+    kernels), the path matrices the plain ``locate_leaf`` uses, the
+    categorical dims whose presence bits ingest sets, and the integer
+    sizes: ``cw``/``aw`` are the 32-bit words a leaf's categorical and
+    advanced-cut bits take.
     """
     schema = tree.schema
     out: dict = dict(cut_table_arrays(tree.cuts))
     pos, neg = path_matrices(tree)
+    bits = int(out["in_mask"].shape[1])
     out.update(
         cut_id=tree.cut_id.astype(np.int32),
         left=np.maximum(tree.left, 0).astype(np.int32),
         right=np.maximum(tree.right, 0).astype(np.int32),
         leaf_bid=tree.leaf_bid.astype(np.int32),
+        nodes=pack_nodes(tree),
         pathpos=pos,
         pathneg=neg,
         cat_dims=np.nonzero(schema.is_categorical)[0].astype(np.int32),
         depth=int(tree.depth),
         n_leaves=int(tree.n_leaves),
         n_adv=int(tree.cuts.n_adv),
-        bits=int(out["in_mask"].shape[1]),
+        bits=bits,
+        cw=words(bits),
+        aw=words(tree.cuts.n_adv),
     )
     return out
 
 
-def pack_leaf_descs(tree: FrozenQdTree) -> dict:
+def pack_leaf_descs(tree: FrozenQdTree, layout: dict) -> dict:
     """Leaf descriptions and block sizes for the query kernel (numpy, host).
 
-    ``size`` is the tree's block sizes from its last tightening (zeros for
-    a tree never tightened).
+    ``desc`` holds one int32 row per leaf: numeric lo, numeric hi (the
+    columns ``layout["num_dims"]``), the categorical bits 32 to a word,
+    then the advanced-cut bits seen true and seen false, ``layout["aw"]``
+    words each (:func:`repro_torch.kernels.ops.query_layout`).  ``size``
+    is the tree's block sizes from its last tightening (zeros for a tree
+    never tightened).
     """
     L = tree.n_leaves
-    n_adv = tree.cuts.n_adv
-    a3 = max(n_adv, 1)
-    advt = np.zeros((L, a3), np.uint8)
-    advf = np.zeros((L, a3), np.uint8)
-    advt[:, :n_adv] = tree.leaf_adv[:, :, 0]
-    advf[:, :n_adv] = tree.leaf_adv[:, :, 1]
+    nd, n_adv, aw = layout["num_dims"], layout["n_adv"], layout["aw"]
+    adv = tree.leaf_adv[:, :n_adv].astype(bool)
+    desc = np.concatenate([
+        tree.leaf_lo[:, nd], tree.leaf_hi[:, nd],
+        pack_words(tree.leaf_cat.astype(bool), layout["cw"]),
+        pack_words(adv[:, :, 0], aw), pack_words(adv[:, :, 1], aw),
+    ], axis=1)
     sizes = (
         np.zeros(L, np.int64)
         if tree.block_sizes is None
         else np.asarray(tree.block_sizes, np.int64)
     )
-    return {
-        "leaf_lo": tree.leaf_lo.astype(np.int32),
-        "leaf_hi": tree.leaf_hi.astype(np.int32),
-        "leaf_cat": np.ascontiguousarray(tree.leaf_cat, dtype=np.uint8),
-        "leaf_advt": advt,
-        "leaf_advf": advf,
-        "size": sizes,
-    }
+    return {"desc": np.ascontiguousarray(desc, dtype=np.int32),
+            "size": sizes}
 
 
 def to_device(packed: dict, device) -> dict:

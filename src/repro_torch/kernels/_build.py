@@ -10,7 +10,8 @@ nvcc process per source, all started together.
 
 Every launch function takes ``c_void_p`` for each pointer and for the
 stream, and returns ``cudaGetLastError()``; :func:`check` raises on a
-non-zero code.  :data:`LAUNCHES` counts the launches each wrapper made.
+non-zero code.  :data:`LAUNCHES` counts the launches each wrapper made,
+by kernel (:data:`LAUNCH_NAMES`).
 """
 
 from __future__ import annotations
@@ -42,20 +43,24 @@ _ARGTYPES = {
     "eval_cuts": [P, I64, I32, P, P, P, P, I32, I32, P, P, P, P, P],
     "locate_leaf": [P, I64, I32, P, P, P, P, I32, P, P],
     "fused_ingest": [
-        P, I64, I32, P, P, P, P, I32, I32, P, P, P,  # records + cut table
-        P, P, P, P, I32,  # tree
-        P, I32, I32,  # cat dims, n_adv
-        P, P, P, P, P, P, P, I32,  # bids + aggregates
+        P, I64, I32, P, I32,  # records, nodes, depth
+        P, P, I32, P, P, I32, I32,  # cut table, cat dims, n_adv
+        P, P, P, P, P, P, P,  # bids (or null) + accumulators
+        I32, I32, I32, I32, I32,  # sizes, variant, stages
+        ctypes.POINTER(I32),  # chosen
         P,  # stream
     ],
     "query_intersect": [
-        P, P, P, P, P, P, I32,  # leaves
-        P, P, P, P, P, I32,  # conjuncts
-        P, I32, P, P, I32, I32, I32, I32, I32,  # layout
+        P, P, I32, P, I32,  # leaf rows, sizes, conjunct rows
+        P, P, I32, I32, I32, I32, I32,  # segments and widths
         P, P,  # hits, scanned
         P,  # stream
     ],
 }
+
+# the kernels each launch counter stands for (fused_ingest.cu holds two)
+LAUNCH_NAMES = ("eval_cuts", "locate_leaf", "fused_ingest_shared",
+                "fused_ingest_global", "query_intersect")
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -65,7 +70,7 @@ BUILD_SECONDS: dict[str, float] = {}  # guarded by: _LOCK
 
 
 def launch_counts() -> dict[str, int]:
-    return {k: LAUNCHES.get(k, 0) for k in KERNELS}
+    return {k: LAUNCHES.get(k, 0) for k in LAUNCH_NAMES}
 
 
 def reset_launch_counts() -> None:

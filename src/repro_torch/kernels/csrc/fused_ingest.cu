@@ -1,115 +1,405 @@
-// fused_ingest: route a batch and reduce it per leaf in one pass.
+// fused_ingest: route a batch and fold it, per leaf, into running
+// accumulators that live on the device across batches.
 //
 // Replaces the Pallas kernel fused_ingest_pallas / _fused_ingest_kernel
 // (src/repro/kernels/fused_ingest.py).  The TPU version evaluated every
 // candidate cut of a record tile, located leaves by path-constraint
 // products, and folded per-leaf aggregates into full-array accumulators
 // that stayed resident because its grid ran in order on one core.  CUDA
-// blocks run in parallel and in no order, so here:
+// blocks run in parallel and in no order.  Here each record descends the
+// node arrays and evaluates only the cuts on its own root path, then folds
+// into per-leaf aggregates: count, min and max of every column, the
+// categorical values present and the advanced-cut truth values seen
+// (packed 32 to a word).  Min, max, or and integer add are associative
+// and commutative, so the result is exact and the same whatever order the
+// atomics land in, and folding batch after batch into one set of
+// accumulators equals folding their concatenation.
 //
-//  * one thread per record descends the node arrays and evaluates only
-//    the cuts on its own root path (depth cuts, not all n_cuts);
-//  * it folds its record into int32 per-leaf accumulators with atomics:
-//    atomicAdd (counts), atomicMin / atomicMax (lo / hi of every column)
-//    and an idempotent byte store of 1 (categorical presence, advanced-
-//    cut truth and falsity bits).  Min, max, or and integer add are
-//    associative and commutative, so the result is exact and the same
-//    whatever order the atomics land in.
-//  * each atomic is skipped when a plain read already shows it cannot
-//    change the value.  A stale read only ever overstates lo (understates
-//    hi), so it can cost an extra atomic but never skip a needed one.
+// Two kernels, chosen by shape (fused_ingest_launch):
+//
+//  * fused_ingest_shared: a persistent grid, about one block per SM.  Each
+//    block keeps the whole tree's aggregates in dynamic shared memory
+//    (142 KB at 724 leaves x 21 columns), so a record's 40-odd atomics are
+//    shared-memory atomics.  Each warp stages contiguous tiles of 32 rows
+//    with 16-byte cp.async into its own buffers (two, double-buffered,
+//    when 32 warps fit so; else one, for twice the warps), so record reads
+//    coalesce; each lane then reads its row from shared memory.  At the
+//    end the block folds its aggregates into the running accumulators
+//    with read-checked global atomics, eight reads in flight a thread.
+//
+// The descent is latency-bound: a level's node load waits on the last.
+// Each node carries its whole cut (engine/plan.py::pack_nodes), so a level
+// is one 16-byte node load, a shared-memory read of the record and, on an
+// IN cut, one in_mask byte; no cut table is read.
+//  * fused_ingest_global: for a tree whose aggregates do not fit a block's
+//    shared memory.  One thread per record, read-checked global atomics
+//    straight into the running accumulators.
+//
+// Every atomic is skipped when a plain read already shows it cannot change
+// the value.  Values only ever move one way (lo down, hi up, bits on), so a
+// stale read can cost an extra atomic but never skip a needed one.
 //
 // Bound: bytes.  It reads m * D * 4 bytes of records (88 MB for 2**20
-// TPC-H-like rows) and writes 4 bytes of block id a record plus the
-// per-leaf aggregates.  Contention on hot leaves is the known cost of this
-// simple design; pre-aggregating in shared memory is later work.
+// TPC-H-like rows), writes 4 bytes of block id a record when asked, and
+// reads and writes the accumulators once.
 
 #include "common.cuh"
 
 namespace {
 
-struct Tree {
-  const int32_t* cut_id;
-  const int32_t* left;
-  const int32_t* right;
-  const int32_t* leaf_bid;
+constexpr int kMaxWarps = 32;  // 1024 threads, one block a SM
+constexpr int kMinWarps = 4;   // below this the global kernel is chosen
+
+// A node of the tree with its cut, packed for the descent
+// (engine/plan.py::pack_nodes): (meta, left, right, w); a leaf is
+// (0, block id, -1, 0).  meta's top two bits hold the cut's kind and its
+// low 12 bits a column: range: meta = dim, w = cutpoint; IN: meta =
+// 1 << 30 | cat_off[dim] << 12 | dim, w = the cut's first in_mask byte;
+// advanced: meta = 2 << 30 | op << 24 | col_b << 12 | col_a.
+struct Ingest {
+  const int32_t* records;  // (m, d)
+  int64_t m;
+  int d;
+  const int4* nodes;  // (n_nodes,)
   int depth;
+  const int32_t* cat_off;  // (d,)
+  const uint8_t* in_mask;  // (n_cuts, bits)
+  int bits;
+  const int32_t* adv;       // (A, 3) rows (col_a, op, col_b)
+  const int32_t* cat_dims;  // categorical columns
+  int n_cat_dims;
+  int n_adv;
+  int32_t* bids;  // (m,) or null: no block ids wanted
 };
 
-struct Aggregates {
-  int32_t* counts;  // (L,)
-  int32_t* lo;      // (L, D) init INT32_MAX
-  int32_t* hi;      // (L, D) init INT32_MIN; max, not max + 1
-  uint8_t* cat;     // (L, bits)
-  uint8_t* advt;    // (L, adv_stride)
-  uint8_t* advf;    // (L, adv_stride)
-  int adv_stride;
+// The running accumulators (kernels/fused_ingest.py::IngestAccumulator).
+struct Acc {
+  unsigned long long* counts;  // (L,) int64
+  int32_t* lo;                 // (L, d), INT32_MAX where empty
+  int32_t* hi;                 // (L, d), INT32_MIN where empty; max, not max+1
+  uint32_t* cat;               // (L, cw) categorical value bits
+  uint32_t* advt;              // (L, aw) advanced cut seen true
+  uint32_t* advf;              // (L, aw) advanced cut seen false
+  int n_leaves, cw, aw;
 };
 
-__device__ __forceinline__ void set_flag(uint8_t* p) {
-  if (*p == 0) *p = 1;
+// Walk from the root to the record's leaf.  Besides the node and the
+// record's row, only an IN node reads memory (one in_mask byte).
+__device__ __forceinline__ int descend(const int32_t* rec, const Ingest& in) {
+  int4 n = __ldg(in.nodes);
+  for (int level = 0; level < in.depth && n.z >= 0; ++level) {
+    const unsigned meta = (unsigned)n.x;
+    const int32_t v = rec[meta & 0xFFF];
+    const unsigned kind = meta >> 30;
+    bool left;
+    if (kind == KIND_RANGE) {
+      left = v < n.w;
+    } else if (kind == KIND_IN) {
+      int pos = v + (int)((meta >> 12) & 0x3FFFF);
+      pos = min(max(pos, 0), in.bits - 1);  // same clip as the plain version
+      left = __ldg(in.in_mask + (int64_t)n.w + pos) != 0;
+    } else {
+      left = adv_true((meta >> 24) & 0x3F, v, rec[(meta >> 12) & 0xFFF]);
+    }
+    n = __ldg(in.nodes + (left ? n.y : n.z));
+  }
+  return n.y;
 }
 
-__global__ void fused_ingest_kernel(const int32_t* __restrict__ records,
-                                    int64_t m, int d, CutTable t, Tree tree,
-                                    const int32_t* __restrict__ cat_dims,
-                                    int n_cat_dims, int n_adv,
-                                    int32_t* __restrict__ bids,
-                                    Aggregates agg) {
-  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < m;
-       r += (int64_t)gridDim.x * blockDim.x) {
-    const int32_t* rec = records + r * d;
-    int node = 0;
-    for (int level = 0; level < tree.depth; ++level) {
-      const int c = tree.cut_id[node];
-      if (c < 0) break;
-      node = eval_cut(rec, c, t) ? tree.left[node] : tree.right[node];
-    }
-    const int leaf = tree.leaf_bid[node];
-    bids[r] = leaf;
+__device__ __forceinline__ void or_bit(uint32_t* word, uint32_t bit) {
+  if ((*word & bit) == 0) atomicOr(word, bit);
+}
 
-    atomicAdd(agg.counts + leaf, 1);
-    int32_t* lo = agg.lo + (int64_t)leaf * d;
-    int32_t* hi = agg.hi + (int64_t)leaf * d;
-    for (int j = 0; j < d; ++j) {
-      const int32_t v = rec[j];
-      if (v < lo[j]) atomicMin(lo + j, v);
-      if (v > hi[j]) atomicMax(hi + j, v);
+// The small tables a record's fold reads: categorical columns and their
+// bit offsets, advanced predicates as (col_a, op, col_b) rows.
+struct FoldTables {
+  const int32_t* cat_dims;
+  const int32_t* cat_off;
+  const int32_t* adv;
+  int n_cat_dims, n_adv, bits;
+};
+
+// Fold one record (row `rec`, block `leaf`) into a set of accumulators
+// whose per-leaf rows start at the given pointers.  Used on shared and on
+// global memory alike; inlined, so each call site's atomics address the
+// right space.
+__device__ __forceinline__ void fold_record(const int32_t* rec, int d,
+                                            const FoldTables& t, int32_t* lo,
+                                            int32_t* hi, uint32_t* cat,
+                                            uint32_t* advt, uint32_t* advf) {
+  for (int j = 0; j < d; ++j) {
+    const int32_t v = rec[j];
+    if (v < lo[j]) atomicMin(lo + j, v);
+    if (v > hi[j]) atomicMax(hi + j, v);
+  }
+  for (int k = 0; k < t.n_cat_dims; ++k) {
+    const int dd = t.cat_dims[k];
+    int pos = rec[dd] + t.cat_off[dd];
+    pos = min(max(pos, 0), t.bits - 1);
+    or_bit(cat + (pos >> 5), 1u << (pos & 31));
+  }
+  for (int a = 0; a < t.n_adv; ++a) {
+    const int32_t* p = t.adv + 3 * a;
+    const bool truth = adv_true(p[1], rec[p[0]], rec[p[2]]);
+    or_bit((truth ? advt : advf) + (a >> 5), 1u << (a & 31));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// cp.async staging of a warp's tile of 32 rows
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issue the copies of tile `tile` (rows 32*tile ..) into `dst`.  A tile
+// starts 128 * d bytes after the previous one, so with a 16-byte aligned
+// batch every 16-byte chunk is aligned; a ragged tail or an unaligned
+// batch goes 4 bytes at a time.
+__device__ __forceinline__ void stage_tile(int32_t* dst, const Ingest& in,
+                                           int64_t tile, int lane,
+                                           bool vec) {
+  const int64_t row0 = tile * 32;
+  const int rows = (int)min((int64_t)32, in.m - row0);
+  const int n = rows * in.d;
+  const int32_t* src = in.records + row0 * in.d;
+  int done = 0;
+  if (vec) {
+    const int nv = n >> 2;
+    for (int i = lane; i < nv; i += 32) cp_async16(dst + 4 * i, src + 4 * i);
+    done = nv << 2;
+  }
+  for (int i = done + lane; i < n; i += 32) cp_async4(dst + i, src + i);
+}
+
+// Fold the block's aggregates `s` into the running ones `g`, read-checked:
+// kFlushBatch independent reads in flight a thread, then their atomics.
+constexpr int kFlushBatch = 8;
+
+template <typename T, typename Op>
+__device__ __forceinline__ void flush(const T* s, T* g, int n, Op op) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += kFlushBatch * blockDim.x) {
+    T seen[kFlushBatch];
+#pragma unroll
+    for (int u = 0; u < kFlushBatch; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n) seen[u] = __ldcg(g + i);
     }
-    uint8_t* cat = agg.cat + (int64_t)leaf * t.bits;
-    for (int k = 0; k < n_cat_dims; ++k) {
-      const int dd = cat_dims[k];
-      const int pos = min(max(rec[dd] + t.cat_off[dd], 0), t.bits - 1);
-      set_flag(cat + pos);
-    }
-    const int64_t arow = (int64_t)leaf * agg.adv_stride;
-    for (int a = 0; a < n_adv; ++a) {
-      const int32_t* p = t.adv + 3 * a;
-      set_flag((adv_true(p[1], rec[p[0]], rec[p[2]]) ? agg.advt : agg.advf) +
-               arow + a);
+#pragma unroll
+    for (int u = 0; u < kFlushBatch; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n) op(g + i, s[i], seen[u]);
     }
   }
 }
 
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    fused_ingest_shared(Ingest in, Acc g, int stages) {
+  extern __shared__ __align__(16) int32_t smem[];
+  const int L = g.n_leaves, d = in.d;
+  const int nwarps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  // [stage: nwarps x stages x 32 rows][counts L][lo L*d][hi L*d][cat]
+  // [advt][advf][cat_dims][cat_off d][adv 3 x n_adv]
+  int32_t* stage = smem;
+  int32_t* s_counts = stage + nwarps * stages * 32 * d;
+  int32_t* s_lo = s_counts + L;
+  int32_t* s_hi = s_lo + L * d;
+  uint32_t* s_cat = reinterpret_cast<uint32_t*>(s_hi + L * d);
+  uint32_t* s_advt = s_cat + L * g.cw;
+  uint32_t* s_advf = s_advt + L * g.aw;
+  int32_t* s_cat_dims = reinterpret_cast<int32_t*>(s_advf + L * g.aw);
+  int32_t* s_cat_off = s_cat_dims + in.n_cat_dims;
+  int32_t* s_adv = s_cat_off + d;
+
+  for (int i = threadIdx.x; i < L; i += blockDim.x) s_counts[i] = 0;
+  for (int i = threadIdx.x; i < L * d; i += blockDim.x) {
+    s_lo[i] = INT32_MAX;
+    s_hi[i] = INT32_MIN;
+  }
+  for (int i = threadIdx.x; i < L * (g.cw + 2 * g.aw); i += blockDim.x)
+    s_cat[i] = 0;  // cat, advt and advf are contiguous
+  for (int i = threadIdx.x; i < in.n_cat_dims; i += blockDim.x)
+    s_cat_dims[i] = in.cat_dims[i];
+  for (int i = threadIdx.x; i < d; i += blockDim.x)
+    s_cat_off[i] = in.cat_off[i];
+  for (int i = threadIdx.x; i < 3 * in.n_adv; i += blockDim.x)
+    s_adv[i] = in.adv[i];
+  __syncthreads();
+  const FoldTables tables{s_cat_dims, s_cat_off, s_adv, in.n_cat_dims,
+                          in.n_adv, in.bits};
+
+  // each warp walks its own tiles of 32 rows.  Two stages: the next tile
+  // is copied while this one is folded.  One stage: the next tile's copy
+  // is issued after this one is folded, and other warps hide it.
+  const int64_t tiles = (in.m + 31) / 32;
+  const int64_t stride = (int64_t)gridDim.x * nwarps;
+  const bool vec = (reinterpret_cast<uintptr_t>(in.records) & 15) == 0;
+  int32_t* cur = stage + warp * stages * 32 * d;
+  int32_t* nxt = stages == 2 ? cur + 32 * d : cur;
+  int64_t t = (int64_t)blockIdx.x * nwarps + warp;
+  if (t < tiles) stage_tile(cur, in, t, lane, vec);
+  cp_async_commit();
+  for (; t < tiles; t += stride) {
+    if (stages == 2) {
+      if (t + stride < tiles) stage_tile(nxt, in, t + stride, lane, vec);
+      cp_async_commit();
+      cp_async_wait<1>();  // this tile's copies have landed (own lane's)
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();  // ... and every lane's
+    const int64_t r = t * 32 + lane;
+    if (r < in.m) {
+      const int32_t* rec = cur + lane * d;
+      const int leaf = descend(rec, in);
+      if (in.bids != nullptr) in.bids[r] = leaf;
+      atomicAdd(s_counts + leaf, 1);
+      fold_record(rec, d, tables, s_lo + leaf * d, s_hi + leaf * d,
+                  s_cat + leaf * g.cw, s_advt + leaf * g.aw,
+                  s_advf + leaf * g.aw);
+    }
+    __syncwarp();  // every lane is done with `cur` before it is refilled
+    if (stages == 1) {
+      if (t + stride < tiles) stage_tile(cur, in, t + stride, lane, vec);
+      cp_async_commit();
+    } else {
+      int32_t* done = cur;
+      cur = nxt;
+      nxt = done;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // flush the block's aggregates into the running accumulators
+  for (int i = threadIdx.x; i < L; i += blockDim.x) {
+    const int c = s_counts[i];
+    if (c) atomicAdd(g.counts + i, (unsigned long long)c);
+  }
+  flush(s_lo, g.lo, L * d, [](int32_t* p, int32_t v, int32_t seen) {
+    if (v < seen) atomicMin(p, v);
+  });
+  flush(s_hi, g.hi, L * d, [](int32_t* p, int32_t v, int32_t seen) {
+    if (v > seen) atomicMax(p, v);
+  });
+  const auto bits_or = [](uint32_t* p, uint32_t v, uint32_t seen) {
+    if ((seen & v) != v) atomicOr(p, v);
+  };
+  flush(s_cat, g.cat, L * g.cw, bits_or);
+  flush(s_advt, g.advt, L * g.aw, bits_or);
+  flush(s_advf, g.advf, L * g.aw, bits_or);
+}
+
+__global__ void fused_ingest_global(Ingest in, Acc g) {
+  const int d = in.d;
+  const FoldTables tables{in.cat_dims, in.cat_off, in.adv, in.n_cat_dims,
+                          in.n_adv, in.bits};
+  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < in.m;
+       r += (int64_t)gridDim.x * blockDim.x) {
+    const int32_t* rec = in.records + r * d;
+    const int leaf = descend(rec, in);
+    if (in.bids != nullptr) in.bids[r] = leaf;
+    atomicAdd(g.counts + leaf, 1ull);
+    fold_record(rec, d, tables, g.lo + (int64_t)leaf * d,
+                g.hi + (int64_t)leaf * d,
+                g.cat + (int64_t)leaf * g.cw, g.advt + (int64_t)leaf * g.aw,
+                g.advf + (int64_t)leaf * g.aw);
+  }
+}
+
+// Shared memory of fused_ingest_shared for `warps` warps of `stages`
+// tile buffers each.
+long long shared_bytes(int n_leaves, int d, int cw, int aw, int n_cat_dims,
+                       int n_adv, int warps, int stages) {
+  return 4LL * n_leaves * (1 + 2LL * d + cw + 2LL * aw) +
+         4LL * (n_cat_dims + d + 3 * n_adv) + 4LL * warps * stages * 32 * d;
+}
+
 }  // namespace
 
+// variant: 0 chooses by shape, 1 forces the shared kernel, 2 the global
+// one.  The shared kernel takes as many warps as fit beside the aggregates
+// (at most 32): two tile buffers a warp while 32 warps fit so, else one
+// buffer a warp, which doubles the warps that fit.  Below kMinWarps warps
+// the global kernel is chosen.  stages: 0 as just said, 1 or 2 forces the
+// buffers a warp.  *chosen gets the kernel launched (1 or 2).  Returns a
+// cudaError_t: a refused shared-memory request or launch is returned,
+// never worked around.
 extern "C" int fused_ingest_launch(
-    const int32_t* records, int64_t m, int d, const int32_t* kind,
-    const int32_t* dim, const int32_t* cutpoint, const uint8_t* in_mask,
-    int n_cuts, int bits, const int32_t* cat_off, const int32_t* adv,
-    const int32_t* adv_id, const int32_t* cut_id, const int32_t* left,
-    const int32_t* right, const int32_t* leaf_bid, int depth,
-    const int32_t* cat_dims, int n_cat_dims, int n_adv, int32_t* bids,
-    int32_t* counts, int32_t* lo, int32_t* hi, uint8_t* cat, uint8_t* advt,
-    uint8_t* advf, int adv_stride, void* stream) {
-  CutTable t{kind, dim, cutpoint, in_mask, cat_off, adv, adv_id, n_cuts,
-             bits};
-  Tree tree{cut_id, left, right, leaf_bid, depth};
-  Aggregates agg{counts, lo, hi, cat, advt, advf, adv_stride};
-  const int threads = 256;
-  fused_ingest_kernel<<<grid_for(m, threads), threads, 0,
-                        (cudaStream_t)stream>>>(records, m, d, t, tree,
-                                                cat_dims, n_cat_dims, n_adv,
-                                                bids, agg);
+    const int32_t* records, int64_t m, int d, const int32_t* nodes,
+    int depth, const int32_t* cat_off, const uint8_t* in_mask, int bits,
+    const int32_t* adv, const int32_t* cat_dims, int n_cat_dims, int n_adv,
+    int32_t* bids, void* counts, int32_t* lo, int32_t* hi, int32_t* cat,
+    int32_t* advt, int32_t* advf, int n_leaves, int cw, int aw, int variant,
+    int stages, int* chosen, void* stream) {
+  Ingest in{records, m, d, reinterpret_cast<const int4*>(nodes), depth,
+            cat_off, in_mask, bits, adv, cat_dims, n_cat_dims, n_adv, bids};
+  Acc g{reinterpret_cast<unsigned long long*>(counts), lo, hi,
+        reinterpret_cast<uint32_t*>(cat), reinterpret_cast<uint32_t*>(advt),
+        reinterpret_cast<uint32_t*>(advf), n_leaves, cw, aw};
+  cudaStream_t st = (cudaStream_t)stream;
+  int dev = 0, optin = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (!err)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (!err)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err) return (int)err;
+
+  const long long fixed =
+      shared_bytes(n_leaves, d, cw, aw, n_cat_dims, n_adv, 0, 1);
+  const long long tile = shared_bytes(0, d, cw, aw, 0, 0, 1, 1);
+  const auto fit = [&](int s) {
+    const long long w = optin > fixed ? (optin - fixed) / (s * tile) : 0;
+    return (int)(w > kMaxWarps ? kMaxWarps : w);
+  };
+  if (stages != 1 && stages != 2) stages = fit(2) >= kMaxWarps ? 2 : 1;
+  const int warps_fit = fit(stages);
+  if (variant == 0) variant = warps_fit >= kMinWarps ? 1 : 2;
+  *chosen = variant;
+
+  if (variant == 1) {
+    const int warps = warps_fit < 1 ? 1 : warps_fit;
+    const long long smem = fixed + (long long)warps * stages * tile;
+    err = cudaFuncSetAttribute(fused_ingest_shared,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)(smem > INT32_MAX ? INT32_MAX : smem));
+    int per_sm = 0;
+    if (!err)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, fused_ingest_shared, warps * 32, (size_t)smem);
+    if (err) {
+      cudaGetLastError();  // clear it: the next launch must not see it
+      return (int)err;
+    }
+    const int64_t tiles = (m + 31) / 32;
+    int64_t blocks = (tiles + warps - 1) / warps;
+    const int64_t cap = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+    if (blocks > cap) blocks = cap;
+    fused_ingest_shared<<<(unsigned)blocks, warps * 32, (size_t)smem, st>>>(
+        in, g, stages);
+  } else {
+    const int threads = 256;
+    fused_ingest_global<<<grid_for(m, threads), threads, 0, st>>>(in, g);
+  }
   return (int)cudaGetLastError();
 }

@@ -1,119 +1,176 @@
-// query_intersect: block x conjunct hit matrix and the Eq. 1 scan count.
+// query_intersect: block x conjunct hit matrix and the Eq. 1 scan count,
+// in one launch.
 //
 // Replaces the Pallas kernel query_intersect_pallas / _intersect_kernel
 // (src/repro/kernels/query_intersect.py).  The TPU version tested the
 // categorical segments with a mask matrix product per segment and carried
-// the scanned sum across its sequential leaf-tile grid.  Here:
+// the scanned sum across its sequential leaf-tile grid.  Here the
+// operands are packed once, at plan build (engine/plan.py::pack_leaf_descs,
+// kernels/ops.py::pack_workload), into one int32 row per leaf and per
+// conjunct: numeric lo and hi, the categorical bits 32 to a word (a
+// conjunct's words already ANDed with each segment's word masks) and the
+// advanced-cut bits.  A pair (leaf, conjunct) then hits iff
 //
-//  * hits: one thread per (leaf, conjunct) tests numeric box overlap
-//    (max lo < min hi on every numeric column), at least one shared bit in
-//    every categorical segment, and advanced-cut polarity; neighbouring
-//    threads take neighbouring conjuncts, so the byte stores coalesce.
-//  * scanned: a second launch, one thread per conjunct, sums
-//    size[l] * hit[l, c] over all leaves in int64 — no atomics, so the sum
-//    is exact and the same on every run.  The sizes are the real block
-//    sizes of the tree's last tightening.
+//   * max(lo) < min(hi) on every numeric column,
+//   * every categorical segment shares a bit: a few word ANDs,
+//   * no required advanced-cut polarity is missing: (req & ~seen) == 0.
 //
-// Bound: operations.  A few hundred KB move (728 leaves x 170 conjuncts
-// at the slice's shapes), so the launches themselves dominate.
+// Grid: a cluster of kClusterBlocks blocks per tile of 32 conjuncts.  Each
+// block stages its tile transposed in shared memory (lane i holds
+// conjunct i), the segment tables, and its share of the leaves' rows
+// (contiguous, so the copy coalesces); its warps then walk those leaves,
+// a leaf's word being a shared-memory broadcast, and write the 32 hit
+// bytes of each (leaf, tile) pair contiguously.  Each lane sums
+// size[l] * hit in int64; the block reduces across warps in shared memory
+// and the cluster's first block adds the blocks' sums through distributed
+// shared memory and writes scanned.  No atomics, no fill: every output is
+// written exactly once, and the sum is exact.
+//
+// Bound: operations.  A few hundred KB move (724 leaves x 170 conjuncts
+// at the slice's shapes), so the launch and its latency chains dominate:
+// every read in the leaf loop is a shared-memory one.
+
+#include <cooperative_groups.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-struct Leaves {
-  const int32_t* lo;    // (L, D)
-  const int32_t* hi;    // (L, D)
-  const uint8_t* cat;   // (L, bits)
-  const uint8_t* advt;  // (L, adv_stride)
-  const uint8_t* advf;  // (L, adv_stride)
-  int n;
+constexpr int kClusterBlocks = 8;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxLeavesStaged = 128;  // leaf rows a block holds at a time
+
+struct Query {
+  const int32_t* leaf;    // (L, kl) packed leaf rows
+  const long long* size;  // (L,) block sizes
+  int n_leaves;
+  const int32_t* conj;    // (C, kc) packed conjunct rows
+  int n_conj;
+  const int32_t* seg_word;  // (E,) bit word of each segment entry
+  const int32_t* seg_end;   // (n_seg,) end of each segment's entries
+  int n_num, n_seg, n_entries, cw, aw;
+  int chunk;  // leaves a block stages at a time
+  uint8_t* hits;    // (L, C)
+  int64_t* scanned;  // (C,)
 };
 
-struct Conjuncts {
-  const int32_t* lo;    // (C, D)
-  const int32_t* hi;    // (C, D)
-  const uint8_t* cat;   // (C, bits)
-  const uint8_t* reqt;  // (C, adv_stride) requires the predicate true
-  const uint8_t* reqf;  // (C, adv_stride) requires it false
-  int n;
-};
+__global__ void __cluster_dims__(kClusterBlocks, 1, 1)
+    __launch_bounds__(kThreads) query_intersect_kernel(Query q) {
+  // [conjunct tile (kc, 32)][seg_word E][seg_end n_seg][leaf rows]
+  extern __shared__ int32_t smem[];
+  __shared__ long long s_sum[kWarps][32];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = q.n_num;
+  const int kl = 2 * n + q.cw + 2 * q.aw;
+  const int kc = 2 * n + q.n_entries + 2 * q.aw;
+  const int c0 = blockIdx.y * 32;
+  const int nc = min(32, q.n_conj - c0);
+  int32_t* s_conj = smem;
+  int32_t* s_seg_word = s_conj + 32 * kc;
+  int32_t* s_seg_end = s_seg_word + q.n_entries;
+  int32_t* s_leaf = s_seg_end + q.n_seg;
 
-struct Layout {
-  const int32_t* num_dims;   // (n_num,)
-  const int32_t* seg_start;  // (n_seg,) categorical bit segments
-  const int32_t* seg_end;
-  int n_num, n_seg, d, bits, n_adv, adv_stride;
-};
+  for (int i = threadIdx.x; i < 32 * kc; i += blockDim.x) {
+    const int cl = i / kc, k = i - cl * kc;  // row-major source: coalesced
+    s_conj[k * 32 + cl] = cl < nc ? q.conj[(int64_t)(c0 + cl) * kc + k] : 0;
+  }
+  for (int i = threadIdx.x; i < q.n_entries; i += blockDim.x)
+    s_seg_word[i] = q.seg_word[i];
+  for (int i = threadIdx.x; i < q.n_seg; i += blockDim.x)
+    s_seg_end[i] = q.seg_end[i];
+  const int32_t* mine = s_conj + lane;  // my conjunct's k-th word: mine[32k]
+  const int32_t* qcat = mine + 32 * 2 * n;
+  const int32_t* qreq = mine + 32 * (2 * n + q.n_entries);
 
-__device__ bool intersects(const Leaves& lv, const Conjuncts& cj,
-                           const Layout& s, int l, int c) {
-  const int64_t ld = (int64_t)l * s.d, cd = (int64_t)c * s.d;
-  for (int k = 0; k < s.n_num; ++k) {
-    const int j = s.num_dims[k];
-    if (max(lv.lo[ld + j], cj.lo[cd + j]) >= min(lv.hi[ld + j], cj.hi[cd + j]))
-      return false;
+  long long sum = 0;
+  // the cluster's blocks take turns over chunks of leaves
+  for (int l0 = rank * q.chunk; l0 < q.n_leaves;
+       l0 += kClusterBlocks * q.chunk) {
+    const int nl = min(q.chunk, q.n_leaves - l0);
+    __syncthreads();  // the previous chunk's rows are no longer read
+    for (int i = threadIdx.x; i < nl * kl; i += blockDim.x)
+      s_leaf[i] = q.leaf[(int64_t)l0 * kl + i];
+    __syncthreads();
+    for (int li = warp; li < nl; li += kWarps) {
+      const int32_t* row = s_leaf + li * kl;
+      bool ok = true;
+      for (int j = 0; j < n; ++j) {
+        const int32_t lo = max(row[j], mine[32 * j]);
+        const int32_t hi = min(row[n + j], mine[32 * (n + j)]);
+        ok &= lo < hi;
+      }
+      const int32_t* lcat = row + 2 * n;
+      for (int k = 0, e = 0; k < q.n_seg; ++k) {
+        uint32_t common_bits = 0;
+        for (const int end = s_seg_end[k]; e < end; ++e)
+          common_bits |= (uint32_t)lcat[s_seg_word[e]] & (uint32_t)qcat[32 * e];
+        ok &= common_bits != 0;
+      }
+      const int32_t* ladv = row + 2 * n + q.cw;
+      for (int w = 0; w < q.aw; ++w) {
+        const uint32_t seen_t = (uint32_t)ladv[w];
+        const uint32_t seen_f = (uint32_t)ladv[q.aw + w];
+        const uint32_t req_t = (uint32_t)qreq[32 * w];
+        const uint32_t req_f = (uint32_t)qreq[32 * (q.aw + w)];
+        ok &= ((req_t & ~seen_t) | (req_f & ~seen_f)) == 0;
+      }
+      const int l = l0 + li;
+      if (lane < nc) q.hits[(int64_t)l * q.n_conj + c0 + lane] = ok ? 1 : 0;
+      if (ok) sum += __ldg(q.size + l);
+    }
   }
-  const uint8_t* lcat = lv.cat + (int64_t)l * s.bits;
-  const uint8_t* ccat = cj.cat + (int64_t)c * s.bits;
-  for (int k = 0; k < s.n_seg; ++k) {
-    bool shared = false;
-    for (int b = s.seg_start[k]; b < s.seg_end[k] && !shared; ++b)
-      shared = lcat[b] && ccat[b];
-    if (!shared) return false;
-  }
-  const int64_t la = (int64_t)l * s.adv_stride, ca = (int64_t)c * s.adv_stride;
-  for (int a = 0; a < s.n_adv; ++a) {
-    if (cj.reqt[ca + a] && !lv.advt[la + a]) return false;
-    if (cj.reqf[ca + a] && !lv.advf[la + a]) return false;
-  }
-  return true;
-}
 
-__global__ void hits_kernel(Leaves lv, Conjuncts cj, Layout s,
-                            uint8_t* __restrict__ hits) {
-  const int64_t total = (int64_t)lv.n * cj.n;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int l = (int)(i / cj.n);
-    const int c = (int)(i - (int64_t)l * cj.n);
-    hits[i] = intersects(lv, cj, s, l, c) ? 1 : 0;
+  s_sum[warp][lane] = sum;
+  __syncthreads();
+  if (warp == 0) {
+    long long s = 0;
+    for (int w = 0; w < kWarps; ++w) s += s_sum[w][lane];
+    s_sum[0][lane] = s;
   }
-}
-
-__global__ void scanned_kernel(const uint8_t* __restrict__ hits,
-                               const int64_t* __restrict__ size, int n_leaves,
-                               int n_conj, int64_t* __restrict__ scanned) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n_conj) return;
-  int64_t acc = 0;
-  for (int l = 0; l < n_leaves; ++l)
-    if (hits[(int64_t)l * n_conj + c]) acc += size[l];
-  scanned[c] = acc;
+  cluster.sync();  // every block's sums are in its shared memory
+  if (rank == 0 && warp == 0 && lane < nc) {
+    long long s = 0;
+    for (int r = 0; r < kClusterBlocks; ++r)
+      s += cluster.map_shared_rank(&s_sum[0][0], r)[lane];
+    q.scanned[c0 + lane] = s;
+  }
+  cluster.sync();  // no block leaves while the first still reads its sums
 }
 
 }  // namespace
 
 extern "C" int query_intersect_launch(
-    const int32_t* leaf_lo, const int32_t* leaf_hi, const uint8_t* leaf_cat,
-    const uint8_t* leaf_advt, const uint8_t* leaf_advf,
-    const int64_t* leaf_size, int n_leaves, const int32_t* q_lo,
-    const int32_t* q_hi, const uint8_t* q_cat, const uint8_t* q_reqt,
-    const uint8_t* q_reqf, int n_conj, const int32_t* num_dims, int n_num,
-    const int32_t* seg_start, const int32_t* seg_end, int n_seg, int d,
-    int bits, int n_adv, int adv_stride, uint8_t* hits, int64_t* scanned,
-    void* stream) {
-  Leaves lv{leaf_lo, leaf_hi, leaf_cat, leaf_advt, leaf_advf, n_leaves};
-  Conjuncts cj{q_lo, q_hi, q_cat, q_reqt, q_reqf, n_conj};
-  Layout s{num_dims, seg_start, seg_end, n_num, n_seg, d, bits, n_adv,
-           adv_stride};
-  const int threads = 256;
-  cudaStream_t st = (cudaStream_t)stream;
-  hits_kernel<<<grid_for((int64_t)n_leaves * n_conj, threads), threads, 0,
-                st>>>(lv, cj, s, hits);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  scanned_kernel<<<(n_conj + threads - 1) / threads, threads, 0, st>>>(
-      hits, leaf_size, n_leaves, n_conj, scanned);
+    const int32_t* leaf, const int64_t* size, int n_leaves,
+    const int32_t* conj, int n_conj, const int32_t* seg_word,
+    const int32_t* seg_end, int n_num, int n_seg, int n_entries, int cw,
+    int aw, uint8_t* hits, int64_t* scanned, void* stream) {
+  const int chunk = std::min(
+      kMaxLeavesStaged, (n_leaves + kClusterBlocks - 1) / kClusterBlocks);
+  Query q{leaf, reinterpret_cast<const long long*>(size),
+          n_leaves, conj, n_conj, seg_word, seg_end, n_num, n_seg,
+          n_entries, cw, aw, chunk, hits, scanned};
+  const int kl = 2 * n_num + cw + 2 * aw;
+  const int kc = 2 * n_num + n_entries + 2 * aw;
+  const size_t smem =
+      sizeof(int32_t) * ((size_t)32 * kc + n_entries + n_seg +
+                         (size_t)chunk * kl);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        query_intersect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err) {
+      cudaGetLastError();
+      return (int)err;
+    }
+  }
+  const dim3 grid(kClusterBlocks, (n_conj + 31) / 32);
+  query_intersect_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(q);
   return (int)cudaGetLastError();
 }

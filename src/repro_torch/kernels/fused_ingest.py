@@ -3,31 +3,41 @@
 The two-pass path reads every record twice — once to route it
 (``eval_cuts`` → ``locate_leaf``, paper Sec 3.1) and once to min-max-
 tighten its destination leaf's description (``IncrementalTightener``,
-Sec 3.2).  ``fused_ingest`` does both in one pass over the batch: the
-CUDA kernel (``csrc/fused_ingest.cu``) descends each record's root path
-and folds it into int32 per-leaf accumulators with atomics.  The plain
-PyTorch version beside it evaluates the full predicate matrix, locates
-leaves in path-constraint form and reduces with scatters; the wrapper
-takes it only for a tensor on the CPU.
+Sec 3.2).  ``fused_ingest`` does both in one pass over a batch and folds
+the batch into an :class:`IngestAccumulator`: one set of per-leaf
+aggregates on the device that lives across every batch of a stream and
+is copied to the host once, at the end (:meth:`IngestAccumulator.partial`).
+Min, max, add and or are associative, so folding batch after batch equals
+one fold of their concatenation, bit for bit.
 
-Every row of the batch is a real record: the port never pads a batch,
-so there is no validity mask.  ``lo``/``hi`` of a leaf no record reached
-keep the int32 identities, ``hi`` is the column maximum (not max + 1);
-``kernels/ref.partial_from_fused`` turns the outputs into the
-tightener's exchange format.
+On a CUDA tensor the wrapper launches one of two kernels of
+``csrc/fused_ingest.cu``: the shared-memory kernel when the tree's
+aggregates fit a block's shared memory, else the global-atomic kernel.
+The plain PyTorch version beside them evaluates the full predicate
+matrix, locates leaves in path-constraint form and folds with scatters
+into the same accumulator layout; the wrapper takes it only for a tensor
+on the CPU.
+
+Every row of the batch is a real record: the port never pads a batch, so
+there is no validity mask.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+from typing import Optional
 
+import numpy as np
 import torch
 
+from repro_torch.core.qdtree import FrozenQdTree, TightenPartial
 from repro_torch.core.routing import adv_truth
 from repro_torch.kernels import _build
+from repro_torch.kernels.ops import unpack_words
 from repro_torch.kernels.route_records import (
     _kernel_device,
-    _require_records,
+    _require,
+    _same_device,
     eval_cuts_plain,
     locate_leaf_plain,
 )
@@ -35,78 +45,179 @@ from repro_torch.kernels.route_records import (
 I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
 
-
-class FusedOut(NamedTuple):
-    bids: torch.Tensor  # (m,) int32
-    counts: torch.Tensor  # (L,) int32 records per leaf
-    lo: torch.Tensor  # (L, D) int32 column minima (I32_MAX where empty)
-    hi: torch.Tensor  # (L, D) int32 column maxima (I32_MIN where empty)
-    cat: torch.Tensor  # (L, bits) uint8 categorical values present
-    advt: torch.Tensor  # (L, max(n_adv, 1)) uint8 adv cut seen true
-    advf: torch.Tensor  # (L, max(n_adv, 1)) uint8 adv cut seen false
+# fused_ingest_launch's ``variant`` argument, and the launch counter each
+# kernel moves
+VARIANTS = {None: 0, "shared": 1, "global": 2}
+KERNEL_NAMES = {1: "fused_ingest_shared", 2: "fused_ingest_global"}
 
 
-def _empty_aggregates(records: torch.Tensor, ops: dict) -> list:
-    L, d, dev = int(ops["n_leaves"]), records.shape[1], records.device
-    a3 = int(ops["adv"].shape[0])
-    return [
-        torch.zeros(L, dtype=torch.int32, device=dev),
-        torch.full((L, d), I32_MAX, dtype=torch.int32, device=dev),
-        torch.full((L, d), I32_MIN, dtype=torch.int32, device=dev),
-        torch.zeros((L, int(ops["bits"])), dtype=torch.uint8, device=dev),
-        torch.zeros((L, a3), dtype=torch.uint8, device=dev),
-        torch.zeros((L, a3), dtype=torch.uint8, device=dev),
-    ]
+class IngestAccumulator:
+    """Running per-leaf aggregates of an ingest stream, on one device.
+
+    Allocated once, as one byte buffer, with each field's identity, and
+    never re-zeroed: :meth:`fold` adds batch after batch.  Fields (views of
+    ``buf``):
+
+    * ``counts`` (L,) int64 records per leaf;
+    * ``lo`` / ``hi`` (L, D) int32 column minima / maxima (int32 max / min
+      where no record arrived; ``hi`` is the maximum, not max + 1);
+    * ``cat`` (L, cw) int32 categorical value bits, bit ``b`` of the bit
+      space in word ``b // 32`` at ``b % 32``;
+    * ``advt`` / ``advf`` (L, aw) int32 advanced-cut bits: the cut was
+      seen true / false.
+    """
+
+    FIELDS = ("counts", "lo", "hi", "cat", "advt", "advf")
+
+    def __init__(self, ops: dict):
+        self.ops = ops
+        dev = ops["cat_off"].device
+        L, d = int(ops["n_leaves"]), int(ops["cat_off"].shape[0])
+        cw, aw = int(ops["cw"]), int(ops["aw"])
+        shapes = {
+            "counts": ((L,), torch.int64), "lo": ((L, d), torch.int32),
+            "hi": ((L, d), torch.int32), "cat": ((L, cw), torch.int32),
+            "advt": ((L, aw), torch.int32), "advf": ((L, aw), torch.int32),
+        }
+        sizes = [int(np.prod(s)) * t.itemsize for s, t in shapes.values()]
+        self.buf = torch.zeros(sum(sizes), dtype=torch.uint8, device=dev)
+        self._layout = []
+        off = 0
+        for (name, (shape, dtype)), n in zip(shapes.items(), sizes):
+            setattr(self, name, self.buf[off:off + n].view(dtype).view(shape))
+            self._layout.append((name, off, n, shape, dtype))
+            off += n
+        self.lo.fill_(I32_MAX)
+        self.hi.fill_(I32_MIN)
+        # the launch's tree and accumulator arguments, checked and packed
+        # once: they never change over a stream
+        _same_device(dev, "fused_ingest", ops)
+        p = _build.ptr
+        self._tree_args = (
+            p(ops["nodes"]), int(ops["depth"]), p(ops["cat_off"]),
+            p(ops["in_mask"]), int(ops["bits"]), p(ops["adv"]),
+            p(ops["cat_dims"]), int(ops["cat_dims"].shape[0]),
+            int(ops["n_adv"]),
+        )
+        self._acc_args = (
+            *(p(t) for t in self.tensors()), L, cw, aw,
+        )
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return tuple(getattr(self, f) for f in self.FIELDS)
+
+    def fold(self, records: torch.Tensor, bids: bool = False,
+             **kernel) -> Optional[torch.Tensor]:
+        """Fold a batch in; its (m,) int32 block ids if ``bids``.
+        ``kernel``: :func:`fused_ingest`'s ``variant`` and ``stages``."""
+        return fused_ingest(records, self, bids=bids, **kernel)
+
+    def partial(self, tree: FrozenQdTree) -> TightenPartial:
+        """The stream's aggregates in the tightener's exchange format.
+
+        One device-to-host copy.  Empty leaves get the tightener's int64
+        identities and ``hi`` becomes exclusive (max + 1): bit-identical
+        to ``IncrementalTightener.update`` over every folded record.
+        """
+        host = self.buf.cpu().numpy()
+        np_types = {torch.int64: np.int64, torch.int32: np.int32}
+        f = {
+            name: host[off:off + n].view(np_types[dtype]).reshape(shape)
+            for name, off, n, shape, dtype in self._layout
+        }
+        i64 = np.iinfo(np.int64)
+        counts = f["counts"].copy()
+        ne = counts > 0
+        lo = np.where(ne[:, None], f["lo"].astype(np.int64), i64.max)
+        hi = np.where(ne[:, None], f["hi"].astype(np.int64) + 1, i64.min)
+        cat = unpack_words(f["cat"], tree.leaf_cat.shape[1]) & ne[:, None]
+        adv = np.zeros_like(tree.leaf_adv)
+        na = tree.cuts.n_adv
+        if na:
+            adv[:, :, 0] = unpack_words(f["advt"], na)
+            adv[:, :, 1] = unpack_words(f["advf"], na)
+            adv &= ne[:, None, None]
+        return TightenPartial(counts=counts, lo=lo, hi=hi, cat=cat, adv=adv)
 
 
-def fused_ingest_plain(records: torch.Tensor, ops: dict) -> FusedOut:
-    """Route (full predicate matrix, path-constraint form) + scatters."""
-    bids = locate_leaf_plain(eval_cuts_plain(records, ops), ops)
-    counts, lo, hi, cat, advt, advf = _empty_aggregates(records, ops)
-    b = bids.long()
-    counts += torch.bincount(b, minlength=counts.shape[0]).to(torch.int32)
-    idx = b[:, None].expand(-1, records.shape[1])
-    lo.scatter_reduce_(0, idx, records, "amin")
-    hi.scatter_reduce_(0, idx, records, "amax")
+def pack_bits(present: torch.Tensor, n_words: int) -> torch.Tensor:
+    """(n, nbits) bool → (n, n_words) int32 words: the torch twin of
+    :func:`repro_torch.kernels.ops.pack_words`."""
+    n, nbits = present.shape
+    full = torch.zeros((n, n_words * 32), dtype=torch.int64,
+                       device=present.device)
+    full[:, :nbits] = present.to(torch.int64)
+    weights = torch.ones(32, dtype=torch.int64, device=present.device)
+    weights = weights << torch.arange(32, device=present.device)
+    w = (full.view(n, n_words, 32) * weights).sum(dim=2)
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+
+
+def fused_ingest_plain(records: torch.Tensor, acc: IngestAccumulator,
+                       bids: bool = True) -> Optional[torch.Tensor]:
+    """Route (full predicate matrix, path-constraint form), fold by
+    scatters into ``acc``."""
+    ops = acc.ops
+    b32 = locate_leaf_plain(eval_cuts_plain(records, ops), ops)
+    b = b32.long()
+    L, d = acc.lo.shape
+    acc.counts += torch.bincount(b, minlength=L)
+    idx = b[:, None].expand(-1, d)
+    acc.lo.scatter_reduce_(0, idx, records, "amin")
+    acc.hi.scatter_reduce_(0, idx, records, "amax")
     cat_dims = ops["cat_dims"].long()
     if cat_dims.numel():
-        pos = (records[:, cat_dims] + ops["cat_off"][cat_dims][None, :])
-        pos = pos.clamp_(0, cat.shape[1] - 1).long()
-        cat[b[:, None].expand_as(pos), pos] = 1
+        nbits = int(ops["bits"])
+        pos = records[:, cat_dims] + ops["cat_off"][cat_dims][None, :]
+        pos = pos.clamp_(0, nbits - 1).long()
+        seen = torch.zeros((L, nbits), dtype=torch.bool, device=b.device)
+        seen[b[:, None].expand_as(pos), pos] = True
+        acc.cat |= pack_bits(seen, acc.cat.shape[1])
     n_adv = int(ops["n_adv"])
     if n_adv:
         t = adv_truth(records, ops["adv"])[:, :n_adv]
-        for flags, truth in ((advt, t), (advf, ~t)):
+        for flags, truth in ((acc.advt, t), (acc.advf, ~t)):
             rows, cols = truth.nonzero(as_tuple=True)
-            flags[b[rows], cols] = 1
-    return FusedOut(bids, counts, lo, hi, cat, advt, advf)
+            seen = torch.zeros((L, n_adv), dtype=torch.bool, device=b.device)
+            seen[b[rows], cols] = True
+            flags |= pack_bits(seen, flags.shape[1])
+    return b32 if bids else None
 
 
-def fused_ingest(records: torch.Tensor, ops: dict) -> FusedOut:
-    """One fused pass: block ids plus per-leaf aggregates of the batch."""
+def fused_ingest(records: torch.Tensor, acc: IngestAccumulator,
+                 bids: bool = True, variant: Optional[str] = None,
+                 stages: Optional[int] = None) -> Optional[torch.Tensor]:
+    """Fold one batch into ``acc``; its (m,) int32 block ids if ``bids``.
+
+    ``variant`` None picks the kernel by shape; ``"shared"`` or
+    ``"global"`` forces one (a refused shared-memory request raises).
+    ``stages`` None lets the launcher choose the shared kernel's tile
+    buffers a warp; 1 or 2 forces them.
+    """
     if not _kernel_device(records, "fused_ingest"):
-        return fused_ingest_plain(records, ops)
-    _require_records(records, ops, "fused_ingest")
+        return fused_ingest_plain(records, acc, bids=bids)
+    _require(records, torch.int32, "fused_ingest")
+    dev = acc.buf.device
+    if records.dim() != 2 or records.shape[1] != acc.lo.shape[1]:
+        raise ValueError(
+            f"fused_ingest: records of shape {tuple(records.shape)} do not "
+            f"match the tree's {acc.lo.shape[1]} columns"
+        )
+    if records.device != dev:
+        raise ValueError(
+            f"fused_ingest: the accumulator is on {dev}, not {records.device}"
+        )
     m, d = records.shape
-    bids = torch.empty(m, dtype=torch.int32, device=records.device)
-    aggs = _empty_aggregates(records, ops)
+    out = torch.empty(m, dtype=torch.int32, device=dev) if bids else None
     if m == 0:
-        return FusedOut(bids, *aggs)
-    counts, lo, hi, cat, advt, advf = aggs
-    fn = _build.library("fused_ingest").fused_ingest_launch
-    p = _build.ptr
-    rc = fn(
-        p(records), m, d,
-        p(ops["kind"]), p(ops["dim"]), p(ops["cutpoint"]), p(ops["in_mask"]),
-        int(ops["kind"].shape[0]), int(ops["bits"]), p(ops["cat_off"]),
-        p(ops["adv"]), p(ops["adv_id"]),
-        p(ops["cut_id"]), p(ops["left"]), p(ops["right"]),
-        p(ops["leaf_bid"]), int(ops["depth"]),
-        p(ops["cat_dims"]), int(ops["cat_dims"].shape[0]), int(ops["n_adv"]),
-        p(bids), p(counts), p(lo), p(hi), p(cat), p(advt), p(advf),
-        int(advt.shape[1]),
-        _build.stream_ptr(records.device),
+        return out
+    chosen = ctypes.c_int(0)
+    rc = _build.library("fused_ingest").fused_ingest_launch(
+        _build.ptr(records), m, d, *acc._tree_args,
+        _build.ptr(out) if bids else None, *acc._acc_args,
+        VARIANTS[variant], stages or 0, ctypes.byref(chosen),
+        _build.stream_ptr(dev),
     )
     _build.check(rc, "fused_ingest")
-    _build.LAUNCHES["fused_ingest"] += 1
-    return FusedOut(bids, counts, lo, hi, cat, advt, advf)
+    _build.LAUNCHES[KERNEL_NAMES[chosen.value]] += 1
+    return out

@@ -5,14 +5,16 @@ For every block description l and workload conjunct c:
     hits[l, c]  = 1  iff block l may contain records matching conjunct c
     scanned[c]  = Σ_l |block l| · hits[l, c]
 
-The CUDA kernel (``csrc/query_intersect.cu``) computes both in int32/int64
-arithmetic; the plain PyTorch version beside it does the same with
-broadcast compares.  The wrapper takes the plain version only for tensors
-on the CPU.
+Both come from one launch of the CUDA kernel (``csrc/query_intersect.cu``)
+in int32/int64 arithmetic; the plain PyTorch version beside it computes
+the same from the same packed operands with broadcast compares and word
+ANDs.  The wrapper takes the plain version only for tensors on the CPU.
 
 ``leaf`` is the uploaded :func:`repro_torch.engine.plan.pack_leaf_descs`,
 ``conj`` and ``layout`` the uploaded :func:`repro_torch.kernels.ops.
-pack_workload` / :func:`repro_torch.kernels.ops.query_layout`.
+pack_workload` / :func:`repro_torch.kernels.ops.query_layout`: one int32
+row per leaf and per conjunct, the categorical and advanced-cut bits 32
+to a word.
 """
 
 from __future__ import annotations
@@ -27,26 +29,30 @@ from repro_torch.kernels.route_records import (
 )
 
 
+def _widths(layout: dict) -> tuple[int, int, int, int]:
+    """(numeric columns, segment entries, cat words, adv words)."""
+    return (int(layout["num_dims"].shape[0]), int(layout["seg_word"].shape[0]),
+            int(layout["cw"]), int(layout["aw"]))
+
+
 def query_intersect_plain(
     leaf: dict, conj: dict, layout: dict
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(hits (L, C) uint8, scanned (C,) int64) by broadcast compares."""
-    nd = layout["num_dims"].long()
-    lo = torch.maximum(
-        leaf["leaf_lo"][:, None, nd], conj["q_lo"][None, :, nd]
-    )
-    hi = torch.minimum(
-        leaf["leaf_hi"][:, None, nd], conj["q_hi"][None, :, nd]
-    )
+    n, E, cw, aw = _widths(layout)
+    ld, cd = leaf["desc"], conj["desc"]
+    lo = torch.maximum(ld[:, None, :n], cd[None, :, :n])
+    hi = torch.minimum(ld[:, None, n:2 * n], cd[None, :, n:2 * n])
     ok = (lo < hi).all(dim=2)
-    for s, e in layout["segments"]:
-        shared = leaf["leaf_cat"][:, None, s:e] & conj["q_cat"][None, :, s:e]
-        ok &= (shared != 0).any(dim=2)
-    for a in range(int(layout["n_adv"])):
-        req_t = conj["q_reqt"][None, :, a] != 0
-        req_f = conj["q_reqf"][None, :, a] != 0
-        ok &= ~(req_t & (leaf["leaf_advt"][:, None, a] == 0))
-        ok &= ~(req_f & (leaf["leaf_advf"][:, None, a] == 0))
+    lcat = ld[:, 2 * n:2 * n + cw][:, layout["seg_word"].long()]
+    common = lcat[:, None, :] & cd[None, :, 2 * n:2 * n + E]  # (L, C, E)
+    for s, e in layout["seg_ranges"]:
+        ok &= (common[:, :, s:e] != 0).any(dim=2)
+    seen_t = ld[:, None, 2 * n + cw:2 * n + cw + aw]
+    seen_f = ld[:, None, 2 * n + cw + aw:]
+    req_t = cd[None, :, 2 * n + E:2 * n + E + aw]
+    req_f = cd[None, :, 2 * n + E + aw:]
+    ok &= (((req_t & ~seen_t) | (req_f & ~seen_f)) == 0).all(dim=2)
     hits = ok.to(torch.uint8)
     scanned = (hits.to(torch.int64) * leaf["size"][:, None]).sum(dim=0)
     return hits, scanned
@@ -56,36 +62,28 @@ def query_intersect(
     leaf: dict, conj: dict, layout: dict
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(hits (L, C) uint8, scanned (C,) int64) for blocks × conjuncts."""
-    lo = leaf["leaf_lo"]
-    if not _kernel_device(lo, "query_intersect"):
+    ld, cd = leaf["desc"], conj["desc"]
+    if not _kernel_device(ld, "query_intersect"):
         return query_intersect_plain(leaf, conj, layout)
-    for t in (lo, leaf["leaf_hi"], conj["q_lo"], conj["q_hi"]):
-        _require(t, torch.int32, "query_intersect")
+    n, E, cw, aw = _widths(layout)
+    _require(ld, torch.int32, "query_intersect")
+    _require(cd, torch.int32, "query_intersect")
     _require(leaf["size"], torch.int64, "query_intersect")
-    n_leaves, d = lo.shape
-    n_conj = conj["q_lo"].shape[0]
-    if conj["q_lo"].shape[1] != d or conj["q_cat"].shape[1] != (
-        leaf["leaf_cat"].shape[1]
-    ):
-        raise ValueError("query_intersect: conjunct and leaf widths differ")
-    dev = lo.device
+    if ld.shape[1] != 2 * n + cw + 2 * aw or cd.shape[1] != 2 * n + E + 2 * aw:
+        raise ValueError("query_intersect: rows do not match the layout")
+    dev = ld.device
     _same_device(dev, "query_intersect", leaf, conj, layout)
+    n_leaves, n_conj = ld.shape[0], cd.shape[0]
     hits = torch.empty((n_leaves, n_conj), dtype=torch.uint8, device=dev)
-    scanned = torch.zeros(n_conj, dtype=torch.int64, device=dev)
     if n_leaves == 0 or n_conj == 0:
-        return hits, scanned
-    fn = _build.library("query_intersect").query_intersect_launch
+        return hits, torch.zeros(n_conj, dtype=torch.int64, device=dev)
+    scanned = torch.empty(n_conj, dtype=torch.int64, device=dev)
     p = _build.ptr
-    rc = fn(
-        p(lo), p(leaf["leaf_hi"]), p(leaf["leaf_cat"]), p(leaf["leaf_advt"]),
-        p(leaf["leaf_advf"]), p(leaf["size"]), n_leaves,
-        p(conj["q_lo"]), p(conj["q_hi"]), p(conj["q_cat"]),
-        p(conj["q_reqt"]), p(conj["q_reqf"]), n_conj,
-        p(layout["num_dims"]), int(layout["num_dims"].shape[0]),
-        p(layout["seg_start"]), p(layout["seg_end"]),
-        int(layout["seg_start"].shape[0]), d, int(leaf["leaf_cat"].shape[1]),
-        int(layout["n_adv"]), int(leaf["leaf_advt"].shape[1]),
-        p(hits), p(scanned), _build.stream_ptr(dev),
+    rc = _build.library("query_intersect").query_intersect_launch(
+        p(ld), p(leaf["size"]), n_leaves, p(cd), n_conj,
+        p(layout["seg_word"]), p(layout["seg_end"]), n,
+        int(layout["seg_end"].shape[0]), E, cw, aw, p(hits), p(scanned),
+        _build.stream_ptr(dev),
     )
     _build.check(rc, "query_intersect")
     _build.LAUNCHES["query_intersect"] += 1

@@ -27,7 +27,11 @@ from repro_torch.engine import LayoutEngine, build_counts  # noqa: E402
 from repro_torch.engine.backends import get_backend  # noqa: E402
 from tests.test_qdtree import random_tree, small_setup  # noqa: E402
 from tests.test_query import random_query  # noqa: E402
-from tests.test_torch_kernels import carry_tree, carry_wt  # noqa: E402
+from tests.test_torch_kernels import (  # noqa: E402
+    carry_tree,
+    carry_wt,
+    uneven_batches,
+)
 
 SEEDS = [0, 3, 11]
 LEAF_FIELDS = ("leaf_lo", "leaf_hi", "leaf_cat", "leaf_adv")
@@ -100,6 +104,35 @@ def test_multi_batch_ingest_matches_repro(seed):
     np.testing.assert_array_equal(report.block_sizes, ref.block_sizes)
     _assert_trees_equal(port, frozen)
     np.testing.assert_array_equal(port.block_sizes, ref.block_sizes)
+
+
+@pytest.mark.parametrize("n_batches", [1, 3, 7])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_ingest_running_fold_matches_repro_engine(seed, n_batches):
+    """One running accumulator over uneven batches (one a single row)
+    leaves the tree ``repro``'s engine leaves; the per-batch block ids
+    that ``observe`` needs come back too."""
+    from repro.core import query as rqry
+
+    frozen, records, rng = _case(seed)
+    batches = uneven_batches(records, n_batches, rng)
+    queries = tuple(random_query(frozen.schema, rng) for _ in range(4))
+    rwork = rqry.Workload(frozen.schema, queries)
+    port = carry_tree(frozen)
+    seen = []
+    report = LayoutEngine(port, device="cpu").ingest(
+        batches, observe=carry_wt(rwork.tensorize(frozen.cuts)),
+        on_observation=seen.append,
+    )
+    ref = JaxEngine(frozen, backend="jax").ingest(batches, observe=rwork)
+    assert report.fused and report.n_batches == n_batches
+    assert len(seen) == n_batches
+    np.testing.assert_array_equal(report.block_sizes, ref.block_sizes)
+    _assert_trees_equal(port, frozen)
+    np.testing.assert_array_equal(port.block_sizes, ref.block_sizes)
+    assert report.observation.to_array().tolist() == (
+        ref.observation.to_array().tolist()
+    )
 
 
 @pytest.mark.parametrize("fused", [True, False])
@@ -267,3 +300,28 @@ def test_greedy_builds_array_equal_trees(tpch_small):
         np.testing.assert_array_equal(v, want[k], k)
     stats = trewards.evaluate_layout(port, trecords, twork, device="cpu")
     assert 0 < stats.scanned_fraction < 1
+
+
+def test_greedy_builds_array_equal_trees_on_a_larger_tpch_sample():
+    """The chip run's configuration, scaled down: a 1-in-20 sample of
+    400,000 TPC-H-like rows (20,000 rows, 2.5x the fixture), the
+    150-query workload and its default candidate cuts."""
+    from repro.data import datagen as rdatagen
+    from repro.data import workload as rwl
+
+    schema, records = rdatagen.make_tpch_like(400_000, seed=0)
+    work, _ = rwl.make_tpch_workload(schema, n_per_template=10, seed=0)
+    ref = rgreedy.build_greedy(
+        records[::20], work, work.candidate_cuts(),
+        rgreedy.GreedyConfig(min_block=200),
+    ).freeze()
+    tschema, trecords = tdatagen.make_tpch_like(400_000, seed=0)
+    np.testing.assert_array_equal(trecords, records)
+    twork, _ = twl.make_tpch_workload(tschema, n_per_template=10, seed=0)
+    port = tgreedy.build_greedy(
+        trecords[::20], twork, twork.candidate_cuts(),
+        tgreedy.GreedyConfig(min_block=200),
+    ).freeze()
+    want = _arrays(ref)
+    for k, v in port.to_arrays().items():
+        np.testing.assert_array_equal(v, want[k], k)

@@ -111,16 +111,139 @@ def test_route_kernels_match_plain(seed):
     )
 
 
+def wide_case(seed, d=160, m=4000, leaves=200):
+    """A tree whose aggregates exceed a block's shared memory: 160
+    columns, 200 leaves (259 KB of aggregates)."""
+    rng = np.random.default_rng(seed)
+    cols = [preds.Column(f"x{j}", "numeric", 1000) for j in range(d - 1)]
+    schema = preds.Schema((*cols, preds.Column("c", "categorical", 37)))
+    records = np.concatenate([
+        rng.integers(0, 1000, (m, d - 1)), rng.integers(0, 37, (m, 1)),
+    ], axis=1).astype(np.int32)
+    b = preds.CutTableBuilder(schema)
+    for j in range(4):
+        for c in range(25, 1000, 25):
+            b.add_range(j, preds.OP_LT, c)
+    b.add_in(d - 1, list(range(0, 37, 3)))
+    b.add_adv(0, preds.OP_LT, 1)
+    cuts = b.build()
+    tree = singleton_tree(schema, cuts, np.arange(m))
+    M = preds.eval_cuts(records, cuts)
+    open_leaves = [tree.root]
+    while len(open_leaves) < leaves:
+        for node in sorted(open_leaves, key=lambda n: -n.size):
+            legal = [c for c in range(cuts.n_cuts)
+                     if 0 < M[node.rows, c].sum() < node.size]
+            if legal:
+                break
+        open_leaves = [n for n in open_leaves if n is not node]
+        open_leaves += list(tree.split(node, int(rng.choice(legal)),
+                                       cut_matrix=M))
+    return tree.freeze(), records
+
+
+def _fold_both(ops, batches, variant):
+    """Fold the same batches with the kernel and with the plain version;
+    the block ids of each, and the two accumulators."""
+    acc_k, acc_p = tfk.IngestAccumulator(ops), tfk.IngestAccumulator(ops)
+    got = [acc_k.fold(b, bids=True, variant=variant) for b in batches]
+    want = [tfk.fused_ingest_plain(b, acc_p) for b in batches]
+    torch.cuda.synchronize()
+    return torch.cat(got), torch.cat(want), acc_k, acc_p
+
+
+def _assert_same(acc_k, acc_p):
+    for name, a, b in zip(acc_k.FIELDS, acc_k.tensors(), acc_p.tensors()):
+        assert torch.equal(a, b), name
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_fused_ingest_kernel_matches_plain(seed):
     dev = _cuda()
     frozen, records, _ = random_case(seed)
     ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
     rec = torch.from_numpy(records).to(dev)
-    got = tfk.fused_ingest(rec, ops)
+    got, want, acc_k, acc_p = _fold_both(ops, [rec], None)
+    assert torch.equal(got, want)
+    _assert_same(acc_k, acc_p)
+
+
+@pytest.mark.parametrize("variant", ["shared", "global"])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fused_variants_match_plain(seed, variant):
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    frozen, records, _ = random_case(seed)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    # an unaligned batch (rows 1..) takes the 4-byte copies
+    for rec in (torch.from_numpy(records).to(dev),
+                torch.from_numpy(records).to(dev)[1:]):
+        name = f"fused_ingest_{variant}"
+        before = _build.launch_counts()[name]
+        got, want, acc_k, acc_p = _fold_both(ops, [rec], variant)
+        assert _build.launch_counts()[name] == before + 1
+        assert torch.equal(got, want)
+        _assert_same(acc_k, acc_p)
+
+
+@pytest.mark.parametrize("stages", [1, 2])
+def test_shared_kernel_buffer_depths_match_plain(stages):
+    dev = _cuda()
+    frozen, records, _ = random_case(7)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(records).to(dev)
+    acc_k, acc_p = tfk.IngestAccumulator(ops), tfk.IngestAccumulator(ops)
+    for batch in (rec[:1001], rec[1001:]):
+        got = acc_k.fold(batch, bids=True, variant="shared", stages=stages)
+        assert torch.equal(got, tfk.fused_ingest_plain(batch, acc_p))
     torch.cuda.synchronize()
-    for name, a, b in zip(got._fields, got, tfk.fused_ingest_plain(rec, ops)):
-        assert torch.equal(a, b), name
+    _assert_same(acc_k, acc_p)
+
+
+@pytest.mark.parametrize("variant", [None, "shared", "global"])
+def test_running_fold_over_uneven_batches(variant):
+    dev = _cuda()
+    frozen, records, _ = random_case(1)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(records).to(dev)
+    bounds = [0, 1, 700, 701, 2048, 2999, records.shape[0]]
+    batches = [rec[s:e] for s, e in zip(bounds, bounds[1:])]
+    got, want, acc_k, acc_p = _fold_both(ops, batches, variant)
+    assert torch.equal(got, want)
+    _assert_same(acc_k, acc_p)
+    # ... and the stream equals the numpy oracle over the concatenation
+    want_bids, want_part = fused_ingest_ref(frozen, records)
+    np.testing.assert_array_equal(got.cpu().numpy(), want_bids)
+    part = acc_k.partial(frozen)
+    for f in ("counts", "lo", "hi", "cat", "adv"):
+        np.testing.assert_array_equal(getattr(part, f),
+                                      getattr(want_part, f))
+
+
+def test_tree_too_large_for_shared_memory():
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    frozen, records = wide_case(0)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(records).to(dev)
+    before = _build.launch_counts()
+    got, want, acc_k, acc_p = _fold_both(ops, [rec[:1], rec[1:]], None)
+    after = _build.launch_counts()
+    assert after["fused_ingest_global"] == before["fused_ingest_global"] + 2
+    assert after["fused_ingest_shared"] == before["fused_ingest_shared"]
+    assert torch.equal(got, want)
+    _assert_same(acc_k, acc_p)
+    # forcing the shared kernel raises: the request is refused, and
+    # nothing falls back to another kernel or the plain version
+    acc = tfk.IngestAccumulator(ops)
+    with pytest.raises(RuntimeError, match="fused_ingest kernel launch"):
+        acc.fold(rec, variant="shared")
+    assert _build.launch_counts() == after
+    # the refusal leaves no error behind for the next launch
+    acc.fold(rec, variant="global")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -129,13 +252,17 @@ def test_query_intersect_kernel_matches_plain(seed):
     frozen, records, work = random_case(seed)
     frozen.tighten(records, frozen.route(records))
     wt = work.tensorize(frozen.cuts)
-    n_adv = frozen.cuts.n_adv
+    layout = tops.query_layout(frozen.schema, frozen.cuts.n_adv)
     args = (
-        tplan.to_device(tplan.pack_leaf_descs(frozen), dev),
-        tplan.to_device(tops.pack_workload(wt, n_adv), dev),
-        tplan.to_device(tops.query_layout(frozen.schema, n_adv), dev),
+        tplan.to_device(tplan.pack_leaf_descs(frozen, layout), dev),
+        tplan.to_device(tops.pack_workload(wt, layout), dev),
+        tplan.to_device(layout, dev),
     )
+    from repro_torch.kernels import _build
+
+    before = _build.launch_counts()["query_intersect"]
     got = tqk.query_intersect(*args)
+    assert _build.launch_counts()["query_intersect"] == before + 1
     torch.cuda.synchronize()
     for a, b in zip(got, tqk.query_intersect_plain(*args)):
         assert torch.equal(a, b)
@@ -191,7 +318,7 @@ def test_wrappers_refuse_mismatched_operands():
     host_ops = tplan.to_device(tplan.pack_route_constants(frozen), "cpu")
     rec = torch.from_numpy(records).to(dev)
     with pytest.raises(ValueError, match="not cuda"):
-        tfk.fused_ingest(rec, host_ops)
+        tfk.fused_ingest(rec, tfk.IngestAccumulator(host_ops))
     ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
     with pytest.raises(ValueError, match="columns"):
         trk.eval_cuts(rec[:, :3].contiguous(), ops)

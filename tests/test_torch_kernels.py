@@ -140,21 +140,64 @@ def test_fused_ingest_plain_matches_pallas(seed):
             n_adv=k["n_adv"], interpret=True,
         )
     ))
-    out = tfk.fused_ingest_plain(torch.from_numpy(records),
-                                 port_operands(frozen))
+    acc = tfk.IngestAccumulator(port_operands(frozen))
+    got_bids = tfk.fused_ingest_plain(torch.from_numpy(records), acc)
     m, L = records.shape[0], frozen.n_leaves
     bits, na = frozen.leaf_cat.shape[1], frozen.cuts.n_adv
-    np.testing.assert_array_equal(out.bids.numpy(), bids[:m, 0] - 1)
-    np.testing.assert_array_equal(out.counts.numpy(), counts[0, :L])
+    np.testing.assert_array_equal(got_bids.numpy(), bids[:m, 0] - 1)
+    np.testing.assert_array_equal(acc.counts.numpy(), counts[0, :L])
     ne = counts[0, :L] > 0
     # occupied leaves carry the same bounds; empty ones each side's identity
-    np.testing.assert_array_equal(out.lo.numpy()[ne], lo[:L][ne])
-    np.testing.assert_array_equal(out.hi.numpy()[ne], hi[:L][ne])
-    assert (out.lo.numpy()[~ne] == tfk.I32_MAX).all()
-    assert (out.hi.numpy()[~ne] == tfk.I32_MIN).all()
-    np.testing.assert_array_equal(out.cat.numpy(), cat[:L, :bits])
-    np.testing.assert_array_equal(out.advt.numpy()[:, :na], advt[:L, :na])
-    np.testing.assert_array_equal(out.advf.numpy()[:, :na], advf[:L, :na])
+    np.testing.assert_array_equal(acc.lo.numpy()[ne], lo[:L][ne])
+    np.testing.assert_array_equal(acc.hi.numpy()[ne], hi[:L][ne])
+    assert (acc.lo.numpy()[~ne] == tfk.I32_MAX).all()
+    assert (acc.hi.numpy()[~ne] == tfk.I32_MIN).all()
+    # packed bits, unpacked, are the kernel's flags
+    np.testing.assert_array_equal(
+        tops.unpack_words(acc.cat.numpy(), bits), cat[:L, :bits] != 0
+    )
+    np.testing.assert_array_equal(
+        tops.unpack_words(acc.advt.numpy(), na), advt[:L, :na] != 0
+    )
+    np.testing.assert_array_equal(
+        tops.unpack_words(acc.advf.numpy(), na), advf[:L, :na] != 0
+    )
+
+
+def uneven_batches(records, n_batches, rng):
+    """``n_batches`` slices of uneven sizes; with more than one, one of
+    them is a single row."""
+    m = records.shape[0]
+    if n_batches == 1:
+        return [records]
+    cuts = np.sort(rng.choice(np.arange(2, m - 1), n_batches - 2,
+                              replace=False))
+    single = int(rng.integers(0, n_batches))
+    sizes = np.diff(np.concatenate([[0], cuts, [m - 1]])).tolist()
+    sizes.insert(single, 1)
+    return np.split(records, np.cumsum(sizes)[:-1])
+
+
+@pytest.mark.parametrize("n_batches", [1, 3, 7])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_running_accumulator_matches_fused_ingest_ref(seed, n_batches):
+    from repro.kernels.ref import fused_ingest_ref
+
+    frozen, records = setup_case(seed)
+    batches = uneven_batches(records, n_batches, np.random.default_rng(seed))
+    assert len(batches) == n_batches and sum(map(len, batches)) == len(
+        records
+    )
+    if n_batches > 1:
+        assert min(map(len, batches)) == 1
+    tree = carry_tree(frozen)
+    acc = tfk.IngestAccumulator(port_operands(frozen))
+    bids = [acc.fold(torch.from_numpy(b), bids=True).numpy() for b in batches]
+    want_bids, want = fused_ingest_ref(frozen, records)
+    np.testing.assert_array_equal(np.concatenate(bids), want_bids)
+    got = acc.partial(tree)
+    for f in ("counts", "lo", "hi", "cat", "adv"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), f)
 
 
 def _query_case(seed):
@@ -187,15 +230,59 @@ def test_query_intersect_plain_matches_pallas(seed):
         frozen.leaf_lo, frozen.leaf_hi, frozen.leaf_cat, frozen.leaf_adv,
         wt, frozen.schema,
     )
-    n_adv = frozen.cuts.n_adv
     tree = carry_tree(frozen)
     tree.block_sizes = sizes
+    layout = tops.query_layout(tree.schema, frozen.cuts.n_adv)
     hits, scanned = tqk.query_intersect_plain(
-        tplan.to_device(tplan.pack_leaf_descs(tree), "cpu"),
-        tplan.to_device(tops.pack_workload(carry_wt(wt), n_adv), "cpu"),
-        tplan.to_device(tops.query_layout(tree.schema, n_adv), "cpu"),
+        tplan.to_device(tplan.pack_leaf_descs(tree, layout), "cpu"),
+        tplan.to_device(tops.pack_workload(carry_wt(wt), layout), "cpu"),
+        tplan.to_device(layout, "cpu"),
     )
     np.testing.assert_array_equal(hits.numpy().astype(bool), conj)
     np.testing.assert_array_equal(
         scanned.numpy(), (conj * sizes[:, None]).sum(axis=0)
     )
+
+
+def _tpch_query_case(tpch_tree, tpch_small):
+    """The greedy TPC-H-like tree: 146 categorical bits in segments that
+    straddle 32-bit words, and the fixture's workload."""
+    frozen, bids = tpch_tree
+    _, _, work, cuts = tpch_small
+    sizes = np.bincount(bids, minlength=frozen.n_leaves)
+    return frozen, work.tensorize(cuts), sizes
+
+
+@pytest.mark.parametrize("sizes_scale", [1, 2**33])
+def test_packed_query_intersect_plain_matches_pallas_on_tpch(
+    tpch_tree, tpch_small, sizes_scale
+):
+    frozen, wt, sizes = _tpch_query_case(tpch_tree, tpch_small)
+    layout = tops.query_layout(frozen.schema, frozen.cuts.n_adv)
+    assert any(
+        layout["seg_word"][s] != layout["seg_word"][e - 1]
+        for s, e in layout["seg_ranges"]
+    ), "some segment should straddle a word boundary"
+    want_hits, _ = rops.query_intersect(
+        frozen, wt, block_sizes=sizes, interpret=True
+    )
+    conj = qry.conjuncts_intersect(
+        frozen.leaf_lo, frozen.leaf_hi, frozen.leaf_cat, frozen.leaf_adv,
+        wt, frozen.schema,
+    )
+    tree = carry_tree(frozen)
+    # block sizes past 2**24 (and 2**32): scanned is exact int64
+    tree.block_sizes = sizes.astype(np.int64) * sizes_scale + 1
+    hits, scanned = tqk.query_intersect_plain(
+        tplan.to_device(tplan.pack_leaf_descs(tree, layout), "cpu"),
+        tplan.to_device(tops.pack_workload(carry_wt(wt), layout), "cpu"),
+        tplan.to_device(layout, "cpu"),
+    )
+    np.testing.assert_array_equal(hits.numpy().astype(bool), conj)
+    np.testing.assert_array_equal(
+        tqry.queries_intersect(hits.numpy().astype(bool), carry_wt(wt)),
+        want_hits,
+    )
+    assert scanned.dtype == torch.int64
+    want = (conj.astype(np.int64) * tree.block_sizes[:, None]).sum(axis=0)
+    np.testing.assert_array_equal(scanned.numpy(), want)
