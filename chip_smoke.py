@@ -74,6 +74,7 @@ ROUTE_QUERY_N = 10  # queries routed one at a time on the main path
 LAT_REPS = 10  # warm calls per latency
 INGEST_REPS = 5  # untraced whole-table ingests on fresh trees
 FOLD_REPS = 5  # timed folds of one stream's accumulator
+FOLD_HOST_REPS = 200  # well inside the card's queue of launches
 FINE_TIMEOUT_S = 900  # the finer layout's build, at most
 SEED = 0
 
@@ -295,9 +296,10 @@ def fused_err(ops, batches, variant) -> float:
     import torch
     from repro_torch.kernels import fused_ingest as fk
 
-    acc, plain = fk.IngestAccumulator(ops), fk.IngestAccumulator(ops)
-    bids = torch.cat([acc.fold(b, bids=True, variant=variant)
-                      for b in batches])
+    with fk._forced(variant):
+        acc = fk.IngestAccumulator(ops)
+    plain = fk.IngestAccumulator(ops)
+    bids = torch.cat([acc.fold(b, bids=True) for b in batches])
     want = fk.fused_ingest_plain(torch.cat(batches), plain)
     return max_abs_err([bids, *acc.tensors()], [want, *plain.tensors()])
 
@@ -360,9 +362,10 @@ def running_fold(tree, rec_dev, records, bounds, dev, ctx, variants,
         e = fused_err(ops, batches, v)
         require(e == 0.0, f"{ctx}: running fold ({v}) differs from the "
                           f"plain version over the concatenation by {e}")
-        acc = fk.IngestAccumulator(ops)
-        bids = np.concatenate([acc.fold(b, bids=True, variant=v).cpu()
-                               .numpy() for b in batches])
+        with fk._forced(v):
+            acc = fk.IngestAccumulator(ops)
+        bids = np.concatenate([acc.fold(b, bids=True).cpu().numpy()
+                               for b in batches])
         require(np.array_equal(bids, want_bids),
                 f"{ctx}: running fold ({v}) block ids vs the numpy oracle")
         got = acc.partial(tree)
@@ -633,7 +636,8 @@ def run(args, dev, torch, fine_job) -> int:
             and after["fused_ingest_shared"] == before["fused_ingest_shared"],
             "the finer layout's aggregates should take the global kernel")
     try:
-        fk.IngestAccumulator(fops).fold(slices[0], variant="shared")
+        with fk._forced("shared"):
+            fk.IngestAccumulator(fops).fold(slices[0])
         refused = False
     except RuntimeError:
         refused = True
@@ -655,7 +659,8 @@ def run(args, dev, torch, fine_job) -> int:
     m_mat = rk.eval_cuts(x, ops)
     acc_s, acc_g = fk.IngestAccumulator(ops), fk.IngestAccumulator(fops)
     acc_p, acc_gp = fk.IngestAccumulator(ops), fk.IngestAccumulator(fops)
-    acc_gm = fk.IngestAccumulator(ops)
+    with fk._forced("global"):
+        acc_gm = fk.IngestAccumulator(ops)
     runs = {
         "eval_cuts": (lambda: rk.eval_cuts(x, ops),
                       lambda: rk.eval_cuts_plain(x, ops)),
@@ -674,12 +679,14 @@ def run(args, dev, torch, fine_job) -> int:
     }
     times = {n: (time_ms(k, 20), time_ms(p, 3)) for n, (k, p) in runs.items()}
     # the global kernel on the main layout (the same work as the shared
-    # one), and the shared kernel with one and with two buffers a warp
-    global_on_main_ms = time_ms(lambda: acc_gm.fold(x, variant="global"), 20)
-    shared_by_stages = {
-        s: time_ms(lambda: acc_s.fold(x, variant="shared", stages=s), 20)
-        for s in (1, 2)
-    }
+    # one); the host side of one fold (wrapper and launch, no sync) and
+    # the shared kernel's plan
+    global_on_main_ms = time_ms(lambda: acc_gm.fold(x), 20)
+    torch.cuda.synchronize()
+    fold_host_ms = host_ms(lambda: acc_s.fold(x), FOLD_HOST_REPS)
+    torch.cuda.synchronize()
+    shared_plan = dict(zip(("kernel", "warps", "smem_bytes", "most_blocks"),
+                           acc_s._launch))
     # the query kernel's own device time, without the wrapper's host side
     q_kernel_ms = traced_kernel_ms(
         lambda: qk.query_intersect(leaf, conj, layout), "query_intersect",
@@ -744,7 +751,8 @@ def run(args, dev, torch, fine_job) -> int:
         "fold_ms_per_ingest": spread(fold_ms),
         "fold_ms_per_ingest_over_batches": fold_med / n_batches,
         "fused_global_on_main_layout_ms": global_on_main_ms,
-        "fused_shared_ms_by_buffers_a_warp": shared_by_stages,
+        "fused_fold_host_ms": fold_host_ms,
+        "fused_shared_plan": shared_plan,
         "query_intersect_kernel_ms": q_kernel_ms,
         "route_ms_per_batch": route_ms,
         "route_queries_ms": queries_ms,

@@ -46,8 +46,8 @@ _ARGTYPES = {
         P, I64, I32, P, I32,  # records, nodes, depth
         P, P, I32, P, P, I32, I32,  # cut table, cat dims, n_adv
         P, P, P, P, P, P, P,  # bids (or null) + accumulators
-        I32, I32, I32, I32, I32,  # sizes, variant, stages
-        ctypes.POINTER(I32),  # chosen
+        I32, I32, I32,  # n_leaves, cw, aw
+        I32, I32, I32, I32,  # the plan: kernel, warps, smem, most blocks
         P,  # stream
     ],
     "query_intersect": [
@@ -56,6 +56,13 @@ _ARGTYPES = {
         P, P,  # hits, scanned
         P,  # stream
     ],
+}
+
+# argument types of the other entry points a library has
+_EXTRA = {
+    "fused_ingest": {
+        "fused_ingest_plan": [I32] * 7 + [ctypes.POINTER(I32)],  # plan
+    },
 }
 
 # the kernels each launch counter stands for (fused_ingest.cu holds two)
@@ -150,6 +157,10 @@ def library(name: str) -> ctypes.CDLL:
             fn = getattr(lib, f"{name}_launch")
             fn.argtypes = _ARGTYPES[name]
             fn.restype = ctypes.c_int
+            for entry, argtypes in _EXTRA.get(name, {}).items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 

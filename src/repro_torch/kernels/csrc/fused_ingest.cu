@@ -15,15 +15,16 @@
 // atomics land in, and folding batch after batch into one set of
 // accumulators equals folding their concatenation.
 //
-// Two kernels, chosen by shape (fused_ingest_launch):
+// Two kernels, chosen by shape once a tree (fused_ingest_plan):
 //
 //  * fused_ingest_shared: a persistent grid, about one block per SM.  Each
 //    block keeps the whole tree's aggregates in dynamic shared memory
 //    (142 KB at 724 leaves x 21 columns), so a record's 40-odd atomics are
 //    shared-memory atomics.  Each warp stages contiguous tiles of 32 rows
-//    with 16-byte cp.async into its own buffers (two, double-buffered,
-//    when 32 warps fit so; else one, for twice the warps), so record reads
-//    coalesce; each lane then reads its row from shared memory.  At the
+//    with 16-byte cp.async into its own buffer, so record reads coalesce;
+//    each lane then reads its row from shared memory.  The block takes as
+//    many warps as fit beside the aggregates (32 at 724 x 21): the descent
+//    is latency-bound, and other warps hide a warp's next copy.  At the
 //    end the block folds its aggregates into the running accumulators
 //    with read-checked global atomics, eight reads in flight a thread.
 //
@@ -164,9 +165,8 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Issue the copies of tile `tile` (rows 32*tile ..) into `dst`.  A tile
@@ -211,15 +211,15 @@ __device__ __forceinline__ void flush(const T* s, T* g, int n, Op op) {
 }
 
 __global__ void __launch_bounds__(kMaxWarps * 32)
-    fused_ingest_shared(Ingest in, Acc g, int stages) {
+    fused_ingest_shared(Ingest in, Acc g) {
   extern __shared__ __align__(16) int32_t smem[];
   const int L = g.n_leaves, d = in.d;
   const int nwarps = blockDim.x >> 5, warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  // [stage: nwarps x stages x 32 rows][counts L][lo L*d][hi L*d][cat]
+  // [stage: nwarps x 32 rows][counts L][lo L*d][hi L*d][cat]
   // [advt][advf][cat_dims][cat_off d][adv 3 x n_adv]
   int32_t* stage = smem;
-  int32_t* s_counts = stage + nwarps * stages * 32 * d;
+  int32_t* s_counts = stage + nwarps * 32 * d;
   int32_t* s_lo = s_counts + L;
   int32_t* s_hi = s_lo + L * d;
   uint32_t* s_cat = reinterpret_cast<uint32_t*>(s_hi + L * d);
@@ -246,26 +246,19 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const FoldTables tables{s_cat_dims, s_cat_off, s_adv, in.n_cat_dims,
                           in.n_adv, in.bits};
 
-  // each warp walks its own tiles of 32 rows.  Two stages: the next tile
-  // is copied while this one is folded.  One stage: the next tile's copy
-  // is issued after this one is folded, and other warps hide it.
+  // each warp walks its own tiles of 32 rows through its one buffer: the
+  // next tile's copy is issued once this one is folded, and other warps
+  // hide it.
   const int64_t tiles = (in.m + 31) / 32;
   const int64_t stride = (int64_t)gridDim.x * nwarps;
   const bool vec = (reinterpret_cast<uintptr_t>(in.records) & 15) == 0;
-  int32_t* cur = stage + warp * stages * 32 * d;
-  int32_t* nxt = stages == 2 ? cur + 32 * d : cur;
+  int32_t* cur = stage + warp * 32 * d;
   int64_t t = (int64_t)blockIdx.x * nwarps + warp;
   if (t < tiles) stage_tile(cur, in, t, lane, vec);
   cp_async_commit();
   for (; t < tiles; t += stride) {
-    if (stages == 2) {
-      if (t + stride < tiles) stage_tile(nxt, in, t + stride, lane, vec);
-      cp_async_commit();
-      cp_async_wait<1>();  // this tile's copies have landed (own lane's)
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncwarp();  // ... and every lane's
+    cp_async_wait_all();  // this tile's copies have landed (own lane's)
+    __syncwarp();        // ... and every lane's
     const int64_t r = t * 32 + lane;
     if (r < in.m) {
       const int32_t* rec = cur + lane * d;
@@ -277,16 +270,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
                   s_advf + leaf * g.aw);
     }
     __syncwarp();  // every lane is done with `cur` before it is refilled
-    if (stages == 1) {
-      if (t + stride < tiles) stage_tile(cur, in, t + stride, lane, vec);
-      cp_async_commit();
-    } else {
-      int32_t* done = cur;
-      cur = nxt;
-      nxt = done;
-    }
+    if (t + stride < tiles) stage_tile(cur, in, t + stride, lane, vec);
+    cp_async_commit();
   }
-  cp_async_wait<0>();
+  cp_async_wait_all();
   __syncthreads();
 
   // flush the block's aggregates into the running accumulators
@@ -325,37 +312,28 @@ __global__ void fused_ingest_global(Ingest in, Acc g) {
   }
 }
 
-// Shared memory of fused_ingest_shared for `warps` warps of `stages`
-// tile buffers each.
-long long shared_bytes(int n_leaves, int d, int cw, int aw, int n_cat_dims,
-                       int n_adv, int warps, int stages) {
+// Shared memory of fused_ingest_shared: the aggregates and small tables
+// (fixed), and one buffer of 32 rows a warp.
+long long fixed_bytes(int n_leaves, int d, int cw, int aw, int n_cat_dims,
+                      int n_adv) {
   return 4LL * n_leaves * (1 + 2LL * d + cw + 2LL * aw) +
-         4LL * (n_cat_dims + d + 3 * n_adv) + 4LL * warps * stages * 32 * d;
+         4LL * (n_cat_dims + d + 3 * n_adv);
 }
+
+long long tile_bytes(int d) { return 4LL * 32 * d; }
 
 }  // namespace
 
-// variant: 0 chooses by shape, 1 forces the shared kernel, 2 the global
-// one.  The shared kernel takes as many warps as fit beside the aggregates
-// (at most 32): two tile buffers a warp while 32 warps fit so, else one
-// buffer a warp, which doubles the warps that fit.  Below kMinWarps warps
-// the global kernel is chosen.  stages: 0 as just said, 1 or 2 forces the
-// buffers a warp.  *chosen gets the kernel launched (1 or 2).  Returns a
-// cudaError_t: a refused shared-memory request or launch is returned,
-// never worked around.
-extern "C" int fused_ingest_launch(
-    const int32_t* records, int64_t m, int d, const int32_t* nodes,
-    int depth, const int32_t* cat_off, const uint8_t* in_mask, int bits,
-    const int32_t* adv, const int32_t* cat_dims, int n_cat_dims, int n_adv,
-    int32_t* bids, void* counts, int32_t* lo, int32_t* hi, int32_t* cat,
-    int32_t* advt, int32_t* advf, int n_leaves, int cw, int aw, int variant,
-    int stages, int* chosen, void* stream) {
-  Ingest in{records, m, d, reinterpret_cast<const int4*>(nodes), depth,
-            cat_off, in_mask, bits, adv, cat_dims, n_cat_dims, n_adv, bids};
-  Acc g{reinterpret_cast<unsigned long long*>(counts), lo, hi,
-        reinterpret_cast<uint32_t*>(cat), reinterpret_cast<uint32_t*>(advt),
-        reinterpret_cast<uint32_t*>(advf), n_leaves, cw, aw};
-  cudaStream_t st = (cudaStream_t)stream;
+// The launch plan of a tree, made once (kernels/fused_ingest.py keeps it
+// per shape): plan = {kernel, warps a block, dynamic shared bytes, most
+// blocks resident on the card}.  variant: 0 chooses by shape, 1 forces
+// the shared kernel, 2 the global one.  The shared kernel takes as many
+// warps as fit beside the aggregates, at most 32; below kMinWarps the
+// global kernel is chosen.  Returns a cudaError_t: a shared-memory request
+// the card refuses is returned, never worked around.
+extern "C" int fused_ingest_plan(int n_leaves, int d, int cw, int aw,
+                                 int n_cat_dims, int n_adv, int variant,
+                                 int* plan) {
   int dev = 0, optin = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (!err)
@@ -366,39 +344,62 @@ extern "C" int fused_ingest_launch(
   if (err) return (int)err;
 
   const long long fixed =
-      shared_bytes(n_leaves, d, cw, aw, n_cat_dims, n_adv, 0, 1);
-  const long long tile = shared_bytes(0, d, cw, aw, 0, 0, 1, 1);
-  const auto fit = [&](int s) {
-    const long long w = optin > fixed ? (optin - fixed) / (s * tile) : 0;
-    return (int)(w > kMaxWarps ? kMaxWarps : w);
-  };
-  if (stages != 1 && stages != 2) stages = fit(2) >= kMaxWarps ? 2 : 1;
-  const int warps_fit = fit(stages);
+      fixed_bytes(n_leaves, d, cw, aw, n_cat_dims, n_adv);
+  const long long fit = optin > fixed ? (optin - fixed) / tile_bytes(d) : 0;
+  const int warps_fit = (int)(fit > kMaxWarps ? kMaxWarps : fit);
   if (variant == 0) variant = warps_fit >= kMinWarps ? 1 : 2;
-  *chosen = variant;
+  plan[0] = variant;
+  plan[1] = 8;  // global kernel: 256 threads a block
+  plan[2] = 0;
+  plan[3] = 0;
+  if (variant != 1) return 0;
 
+  const int warps = warps_fit < 1 ? 1 : warps_fit;
+  const long long smem = fixed + warps * tile_bytes(d);
+  // The kernel's limit is raised to all the card offers, so that a plan
+  // for a small tree never lowers what a larger tree's launches need; a
+  // request past it goes to CUDA, which refuses it.
+  const long long limit = smem > optin ? smem : optin;
+  err = cudaFuncSetAttribute(fused_ingest_shared,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(limit > INT32_MAX ? INT32_MAX : limit));
+  int per_sm = 0;
+  if (!err)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_ingest_shared, warps * 32, (size_t)smem);
+  if (err) {
+    cudaGetLastError();  // clear it: the next launch must not see it
+    return (int)err;
+  }
+  plan[1] = warps;
+  plan[2] = (int)smem;
+  plan[3] = sms * (per_sm > 0 ? per_sm : 1);
+  return 0;
+}
+
+// One batch, by the plan fused_ingest_plan made: no host query of the
+// card.  Returns cudaGetLastError().
+extern "C" int fused_ingest_launch(
+    const int32_t* records, int64_t m, int d, const int32_t* nodes,
+    int depth, const int32_t* cat_off, const uint8_t* in_mask, int bits,
+    const int32_t* adv, const int32_t* cat_dims, int n_cat_dims, int n_adv,
+    int32_t* bids, void* counts, int32_t* lo, int32_t* hi, int32_t* cat,
+    int32_t* advt, int32_t* advf, int n_leaves, int cw, int aw,
+    int variant, int warps, int smem, int max_blocks, void* stream) {
+  Ingest in{records, m, d, reinterpret_cast<const int4*>(nodes), depth,
+            cat_off, in_mask, bits, adv, cat_dims, n_cat_dims, n_adv, bids};
+  Acc g{reinterpret_cast<unsigned long long*>(counts), lo, hi,
+        reinterpret_cast<uint32_t*>(cat), reinterpret_cast<uint32_t*>(advt),
+        reinterpret_cast<uint32_t*>(advf), n_leaves, cw, aw};
+  cudaStream_t st = (cudaStream_t)stream;
   if (variant == 1) {
-    const int warps = warps_fit < 1 ? 1 : warps_fit;
-    const long long smem = fixed + (long long)warps * stages * tile;
-    err = cudaFuncSetAttribute(fused_ingest_shared,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)(smem > INT32_MAX ? INT32_MAX : smem));
-    int per_sm = 0;
-    if (!err)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, fused_ingest_shared, warps * 32, (size_t)smem);
-    if (err) {
-      cudaGetLastError();  // clear it: the next launch must not see it
-      return (int)err;
-    }
     const int64_t tiles = (m + 31) / 32;
     int64_t blocks = (tiles + warps - 1) / warps;
-    const int64_t cap = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-    if (blocks > cap) blocks = cap;
+    if (blocks > max_blocks) blocks = max_blocks;
     fused_ingest_shared<<<(unsigned)blocks, warps * 32, (size_t)smem, st>>>(
-        in, g, stages);
+        in, g);
   } else {
-    const int threads = 256;
+    const int threads = warps * 32;
     fused_ingest_global<<<grid_for(m, threads), threads, 0, st>>>(in, g);
   }
   return (int)cudaGetLastError();

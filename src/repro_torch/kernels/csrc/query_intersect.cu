@@ -161,7 +161,8 @@ extern "C" int query_intersect_launch(
   const size_t smem =
       sizeof(int32_t) * ((size_t)32 * kc + n_entries + n_seg +
                          (size_t)chunk * kl);
-  if (smem > 48 * 1024) {
+  // the default dynamic limit is 48 KB less the static s_sum
+  if (smem + sizeof(long long) * kWarps * 32 > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         query_intersect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);

@@ -3,16 +3,18 @@
 The two-pass path reads every record twice — once to route it
 (``eval_cuts`` → ``locate_leaf``, paper Sec 3.1) and once to min-max-
 tighten its destination leaf's description (``IncrementalTightener``,
-Sec 3.2).  ``fused_ingest`` does both in one pass over a batch and folds
-the batch into an :class:`IngestAccumulator`: one set of per-leaf
+Sec 3.2).  :meth:`IngestAccumulator.fold` does both in one pass over a
+batch and folds the batch into the accumulator: one set of per-leaf
 aggregates on the device that lives across every batch of a stream and
 is copied to the host once, at the end (:meth:`IngestAccumulator.partial`).
 Min, max, add and or are associative, so folding batch after batch equals
 one fold of their concatenation, bit for bit.
 
-On a CUDA tensor the wrapper launches one of two kernels of
+On a CUDA tensor ``fold`` launches one of two kernels of
 ``csrc/fused_ingest.cu``: the shared-memory kernel when the tree's
 aggregates fit a block's shared memory, else the global-atomic kernel.
+The choice, the warps a block and the grid's cap are planned once a shape
+(:func:`_plan`), not once a batch.
 The plain PyTorch version beside them evaluates the full predicate
 matrix, locates leaves in path-constraint form and folds with scatters
 into the same accumulator layout; the wrapper takes it only for a tensor
@@ -24,7 +26,9 @@ there is no validity mask.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
@@ -45,10 +49,38 @@ from repro_torch.kernels.route_records import (
 I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
 
-# fused_ingest_launch's ``variant`` argument, and the launch counter each
+# fused_ingest_plan's ``variant`` argument, and the launch counter each
 # kernel moves
 VARIANTS = {None: 0, "shared": 1, "global": 2}
 KERNEL_NAMES = {1: "fused_ingest_shared", 2: "fused_ingest_global"}
+
+# The kernel the accumulators made under :func:`_forced` take; None
+# chooses by shape.  For tests and measurement only.
+_FORCED: Optional[str] = None
+
+
+@contextlib.contextmanager
+def _forced(variant: Optional[str]):
+    """Accumulators made inside take ``variant`` ("shared" or "global");
+    forcing the shared kernel on a tree too large for it raises."""
+    global _FORCED
+    before, _FORCED = _FORCED, variant
+    try:
+        yield
+    finally:
+        _FORCED = before
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device_index: int, shape: tuple, variant: int) -> tuple:
+    """fused_ingest_plan's (kernel, warps, shared bytes, most blocks) for
+    a tree of ``shape`` (L, d, cw, aw, categorical columns, adv cuts)."""
+    plan = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        rc = _build.library("fused_ingest").fused_ingest_plan(
+            *shape, variant, plan)
+    _build.check(rc, "fused_ingest")
+    return tuple(plan)
 
 
 class IngestAccumulator:
@@ -102,15 +134,50 @@ class IngestAccumulator:
         self._acc_args = (
             *(p(t) for t in self.tensors()), L, cw, aw,
         )
+        self._launch = None
+        if dev.type == "cuda":
+            shape = (L, d, cw, aw, int(ops["cat_dims"].shape[0]),
+                     int(ops["n_adv"]))
+            index = torch.cuda.current_device() if dev.index is None \
+                else dev.index
+            self._launch = _plan(index, shape, VARIANTS[_FORCED])
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
         return tuple(getattr(self, f) for f in self.FIELDS)
 
-    def fold(self, records: torch.Tensor, bids: bool = False,
-             **kernel) -> Optional[torch.Tensor]:
-        """Fold a batch in; its (m,) int32 block ids if ``bids``.
-        ``kernel``: :func:`fused_ingest`'s ``variant`` and ``stages``."""
-        return fused_ingest(records, self, bids=bids, **kernel)
+    def fold(self, records: torch.Tensor,
+             bids: bool = False) -> Optional[torch.Tensor]:
+        """Fold one batch in; its (m,) int32 block ids if ``bids``.
+
+        One kernel launch on a CUDA tensor; the plain version only for a
+        tensor on the CPU.
+        """
+        if not _kernel_device(records, "fused_ingest"):
+            return fused_ingest_plain(records, self, bids=bids)
+        _require(records, torch.int32, "fused_ingest")
+        dev = self.buf.device
+        if records.dim() != 2 or records.shape[1] != self.lo.shape[1]:
+            raise ValueError(
+                f"fused_ingest: records of shape {tuple(records.shape)} do "
+                f"not match the tree's {self.lo.shape[1]} columns"
+            )
+        if records.device != dev:
+            raise ValueError(
+                f"fused_ingest: the accumulator is on {dev}, not "
+                f"{records.device}"
+            )
+        m, d = records.shape
+        out = torch.empty(m, dtype=torch.int32, device=dev) if bids else None
+        if m == 0:
+            return out
+        rc = _build.library("fused_ingest").fused_ingest_launch(
+            _build.ptr(records), m, d, *self._tree_args,
+            _build.ptr(out) if bids else None, *self._acc_args,
+            *self._launch, _build.stream_ptr(dev),
+        )
+        _build.check(rc, "fused_ingest")
+        _build.LAUNCHES[KERNEL_NAMES[self._launch[0]]] += 1
+        return out
 
     def partial(self, tree: FrozenQdTree) -> TightenPartial:
         """The stream's aggregates in the tightener's exchange format.
@@ -183,41 +250,3 @@ def fused_ingest_plain(records: torch.Tensor, acc: IngestAccumulator,
             flags |= pack_bits(seen, flags.shape[1])
     return b32 if bids else None
 
-
-def fused_ingest(records: torch.Tensor, acc: IngestAccumulator,
-                 bids: bool = True, variant: Optional[str] = None,
-                 stages: Optional[int] = None) -> Optional[torch.Tensor]:
-    """Fold one batch into ``acc``; its (m,) int32 block ids if ``bids``.
-
-    ``variant`` None picks the kernel by shape; ``"shared"`` or
-    ``"global"`` forces one (a refused shared-memory request raises).
-    ``stages`` None lets the launcher choose the shared kernel's tile
-    buffers a warp; 1 or 2 forces them.
-    """
-    if not _kernel_device(records, "fused_ingest"):
-        return fused_ingest_plain(records, acc, bids=bids)
-    _require(records, torch.int32, "fused_ingest")
-    dev = acc.buf.device
-    if records.dim() != 2 or records.shape[1] != acc.lo.shape[1]:
-        raise ValueError(
-            f"fused_ingest: records of shape {tuple(records.shape)} do not "
-            f"match the tree's {acc.lo.shape[1]} columns"
-        )
-    if records.device != dev:
-        raise ValueError(
-            f"fused_ingest: the accumulator is on {dev}, not {records.device}"
-        )
-    m, d = records.shape
-    out = torch.empty(m, dtype=torch.int32, device=dev) if bids else None
-    if m == 0:
-        return out
-    chosen = ctypes.c_int(0)
-    rc = _build.library("fused_ingest").fused_ingest_launch(
-        _build.ptr(records), m, d, *acc._tree_args,
-        _build.ptr(out) if bids else None, *acc._acc_args,
-        VARIANTS[variant], stages or 0, ctypes.byref(chosen),
-        _build.stream_ptr(dev),
-    )
-    _build.check(rc, "fused_ingest")
-    _build.LAUNCHES[KERNEL_NAMES[chosen.value]] += 1
-    return out

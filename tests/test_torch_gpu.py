@@ -145,8 +145,10 @@ def wide_case(seed, d=160, m=4000, leaves=200):
 def _fold_both(ops, batches, variant):
     """Fold the same batches with the kernel and with the plain version;
     the block ids of each, and the two accumulators."""
-    acc_k, acc_p = tfk.IngestAccumulator(ops), tfk.IngestAccumulator(ops)
-    got = [acc_k.fold(b, bids=True, variant=variant) for b in batches]
+    with tfk._forced(variant):
+        acc_k = tfk.IngestAccumulator(ops)
+    acc_p = tfk.IngestAccumulator(ops)
+    got = [acc_k.fold(b, bids=True) for b in batches]
     want = [tfk.fused_ingest_plain(b, acc_p) for b in batches]
     torch.cuda.synchronize()
     return torch.cat(got), torch.cat(want), acc_k, acc_p
@@ -187,18 +189,25 @@ def test_fused_variants_match_plain(seed, variant):
         _assert_same(acc_k, acc_p)
 
 
-@pytest.mark.parametrize("stages", [1, 2])
-def test_shared_kernel_buffer_depths_match_plain(stages):
+def test_shared_plan_takes_every_warp_that_fits():
+    from repro_torch.kernels.fused_ingest import _plan
+
     dev = _cuda()
-    frozen, records, _ = random_case(7)
-    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
-    rec = torch.from_numpy(records).to(dev)
-    acc_k, acc_p = tfk.IngestAccumulator(ops), tfk.IngestAccumulator(ops)
-    for batch in (rec[:1001], rec[1001:]):
-        got = acc_k.fold(batch, bids=True, variant="shared", stages=stages)
-        assert torch.equal(got, tfk.fused_ingest_plain(batch, acc_p))
-    torch.cuda.synchronize()
-    _assert_same(acc_k, acc_p)
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    # (L, d, cw, aw, categorical columns, adv cuts); the first is tpch-40M's
+    for shape in ((724, 21, 5, 1, 11, 3), (40, 5, 2, 1, 2, 6),
+                  (900, 21, 5, 1, 11, 3)):
+        L, d, cw, aw, n_cat, n_adv = shape
+        fixed = 4 * L * (1 + 2 * d + cw + 2 * aw) + 4 * (n_cat + d + 3 * n_adv)
+        warps = min(32, (optin - fixed) // (4 * 32 * d))
+        kernel, got_warps, smem, most = _plan(dev.index, shape, 0)
+        if warps < 4:
+            assert kernel == 2
+            continue
+        assert (kernel, got_warps, smem) == (1, warps, fixed + warps * 128 * d)
+        assert most >= torch.cuda.get_device_properties(dev).multi_processor_count
+    if optin >= 232448:  # an H100's 227 KB: every warp fits at tpch-40M
+        assert _plan(dev.index, (724, 21, 5, 1, 11, 3), 0)[1] == 32
 
 
 @pytest.mark.parametrize("variant", [None, "shared", "global"])
@@ -237,12 +246,14 @@ def test_tree_too_large_for_shared_memory():
     _assert_same(acc_k, acc_p)
     # forcing the shared kernel raises: the request is refused, and
     # nothing falls back to another kernel or the plain version
-    acc = tfk.IngestAccumulator(ops)
     with pytest.raises(RuntimeError, match="fused_ingest kernel launch"):
-        acc.fold(rec, variant="shared")
+        with tfk._forced("shared"):
+            tfk.IngestAccumulator(ops)
     assert _build.launch_counts() == after
     # the refusal leaves no error behind for the next launch
-    acc.fold(rec, variant="global")
+    with tfk._forced("global"):
+        acc = tfk.IngestAccumulator(ops)
+    acc.fold(rec)
     torch.cuda.synchronize()
 
 
@@ -271,6 +282,52 @@ def test_query_intersect_kernel_matches_plain(seed):
         wt, frozen.schema,
     )
     np.testing.assert_array_equal(got[0].cpu().numpy().astype(bool), conj)
+
+
+@pytest.mark.parametrize("n_num", [34, 36])
+def test_query_intersect_near_the_default_shared_limit(n_num):
+    """Widths whose dynamic shared memory lies between the default limit
+    less the kernel's static 4 KB and 48 KB: the launch raises its limit."""
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    rng = np.random.default_rng(n_num)
+    schema = preds.Schema((
+        *(preds.Column(f"x{j}", "numeric", 100) for j in range(n_num)),
+        preds.Column("c", "categorical", 32),
+    ))
+    layout = tops.query_layout(schema, 0)
+    L, C = 1024, 45
+    kl = kc = 2 * n_num + 3  # one categorical word and entry, two adv words
+    smem = 4 * (32 * kc + 1 + 1 + 128 * kl)
+    assert 48 * 1024 - 4096 < smem <= 48 * 1024
+    lo = rng.integers(0, 60, (L, n_num))
+    i32 = np.iinfo(np.int32)
+    q_lo = np.full((C, n_num), i32.min)
+    q_hi = np.full((C, n_num), i32.max)
+    q_lo[:, :2] = rng.integers(0, 90, (C, 2))
+    q_hi[:, :2] = q_lo[:, :2] + rng.integers(1, 20, (C, 2))
+    leaf = {
+        "desc": np.concatenate([
+            lo, lo + rng.integers(1, 40, (L, n_num)),
+            rng.integers(0, 2**31, (L, 1)), rng.integers(0, 2**31, (L, 2)),
+        ], axis=1).astype(np.int32),
+        "size": rng.integers(0, 2**40, L).astype(np.int64),
+    }
+    conj = {"desc": np.concatenate([
+        q_lo, q_hi, rng.integers(1, 2**31, (C, 1)),
+        rng.integers(0, 2**31, (C, 2)) & (rng.random((C, 2)) < 0.3),
+    ], axis=1).astype(np.int32)}
+    assert leaf["desc"].shape[1] == kl and conj["desc"].shape[1] == kc
+    args = tuple(tplan.to_device(x, dev) for x in (leaf, conj, layout))
+    before = _build.launch_counts()["query_intersect"]
+    got = tqk.query_intersect(*args)
+    assert _build.launch_counts()["query_intersect"] == before + 1
+    torch.cuda.synchronize()
+    want = tqk.query_intersect_plain(*args)
+    assert 0 < int(want[0].sum()) < L * C
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -318,7 +375,7 @@ def test_wrappers_refuse_mismatched_operands():
     host_ops = tplan.to_device(tplan.pack_route_constants(frozen), "cpu")
     rec = torch.from_numpy(records).to(dev)
     with pytest.raises(ValueError, match="not cuda"):
-        tfk.fused_ingest(rec, tfk.IngestAccumulator(host_ops))
+        tfk.IngestAccumulator(host_ops).fold(rec)
     ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
     with pytest.raises(ValueError, match="columns"):
         trk.eval_cuts(rec[:, :3].contiguous(), ops)
