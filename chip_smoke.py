@@ -7,7 +7,7 @@ At the slice's full size (a 40M-row TPC-H-like table, 150-query workload,
 greedy layout of 724 blocks learned from a 1% sample), through the entry
 points a user calls — ``LayoutEngine(tree)`` on the GPU: ``warm_ingest``
 + ``ingest`` (one ``fused_ingest`` launch a batch into a running
-accumulator on the device), ``route`` (``eval_cuts`` + ``locate_leaf``),
+accumulator on the device), ``route`` (one ``route_descend`` launch),
 ``route_queries``, ``route_query`` and ``skip_stats``
 (``query_intersect``).  The main path also ingests the table into a finer
 layout (1,250 blocks learned from an 8,000-row sample, built in a second
@@ -16,25 +16,31 @@ shared memory, so ``fused_ingest`` takes its global-atomic kernel there.
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` first,
 and checks:
 
-* each kernel (both ``fused_ingest`` kernels) equals its plain PyTorch
-  version on the card, exactly: on small random trees with every cut kind,
-  on the finer layout, and at the main path's shapes;
+* each kernel (both ``fused_ingest`` and both ``route_descend`` kernels)
+  equals its plain PyTorch version on the card, exactly: on small random
+  trees with every cut kind, on the finer layout, and at the main path's
+  shapes; ``eval_cuts`` → ``locate_leaf``, off the main path since
+  ``route`` descends directly, are still built, launched and checked;
 * the running accumulator folded over uneven batches (one a single row,
   one starting at an unaligned row) equals the plain version over their
   concatenation and the numpy oracle (``fused_ingest_ref``);
 * the whole 40M-row ingest's tightened descriptions equal the numpy
   oracle's (``IncrementalTightener`` over the same batches, on host
   threads), and the finer layout's equal the plain torch path's;
-* route's block ids equal ``fused_step``'s, ``route_query`` equals
-  ``route_queries``, and the query hits and per-conjunct scan counts
-  equal the numpy backend's;
-* every kernel launched during the main path, and a warm engine builds no
-  plan;
+* route's block ids equal ``fused_step``'s, the two-kernel form's
+  (``eval_cuts`` → ``locate_leaf``) and the numpy oracle's on both
+  layouts; ``route_query`` equals ``route_queries``, and the query hits
+  and per-conjunct scan counts equal the numpy backend's;
+* each path of the main path (ingest, route, query), counted from 0 just
+  before it, launched its kernels; ``route`` launched ``route_descend``
+  once a call and nothing else, by the counters and in a trace; a warm
+  engine builds no plan;
 * a traced ingest runs exactly one ``fused_ingest`` kernel a batch and
   copies aggregates to the host once, not once a batch.
 
 Then it times: route and query latencies (median and spread of warm
-calls, host clock), whole-table ingests on fresh trees, one ingest under
+calls, host clock; route split into its kernel, from a trace, and the
+ids' copy back), whole-table ingests on fresh trees, one ingest under
 ``torch.profiler`` (the device's busy share), the fold of the running
 accumulator into the tightener (once an ingest), and each kernel against
 its plain version.  It exits non-zero on the first failure, without a
@@ -90,12 +96,18 @@ KERNEL_SOURCES = {
                   "src/repro/kernels/route_records.py:114"),
     "locate_leaf": ("src/repro_torch/kernels/csrc/locate_leaf.cu",
                     "src/repro/kernels/route_records.py:198"),
+    # computes what the two Pallas kernels compose: records → block ids
+    "route_descend": ("src/repro_torch/kernels/csrc/route_descend.cu",
+                      "src/repro/kernels/route_records.py:114; "
+                      "src/repro/kernels/route_records.py:198"),
     "fused_ingest_shared": (FUSED, FUSED_REF),
     "fused_ingest_global": (FUSED, FUSED_REF),
     "query_intersect": ("src/repro_torch/kernels/csrc/query_intersect.cu",
                         "src/repro/kernels/query_intersect.py:94"),
 }
 VARIANTS = ("shared", "global")
+# kernels off the main path: ``route`` no longer goes through them
+OFF_PATH = ("eval_cuts", "locate_leaf")
 
 
 def log(msg: str) -> None:
@@ -189,24 +201,40 @@ def trace_counts(prof) -> dict:
             "fused_kernels": kernels, "d2h_copies": d2h}
 
 
-def traced_kernel_ms(fn, name: str, reps: int) -> float:
-    """Median device time of the kernel ``name`` over ``reps`` calls of
-    ``fn`` under ``torch.profiler`` (one launch a call)."""
+def traced_kernels(fn, reps: int) -> dict[str, list]:
+    """Device ms of each kernel of the repo's libraries (by counter name)
+    over ``reps`` calls of ``fn`` under ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = [(ev.time_range.end - ev.time_range.start) / 1e3
-             for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA
-             and name in ev.name]
-    require(len(spans) == reps,
-            f"the trace shows {len(spans)} {name} kernels for {reps} calls")
-    return float(np.median(spans))
+    spans: dict[str, list] = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in _build.LAUNCH_NAMES:
+            if name in ev.name:
+                spans.setdefault(name, []).append(
+                    (ev.time_range.end - ev.time_range.start) / 1e3)
+    return spans
+
+
+def traced_kernel_ms(fn, name: str, reps: int) -> float:
+    """Median device time of the kernel ``name`` over ``reps`` calls of
+    ``fn`` under ``torch.profiler``; ``fn`` launches ``name`` once a call
+    and no other kernel of the repo."""
+    spans = traced_kernels(fn, reps)
+    counts = {k: len(v) for k, v in spans.items()}
+    require(counts == {name: reps},
+            f"the trace shows {counts} kernels for {reps} calls; expected "
+            f"{reps} {name}")
+    return float(np.median(spans[name]))
 
 
 def max_abs_err(got, want) -> float:
@@ -304,9 +332,21 @@ def fused_err(ops, batches, variant) -> float:
     return max_abs_err([bids, *acc.tensors()], [want, *plain.tensors()])
 
 
+def route_forced(rec, ops, variant):
+    """Block ids by one ``route_descend`` kernel, ``variant`` forced."""
+    from repro_torch.kernels import route_records as rk
+
+    with rk._forced(variant):
+        plan = rk.route_plan(ops)
+    require(plan[0] == 1 + VARIANTS.index(variant),
+            f"route_descend planned kernel {plan[0]} for {variant}")
+    return rk.route(rec, {**ops, "route_plan": plan})
+
+
 def compare_kernels(tree, rec, wt, dev, ctx: str,
                     variants=VARIANTS) -> dict[str, float]:
-    """Each kernel against its plain version on the same inputs (exact)."""
+    """Each kernel against its plain version on the same inputs (exact);
+    ``route_descend`` (both kernels) also against the two-kernel form."""
     from repro_torch.kernels import query_intersect as qk
     from repro_torch.kernels import route_records as rk
 
@@ -314,8 +354,18 @@ def compare_kernels(tree, rec, wt, dev, ctx: str,
     errs = {}
     m_k = rk.eval_cuts(rec, ops)
     errs["eval_cuts"] = max_abs_err([m_k], [rk.eval_cuts_plain(rec, ops)])
-    errs["locate_leaf"] = max_abs_err([rk.locate_leaf(m_k, ops)],
+    two_kernel = rk.locate_leaf(m_k, ops)
+    errs["locate_leaf"] = max_abs_err([two_kernel],
                                       [rk.locate_leaf_plain(m_k, ops)])
+    want = rk.route_plain(rec, ops)
+    errs["route_descend"] = 0.0
+    for v in VARIANTS:
+        got = route_forced(rec, ops, v)
+        require(max_abs_err([got], [two_kernel]) == 0.0,
+                f"{ctx}: route_descend ({v}) differs from eval_cuts → "
+                f"locate_leaf")
+        errs["route_descend"] = max(errs["route_descend"],
+                                    max_abs_err([got], [want]))
     for v in variants:
         errs[f"fused_ingest_{v}"] = fused_err(ops, [rec], v)
     qargs = query_args(tree, wt, dev)
@@ -505,32 +555,62 @@ def run(args, dev, torch, fine_job) -> int:
     sizes = {s.shape[0] for s in slices}
     torch.cuda.synchronize()
 
-    # -- the main path, counted ----------------------------------------------
+    # -- the main path, counted: each path from 0 just before it ------------
     engine = LayoutEngine(tree)  # backend "torch" on the GPU
     fine_engine = LayoutEngine(fine)
     require(engine.device == dev, f"engine on {engine.device}")
-    _build.reset_launch_counts()
-    engine.warm_ingest(sizes)
-    report = engine.ingest(slices)
-    require(report.builds == {},
-            f"plans built during the warm ingest: {report.builds}")
-    fine_engine.warm_ingest(sizes)
-    fine_report = fine_engine.ingest(slices)
-    route_bids = engine.route(slices[0])
-    fused_bids, _ = engine.fused_step(slices[0])
-    lists = engine.route_queries(work)
-    stats = engine.skip_stats(rec_dev, work)
-    lists = engine.route_queries(work)  # against the tightened descriptions
-    one = [engine.route_query(q) for q in work.queries[:ROUTE_QUERY_N]]
-    torch.cuda.synchronize()
-    launches = _build.launch_counts()
-    log(f"main path launches: {launches}")
+    path_launches = {}
+
+    def counted(path, fn):
+        _build.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        path_launches[path] = _build.launch_counts()
+        return out
+
+    def ingest_path():
+        engine.warm_ingest(sizes)
+        rep = engine.ingest(slices)
+        require(rep.builds == {},
+                f"plans built during the warm ingest: {rep.builds}")
+        fine_engine.warm_ingest(sizes)
+        return rep, fine_engine.ingest(slices), engine.fused_step(slices[0])
+
+    def query_path():
+        engine.route_queries(work)
+        st = engine.skip_stats(rec_dev, work)
+        ls = engine.route_queries(work)  # against the tightened descriptions
+        return st, ls, [engine.route_query(q)
+                        for q in work.queries[:ROUTE_QUERY_N]]
+
+    report, fine_report, (fused_bids, _) = counted("ingest", ingest_path)
+    route_bids, fine_route_bids = counted("route", lambda: (
+        engine.route(slices[0]), fine_engine.route(slices[0])))
+    stats, lists, one = counted("query", query_path)
+    launches = {k: sum(c[k] for c in path_launches.values())
+                for k in _build.LAUNCH_NAMES}
+    log(f"main path launches by path: {path_launches}")
     for name, n in launches.items():
-        require(n > 0, f"kernel {name} never launched on the main path")
+        if name in OFF_PATH:
+            require(n == 0, f"kernel {name} launched on the main path")
+        else:
+            require(n > 0, f"kernel {name} never launched on the main path")
+    require(path_launches["route"] == {
+        k: 2 if k == "route_descend" else 0 for k in _build.LAUNCH_NAMES
+    }, f"two route calls launched {path_launches['route']}; expected one "
+       f"route_descend each and nothing else")
 
     # -- what came out is right ----------------------------------------------
     require(np.array_equal(route_bids, fused_bids),
             "route and fused_step disagree on block ids")
+    for ctx, t, got in (("main layout", tree, route_bids),
+                        ("finer layout", fine, fine_route_bids)):
+        o = route_ops(t, dev)
+        two = rk.locate_leaf(rk.eval_cuts(slices[0], o), o).cpu().numpy()
+        require(np.array_equal(got, two),
+                f"{ctx}: route differs from eval_cuts → locate_leaf")
+        require(np.array_equal(got, t.route(records[:BATCH])),
+                f"{ctx}: route differs from the numpy oracle")
     require(len(lists) == len(work) and stats.n_blocks == tree.n_leaves,
             "query routing shapes")
     for q, bids in enumerate(one):
@@ -583,8 +663,16 @@ def run(args, dev, torch, fine_job) -> int:
     # -- latencies: warm calls on the host clock; a warm engine builds no plan
     warm = tplan.build_counts()
     route_ms = host_ms(lambda: engine.route(slices[0]), LAT_REPS)
+    # route's two parts: the ids' copy back (here) and its one kernel, from
+    # a trace of engine.route calls that also shows no other kernel (taken
+    # after the host-clock latencies, so that no profiler run precedes them)
+    ids = rk.route(slices[0], route_ops(tree, dev))
+    torch.cuda.synchronize()
+    route_copy_ms = host_ms(lambda: ids.cpu(), LAT_REPS)
     queries_ms = host_ms(lambda: engine.route_queries(work), LAT_REPS)
     query_ms = host_ms(lambda: engine.route_query(work.queries[0]), LAT_REPS)
+    route_kernel_ms = traced_kernel_ms(lambda: engine.route(slices[0]),
+                                       "route_descend", LAT_REPS)
     engine.fused_step(slices[-1], return_bids=False)
     require(tplan.build_counts() == warm, "a warm engine built a plan")
 
@@ -666,6 +754,8 @@ def run(args, dev, torch, fine_job) -> int:
                       lambda: rk.eval_cuts_plain(x, ops)),
         "locate_leaf": (lambda: rk.locate_leaf(m_mat, ops),
                         lambda: rk.locate_leaf_plain(m_mat, ops)),
+        "route_descend": (lambda: rk.route(x, ops),
+                          lambda: rk.route_plain(x, ops)),
         # as the ingest folds a batch: no block ids
         "fused_ingest_shared": (
             lambda: acc_s.fold(x),
@@ -682,11 +772,16 @@ def run(args, dev, torch, fine_job) -> int:
     # one); the host side of one fold (wrapper and launch, no sync) and
     # the shared kernel's plan
     global_on_main_ms = time_ms(lambda: acc_gm.fold(x), 20)
+    # route_descend's global kernel on the main layout, and its planned
+    # kernel on the finer layout
+    route_global_on_main_ms = time_ms(lambda: route_forced(x, ops, "global"),
+                                      20)
+    route_fine_ms = time_ms(lambda: rk.route(x, fops), 20)
     torch.cuda.synchronize()
     fold_host_ms = host_ms(lambda: acc_s.fold(x), FOLD_HOST_REPS)
     torch.cuda.synchronize()
-    shared_plan = dict(zip(("kernel", "warps", "smem_bytes", "most_blocks"),
-                           acc_s._launch))
+    plan_keys = ("kernel", "warps", "smem_bytes", "most_blocks")
+    shared_plan = dict(zip(plan_keys, acc_s._launch))
     # the query kernel's own device time, without the wrapper's host side
     q_kernel_ms = traced_kernel_ms(
         lambda: qk.query_intersect(leaf, conj, layout), "query_intersect",
@@ -700,7 +795,6 @@ def run(args, dev, torch, fine_job) -> int:
                          "adv", "adv_id"))
     nodes = 4 * 4 * tree.n_nodes
     path = int(leaf_depths(tree)[route_bids].sum())  # cuts read on descent
-    fine_bids = fine_engine.route(x)
     nq = wt.n_conjuncts
     n_num = int(layout["num_dims"].shape[0])
     n_ent, aw = int(layout["seg_word"].shape[0]), int(layout["aw"])
@@ -708,8 +802,10 @@ def run(args, dev, torch, fine_job) -> int:
     bounds_ms = {
         "eval_cuts": bound(m * d * 4 + table + m * C, m * C),
         "locate_leaf": bound(path + nodes + m * 4, path),
+        "route_descend": bound(
+            m * d * 4 + nodes + int(ops["in_mask"].numel()) + m * 4, path),
         "fused_ingest_shared": fused_bound(tree, ops, route_bids, m, d),
-        "fused_ingest_global": fused_bound(fine, fops, fine_bids, m, d),
+        "fused_ingest_global": fused_bound(fine, fops, fine_route_bids, m, d),
         "query_intersect": bound(
             4 * (L * kl + nq * kc) + 8 * L + L * nq + 8 * nq,
             L * nq * (2 * n_num + n_ent + 4 * aw) + L * nq,
@@ -751,10 +847,18 @@ def run(args, dev, torch, fine_job) -> int:
         "fold_ms_per_ingest": spread(fold_ms),
         "fold_ms_per_ingest_over_batches": fold_med / n_batches,
         "fused_global_on_main_layout_ms": global_on_main_ms,
+        "route_global_on_main_layout_ms": route_global_on_main_ms,
+        "route_descend_fine_ms": route_fine_ms,
         "fused_fold_host_ms": fold_host_ms,
         "fused_shared_plan": shared_plan,
         "query_intersect_kernel_ms": q_kernel_ms,
         "route_ms_per_batch": route_ms,
+        # its kernel alone (trace of engine.route calls) and the ids' copy
+        # back (host clock around .cpu() of a batch's ids)
+        "route_kernel_ms": route_kernel_ms,
+        "route_copy_ms": route_copy_ms,
+        "route_plan": dict(zip(plan_keys, rk.route_plan(ops))),
+        "route_plan_fine": dict(zip(plan_keys, rk.route_plan(fops))),
         "route_queries_ms": queries_ms,
         "route_query_ms": query_ms,
         "scanned_fraction": stats.scanned_fraction,

@@ -3,8 +3,8 @@
 Two interchangeable backends, bit-identical:
 
 * ``FrozenQdTree.route``       — numpy oracle (core/qdtree.py)
-* engine "torch" backend       — the ``eval_cuts`` + ``locate_leaf`` CUDA
-  kernels on the GPU, their plain PyTorch versions on the CPU
+* engine "torch" backend       — the ``route_descend`` CUDA kernel on
+  the GPU, its plain PyTorch version on the CPU
 
 ``route`` below is a thin shim over the tree's attached
 :class:`~repro_torch.engine.LayoutEngine`.  ``cut_table_arrays`` /

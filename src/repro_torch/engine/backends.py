@@ -213,7 +213,8 @@ class TorchBackend(Backend):
     WORKLOAD_PLANS = 16  # workloads whose operands stay on each device
 
     def _tree_plan(self, tree, cache, device) -> CompiledPlan:
-        """Route + ingest operands: topology and cut table, once per tree."""
+        """Route + ingest operands: topology and cut table, and on a GPU
+        ``route_descend``'s launch plan, once per tree."""
         sig = planlib.tree_signature(tree)
         node_bucket = pad_bucket(tree.n_nodes, MIN_BUCKET)
         leaf_bucket = pad_bucket(tree.n_leaves, MIN_BUCKET)
@@ -224,15 +225,15 @@ class TorchBackend(Backend):
         def build():
             count_build("tree:torch")
             ops = planlib.to_device(planlib.pack_route_constants(tree), device)
+            if device.type == "cuda":
+                ops["route_plan"] = rk.route_plan(ops)
             return CompiledPlan(key=key, operands=ops, meta={})
 
         return cache.get(key, build)
 
     def route(self, tree, cache, records, device):
         ops = self._tree_plan(tree, cache, device).operands
-        rec = _on_device(records, device)
-        bids = rk.locate_leaf(rk.eval_cuts(rec, ops), ops)
-        return bids.cpu().numpy()
+        return rk.route(_on_device(records, device), ops).cpu().numpy()
 
     def accumulator(self, tree, cache, device):
         ops = self._tree_plan(tree, cache, device).operands

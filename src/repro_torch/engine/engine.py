@@ -1,7 +1,7 @@
 """LayoutEngine: the single serving interface over a frozen qd-tree.
 
     eng = LayoutEngine(frozen_tree)              # backend "torch", the GPU
-    bids = eng.route(records)                    # eval_cuts + locate_leaf
+    bids = eng.route(records)                    # route_descend
     report = eng.ingest(batch_iter)              # fused_ingest per batch
     hits = eng.query_hits(workload)              # (n_leaves, n_queries) bool
     lists = eng.route_queries(workload)          # per-query BID IN (...) lists

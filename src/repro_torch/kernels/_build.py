@@ -4,9 +4,10 @@ Each source ``csrc/<name>.cu`` becomes its own shared library with a plain
 C interface (``<name>_launch``), compiled for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into ``build/kernels/`` at the
 repository root, which git ignores.  The library's file name carries a
-hash of the sources, so an edited kernel is rebuilt and a stale one is
-never loaded.  The first call builds every missing library at once, one
-nvcc process per source, all started together.
+hash of its source and of every header in ``csrc/``, so an edited kernel
+is rebuilt and a stale one is never loaded.  The first call builds every
+missing library at once, one nvcc process per source, all started
+together.
 
 Every launch function takes ``c_void_p`` for each pointer and for the
 stream, and returns ``cudaGetLastError()``; :func:`check` raises on a
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -28,7 +30,8 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("eval_cuts", "locate_leaf", "fused_ingest", "query_intersect")
+KERNELS = ("eval_cuts", "locate_leaf", "route_descend", "fused_ingest",
+           "query_intersect")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,6 +45,12 @@ I64 = ctypes.c_int64
 _ARGTYPES = {
     "eval_cuts": [P, I64, I32, P, P, P, P, I32, I32, P, P, P, P, P],
     "locate_leaf": [P, I64, I32, P, P, P, P, I32, P, P],
+    "route_descend": [
+        P, I64, I32, P, I32, I32,  # records, nodes, depth
+        P, I32, P,  # in_mask, bits, bids
+        I32, I32, I32, I32,  # the plan: kernel, warps, smem, most blocks
+        P,  # stream
+    ],
     "fused_ingest": [
         P, I64, I32, P, I32,  # records, nodes, depth
         P, P, I32, P, P, I32, I32,  # cut table, cat dims, n_adv
@@ -60,14 +69,19 @@ _ARGTYPES = {
 
 # argument types of the other entry points a library has
 _EXTRA = {
+    "route_descend": {
+        "route_descend_plan": [I32] * 3 + [ctypes.POINTER(I32)],  # plan
+    },
     "fused_ingest": {
         "fused_ingest_plan": [I32] * 7 + [ctypes.POINTER(I32)],  # plan
     },
 }
 
-# the kernels each launch counter stands for (fused_ingest.cu holds two)
-LAUNCH_NAMES = ("eval_cuts", "locate_leaf", "fused_ingest_shared",
-                "fused_ingest_global", "query_intersect")
+# the kernels each launch counter stands for: fused_ingest.cu's two count
+# apart, route_descend.cu's two together
+LAUNCH_NAMES = ("eval_cuts", "locate_leaf", "route_descend",
+                "fused_ingest_shared", "fused_ingest_global",
+                "query_intersect")
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -100,7 +114,7 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> pathlib.Path:
     h = hashlib.blake2b(digest_size=6)
-    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()}.so"
 
@@ -163,6 +177,20 @@ def library(name: str) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def plan(name: str, device_index: int, *args: int) -> tuple:
+    """``<name>_plan(*args)``'s launch plan (kernel, warps a block, shared
+    bytes, most blocks) on device ``device_index``, made once a tree shape:
+    a batch's launch then makes no host query of the card."""
+    import torch
+
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        rc = getattr(library(name), f"{name}_plan")(*args, out)
+    check(rc, name)
+    return tuple(out)
 
 
 def check(rc: int, name: str) -> None:

@@ -1,0 +1,88 @@
+// The descent of a packed tree and the cp.async staging of record tiles,
+// shared by fused_ingest.cu and route_descend.cu.
+#pragma once
+
+#include "common.cuh"
+
+// A node of the tree with its cut, packed for the descent
+// (engine/plan.py::pack_nodes): (meta, left, right, w); a leaf is
+// (0, block id, -1, 0).  meta's top two bits hold the cut's kind and its
+// low 12 bits a column: range: meta = dim, w = cutpoint; IN: meta =
+// 1 << 30 | cat_off[dim] << 12 | dim, w = the cut's first in_mask byte;
+// advanced: meta = 2 << 30 | op << 24 | col_b << 12 | col_a.
+//
+// Walk from the root to the record's leaf; returns its block id.  Besides
+// the node and the record's row, only an IN node reads memory (one
+// in_mask byte).  kLdg reads the nodes through the read-only cache (a
+// node array in global memory); otherwise they are plain loads, for a
+// node array staged in shared memory.
+template <bool kLdg>
+__device__ __forceinline__ int descend(const int32_t* rec,
+                                       const int4* __restrict__ nodes,
+                                       int depth,
+                                       const uint8_t* __restrict__ in_mask,
+                                       int bits) {
+  int4 n = kLdg ? __ldg(nodes) : nodes[0];
+  for (int level = 0; level < depth && n.z >= 0; ++level) {
+    const unsigned meta = (unsigned)n.x;
+    const int32_t v = rec[meta & 0xFFF];
+    const unsigned kind = meta >> 30;
+    bool left;
+    if (kind == KIND_RANGE) {
+      left = v < n.w;
+    } else if (kind == KIND_IN) {
+      int pos = v + (int)((meta >> 12) & 0x3FFFF);
+      pos = min(max(pos, 0), bits - 1);  // same clip as the plain version
+      left = __ldg(in_mask + (int64_t)n.w + pos) != 0;
+    } else {
+      left = adv_true((meta >> 24) & 0x3F, v, rec[(meta >> 12) & 0xFFF]);
+    }
+    const int next = left ? n.y : n.z;
+    n = kLdg ? __ldg(nodes + next) : nodes[next];
+  }
+  return n.y;
+}
+
+// ---------------------------------------------------------------------------
+// cp.async staging of a warp's tile of 32 rows
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Issue the copies of tile `tile` (rows 32*tile .. of the (m, d) batch
+// `records`) into `dst`.  A tile starts 128 * d bytes after the previous
+// one, so with a 16-byte aligned batch (`vec`) every 16-byte chunk is
+// aligned; a ragged tail or an unaligned batch goes 4 bytes at a time.
+__device__ __forceinline__ void stage_tile(int32_t* dst,
+                                           const int32_t* records, int64_t m,
+                                           int d, int64_t tile, int lane,
+                                           bool vec) {
+  const int64_t row0 = tile * 32;
+  const int rows = (int)min((int64_t)32, m - row0);
+  const int n = rows * d;
+  const int32_t* src = records + row0 * d;
+  int done = 0;
+  if (vec) {
+    const int nv = n >> 2;
+    for (int i = lane; i < nv; i += 32) cp_async16(dst + 4 * i, src + 4 * i);
+    done = nv << 2;
+  }
+  for (int i = done + lane; i < n; i += 32) cp_async4(dst + i, src + i);
+}

@@ -44,19 +44,14 @@
 // TPC-H-like rows), writes 4 bytes of block id a record when asked, and
 // reads and writes the accumulators once.
 
-#include "common.cuh"
+#include "descend.cuh"
 
 namespace {
 
 constexpr int kMaxWarps = 32;  // 1024 threads, one block a SM
 constexpr int kMinWarps = 4;   // below this the global kernel is chosen
 
-// A node of the tree with its cut, packed for the descent
-// (engine/plan.py::pack_nodes): (meta, left, right, w); a leaf is
-// (0, block id, -1, 0).  meta's top two bits hold the cut's kind and its
-// low 12 bits a column: range: meta = dim, w = cutpoint; IN: meta =
-// 1 << 30 | cat_off[dim] << 12 | dim, w = the cut's first in_mask byte;
-// advanced: meta = 2 << 30 | op << 24 | col_b << 12 | col_a.
+// A batch and the tree it descends (nodes packed as descend.cuh states).
 struct Ingest {
   const int32_t* records;  // (m, d)
   int64_t m;
@@ -83,29 +78,6 @@ struct Acc {
   uint32_t* advf;              // (L, aw) advanced cut seen false
   int n_leaves, cw, aw;
 };
-
-// Walk from the root to the record's leaf.  Besides the node and the
-// record's row, only an IN node reads memory (one in_mask byte).
-__device__ __forceinline__ int descend(const int32_t* rec, const Ingest& in) {
-  int4 n = __ldg(in.nodes);
-  for (int level = 0; level < in.depth && n.z >= 0; ++level) {
-    const unsigned meta = (unsigned)n.x;
-    const int32_t v = rec[meta & 0xFFF];
-    const unsigned kind = meta >> 30;
-    bool left;
-    if (kind == KIND_RANGE) {
-      left = v < n.w;
-    } else if (kind == KIND_IN) {
-      int pos = v + (int)((meta >> 12) & 0x3FFFF);
-      pos = min(max(pos, 0), in.bits - 1);  // same clip as the plain version
-      left = __ldg(in.in_mask + (int64_t)n.w + pos) != 0;
-    } else {
-      left = adv_true((meta >> 24) & 0x3F, v, rec[(meta >> 12) & 0xFFF]);
-    }
-    n = __ldg(in.nodes + (left ? n.y : n.z));
-  }
-  return n.y;
-}
 
 __device__ __forceinline__ void or_bit(uint32_t* word, uint32_t bit) {
   if ((*word & bit) == 0) atomicOr(word, bit);
@@ -144,49 +116,6 @@ __device__ __forceinline__ void fold_record(const int32_t* rec, int d,
     const bool truth = adv_true(p[1], rec[p[0]], rec[p[2]]);
     or_bit((truth ? advt : advf) + (a >> 5), 1u << (a & 31));
   }
-}
-
-// ---------------------------------------------------------------------------
-// cp.async staging of a warp's tile of 32 rows
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Issue the copies of tile `tile` (rows 32*tile ..) into `dst`.  A tile
-// starts 128 * d bytes after the previous one, so with a 16-byte aligned
-// batch every 16-byte chunk is aligned; a ragged tail or an unaligned
-// batch goes 4 bytes at a time.
-__device__ __forceinline__ void stage_tile(int32_t* dst, const Ingest& in,
-                                           int64_t tile, int lane,
-                                           bool vec) {
-  const int64_t row0 = tile * 32;
-  const int rows = (int)min((int64_t)32, in.m - row0);
-  const int n = rows * in.d;
-  const int32_t* src = in.records + row0 * in.d;
-  int done = 0;
-  if (vec) {
-    const int nv = n >> 2;
-    for (int i = lane; i < nv; i += 32) cp_async16(dst + 4 * i, src + 4 * i);
-    done = nv << 2;
-  }
-  for (int i = done + lane; i < n; i += 32) cp_async4(dst + i, src + i);
 }
 
 // Fold the block's aggregates `s` into the running ones `g`, read-checked:
@@ -254,7 +183,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const bool vec = (reinterpret_cast<uintptr_t>(in.records) & 15) == 0;
   int32_t* cur = stage + warp * 32 * d;
   int64_t t = (int64_t)blockIdx.x * nwarps + warp;
-  if (t < tiles) stage_tile(cur, in, t, lane, vec);
+  if (t < tiles) stage_tile(cur, in.records, in.m, d, t, lane, vec);
   cp_async_commit();
   for (; t < tiles; t += stride) {
     cp_async_wait_all();  // this tile's copies have landed (own lane's)
@@ -262,7 +191,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     const int64_t r = t * 32 + lane;
     if (r < in.m) {
       const int32_t* rec = cur + lane * d;
-      const int leaf = descend(rec, in);
+      const int leaf =
+          descend<true>(rec, in.nodes, in.depth, in.in_mask, in.bits);
       if (in.bids != nullptr) in.bids[r] = leaf;
       atomicAdd(s_counts + leaf, 1);
       fold_record(rec, d, tables, s_lo + leaf * d, s_hi + leaf * d,
@@ -270,7 +200,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
                   s_advf + leaf * g.aw);
     }
     __syncwarp();  // every lane is done with `cur` before it is refilled
-    if (t + stride < tiles) stage_tile(cur, in, t + stride, lane, vec);
+    if (t + stride < tiles)
+      stage_tile(cur, in.records, in.m, d, t + stride, lane, vec);
     cp_async_commit();
   }
   cp_async_wait_all();
@@ -302,7 +233,8 @@ __global__ void fused_ingest_global(Ingest in, Acc g) {
   for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < in.m;
        r += (int64_t)gridDim.x * blockDim.x) {
     const int32_t* rec = in.records + r * d;
-    const int leaf = descend(rec, in);
+    const int leaf =
+        descend<true>(rec, in.nodes, in.depth, in.in_mask, in.bits);
     if (in.bids != nullptr) in.bids[r] = leaf;
     atomicAdd(g.counts + leaf, 1ull);
     fold_record(rec, d, tables, g.lo + (int64_t)leaf * d,

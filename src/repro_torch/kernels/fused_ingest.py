@@ -1,7 +1,7 @@
 """Fused single-pass ingestion: route + per-leaf tightening aggregates.
 
 The two-pass path reads every record twice — once to route it
-(``eval_cuts`` → ``locate_leaf``, paper Sec 3.1) and once to min-max-
+(``route_records.route``, paper Sec 3.1) and once to min-max-
 tighten its destination leaf's description (``IncrementalTightener``,
 Sec 3.2).  :meth:`IngestAccumulator.fold` does both in one pass over a
 batch and folds the batch into the accumulator: one set of per-leaf
@@ -14,7 +14,7 @@ On a CUDA tensor ``fold`` launches one of two kernels of
 ``csrc/fused_ingest.cu``: the shared-memory kernel when the tree's
 aggregates fit a block's shared memory, else the global-atomic kernel.
 The choice, the warps a block and the grid's cap are planned once a shape
-(:func:`_plan`), not once a batch.
+(``_build.plan``), not once a batch.
 The plain PyTorch version beside them evaluates the full predicate
 matrix, locates leaves in path-constraint form and folds with scatters
 into the same accumulator layout; the wrapper takes it only for a tensor
@@ -27,8 +27,6 @@ there is no validity mask.
 from __future__ import annotations
 
 import contextlib
-import ctypes
-import functools
 from typing import Optional
 
 import numpy as np
@@ -42,8 +40,7 @@ from repro_torch.kernels.route_records import (
     _kernel_device,
     _require,
     _same_device,
-    eval_cuts_plain,
-    locate_leaf_plain,
+    route_plain,
 )
 
 I32_MAX = 2**31 - 1
@@ -69,18 +66,6 @@ def _forced(variant: Optional[str]):
         yield
     finally:
         _FORCED = before
-
-
-@functools.lru_cache(maxsize=None)
-def _plan(device_index: int, shape: tuple, variant: int) -> tuple:
-    """fused_ingest_plan's (kernel, warps, shared bytes, most blocks) for
-    a tree of ``shape`` (L, d, cw, aw, categorical columns, adv cuts)."""
-    plan = (ctypes.c_int * 4)()
-    with torch.cuda.device(device_index):
-        rc = _build.library("fused_ingest").fused_ingest_plan(
-            *shape, variant, plan)
-    _build.check(rc, "fused_ingest")
-    return tuple(plan)
 
 
 class IngestAccumulator:
@@ -140,7 +125,8 @@ class IngestAccumulator:
                      int(ops["n_adv"]))
             index = torch.cuda.current_device() if dev.index is None \
                 else dev.index
-            self._launch = _plan(index, shape, VARIANTS[_FORCED])
+            self._launch = _build.plan("fused_ingest", index, *shape,
+                                       VARIANTS[_FORCED])
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
         return tuple(getattr(self, f) for f in self.FIELDS)
@@ -225,7 +211,7 @@ def fused_ingest_plain(records: torch.Tensor, acc: IngestAccumulator,
     """Route (full predicate matrix, path-constraint form), fold by
     scatters into ``acc``."""
     ops = acc.ops
-    b32 = locate_leaf_plain(eval_cuts_plain(records, ops), ops)
+    b32 = route_plain(records, ops)
     b = b32.long()
     L, d = acc.lo.shape
     acc.counts += torch.bincount(b, minlength=L)

@@ -1,9 +1,15 @@
-"""Batched record routing (paper Sec 3.1): ``eval_cuts`` + ``locate_leaf``.
+"""Batched record routing (paper Sec 3.1): ``route``, ``eval_cuts`` and
+``locate_leaf``.
 
-Each function has a CUDA kernel (``csrc/eval_cuts.cu``,
-``csrc/locate_leaf.cu``) and a plain PyTorch version beside it.  The
-wrapper launches the kernel for a CUDA tensor and raises if the launch
-fails; it takes the plain version only for a tensor on the CPU.
+``route`` maps records to block ids in one launch of ``route_descend``
+(``csrc/route_descend.cu``): each record descends the packed nodes, and
+no predicate matrix is built.  ``eval_cuts`` (the predicate matrix) and
+``locate_leaf`` (block ids from it) are the port's counterparts of the
+reference's two Pallas kernels, whose composition ``route`` computes;
+its plain version is that composition.  Each function has a CUDA kernel
+and a plain PyTorch version beside it.  The wrapper launches the kernel
+for a CUDA tensor and raises if the launch fails; it takes the plain
+version only for a tensor on the CPU.
 
 ``ops`` is the dict of route operands from
 :func:`repro_torch.engine.plan.pack_route_constants`, uploaded to the
@@ -11,6 +17,9 @@ records' device (:func:`repro_torch.engine.plan.to_device`).
 """
 
 from __future__ import annotations
+
+import contextlib
+from typing import Optional
 
 import torch
 
@@ -138,4 +147,70 @@ def locate_leaf(m_mat: torch.Tensor, ops: dict) -> torch.Tensor:
     )
     _build.check(rc, "locate_leaf")
     _build.LAUNCHES["locate_leaf"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# route: one descent a record (route_descend)
+# ---------------------------------------------------------------------------
+# route_descend_plan's ``variant`` argument; both kernels move the one
+# ``route_descend`` launch counter
+VARIANTS = {None: 0, "shared": 1, "global": 2}
+
+# The kernel that plans made under :func:`_forced` take; None chooses by
+# shape.  For tests and measurement only.
+_FORCED: Optional[str] = None
+
+
+@contextlib.contextmanager
+def _forced(variant: Optional[str]):
+    """Plans made inside take ``variant`` ("shared" or "global"); forcing
+    the shared kernel on a tree too large for it raises."""
+    global _FORCED
+    before, _FORCED = _FORCED, variant
+    try:
+        yield
+    finally:
+        _FORCED = before
+
+
+def route_plan(ops: dict) -> tuple:
+    """route_descend's launch plan for the tree of ``ops`` (on a CUDA
+    device): (kernel, warps a block, shared bytes, most blocks), made once
+    a tree shape.  The engine keeps it in its tree plan as
+    ``ops["route_plan"]``, so a batch makes no host query of the card."""
+    dev = ops["nodes"].device
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return _build.plan("route_descend", index, int(ops["nodes"].shape[0]),
+                       int(ops["cat_off"].shape[0]), VARIANTS[_FORCED])
+
+
+def route_plain(records: torch.Tensor, ops: dict) -> torch.Tensor:
+    """(m,) int32 block ids in the reference's design: the predicate
+    matrix, then leaves in path-constraint form."""
+    return locate_leaf_plain(eval_cuts_plain(records, ops), ops)
+
+
+def route(records: torch.Tensor, ops: dict) -> torch.Tensor:
+    """(m,) int32 block id of each record: one ``route_descend`` launch
+    on a CUDA tensor, with the plan ``ops["route_plan"]`` where the
+    engine made one."""
+    on_card = _kernel_device(records, "route_descend")
+    _require_records(records, ops, "route_descend")
+    if not on_card:
+        return route_plain(records, ops)
+    m, d = records.shape
+    out = torch.empty(m, dtype=torch.int32, device=records.device)
+    if m == 0:
+        return out
+    plan = ops.get("route_plan") or route_plan(ops)
+    fn = _build.library("route_descend").route_descend_launch
+    p = _build.ptr
+    rc = fn(
+        p(records), m, d, p(ops["nodes"]), int(ops["nodes"].shape[0]),
+        int(ops["depth"]), p(ops["in_mask"]), int(ops["in_mask"].shape[1]),
+        p(out), *plan, _build.stream_ptr(records.device),
+    )
+    _build.check(rc, "route_descend")
+    _build.LAUNCHES["route_descend"] += 1
     return out

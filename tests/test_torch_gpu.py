@@ -111,6 +111,74 @@ def test_route_kernels_match_plain(seed):
     )
 
 
+ROUTE_SIZES = [0, 1, 31, 33, 2**16 + 5]
+
+
+@pytest.mark.parametrize("variant", [None, "global"])
+@pytest.mark.parametrize("m", ROUTE_SIZES)
+def test_route_descend_matches_plain(m, variant):
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    frozen, records, _ = random_case(m % 7)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    # the tree's records, repeated, past m + 1 rows
+    host = np.resize(records, (m + 1, records.shape[1]))
+    full = torch.from_numpy(host).to(dev)
+    with trk._forced(variant):
+        plan = trk.route_plan(ops)
+    assert plan[0] == (2 if variant == "global" else 1)
+    ops["route_plan"] = plan
+    # a batch at the allocation's start, and one 4 bytes into a row
+    for rec, want_host in ((full[:m], host[:m]), (full[1:], host[1:])):
+        assert rec.shape[0] == m
+        before = _build.launch_counts()
+        got = trk.route(rec, ops)
+        after = _build.launch_counts()
+        assert after["route_descend"] == before["route_descend"] + (m > 0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, trk.route_plain(rec, ops))
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      frozen.route(want_host))
+
+
+def test_route_descend_plan_by_shape():
+    from repro_torch.kernels import _build
+
+    def _plan(*args):
+        return _build.plan("route_descend", *args)
+
+    dev = _cuda()
+    props = torch.cuda.get_device_properties(dev)
+    optin = props.shared_memory_per_block_optin
+    # tpch-40M's 1,447 nodes at 21 columns: nodes and 32 warps' tiles
+    kernel, warps, smem, most = _plan(dev.index, 1447, 21, 0)
+    assert (kernel, smem) == (1, 16 * 1447 + warps * 128 * 21)
+    assert most >= props.multi_processor_count
+    # nodes past what fits beside four warps' tiles: the global kernel,
+    # and forcing the shared one past the card's limit raises
+    too_many = (optin - 4 * 128 * 21) // 16 + 1
+    assert _plan(dev.index, too_many, 21, 0)[0] == 2
+    with pytest.raises(RuntimeError, match="route_descend kernel launch"):
+        _plan(dev.index, optin // 16, 21, 1)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_engine_route_is_one_route_descend_launch(seed):
+    from repro_torch.kernels import _build
+
+    _cuda()
+    frozen, records, _ = random_case(seed)
+    eng = LayoutEngine(frozen)
+    eng.route(records[:5])  # the tree plan, with the route plan in it
+    before = _build.launch_counts()
+    got = eng.route(records)
+    after = _build.launch_counts()
+    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert delta == {"route_descend": 1}
+    np.testing.assert_array_equal(got, frozen.route(records))
+
+
 def wide_case(seed, d=160, m=4000, leaves=200):
     """A tree whose aggregates exceed a block's shared memory: 160
     columns, 200 leaves (259 KB of aggregates)."""
@@ -190,7 +258,10 @@ def test_fused_variants_match_plain(seed, variant):
 
 
 def test_shared_plan_takes_every_warp_that_fits():
-    from repro_torch.kernels.fused_ingest import _plan
+    from repro_torch.kernels import _build
+
+    def _plan(index, shape, variant):
+        return _build.plan("fused_ingest", index, *shape, variant)
 
     dev = _cuda()
     optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
@@ -381,3 +452,13 @@ def test_wrappers_refuse_mismatched_operands():
         trk.eval_cuts(rec[:, :3].contiguous(), ops)
     with pytest.raises(ValueError, match="int32"):
         trk.eval_cuts(rec.to(torch.int64), ops)
+    with pytest.raises(ValueError, match="not cuda"):
+        trk.route(rec, host_ops)
+    with pytest.raises(ValueError, match="not cpu"):
+        trk.route(rec.cpu(), ops)
+    with pytest.raises(ValueError, match="columns"):
+        trk.route(rec[:, :3].contiguous(), ops)
+    with pytest.raises(ValueError, match="int32"):
+        trk.route(rec.to(torch.int64), ops)
+    with pytest.raises(ValueError, match="int32"):
+        trk.route(rec.t(), ops)  # not contiguous

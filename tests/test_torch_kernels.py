@@ -3,8 +3,10 @@
 Each kernel module of ``repro_torch`` holds a CUDA kernel and a plain
 PyTorch version.  On the CPU the plain versions run; here they meet the
 Pallas functions of ``repro`` (interpret mode) on the same trees, records
-and workloads, made from a seed with numpy.  Block ids, predicate
-matrices, per-leaf aggregates and hit matrices compare exactly; the
+and workloads, made from a seed with numpy.  A numpy descent over the
+packed nodes, which three CUDA kernels descend, meets the numpy route.
+Block ids, predicate matrices, per-leaf aggregates and hit matrices
+compare exactly; the
 Pallas per-conjunct scanned sum is float32, so it is held at rtol=1e-6
 (as ``tests/test_kernels.py`` holds it).  The CUDA kernels themselves
 are held to their plain versions in ``test_torch_gpu.py``.
@@ -105,16 +107,20 @@ def test_eval_cuts_plain_matches_pallas(seed):
     np.testing.assert_array_equal(got.numpy(), want[:m, :c].astype(np.uint8))
 
 
+def pallas_locate_leaf(k, m_mat):
+    return np.asarray(rrk.locate_leaf_pallas(
+        jnp.asarray(m_mat), jnp.asarray(k["pathpos"]),
+        jnp.asarray(k["pathneg"]), jnp.asarray(k["leafid"]),
+        tile_m=TILE_M, tile_l=rplan.LANE, interpret=True,
+    ))
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_locate_leaf_plain_matches_pallas(seed):
     frozen, records = setup_case(seed)
     k, rec, _ = pallas_operands(frozen, records)
     m_mat = pallas_eval_cuts(k, rec)
-    want = np.asarray(rrk.locate_leaf_pallas(
-        jnp.asarray(m_mat), jnp.asarray(k["pathpos"]),
-        jnp.asarray(k["pathneg"]), jnp.asarray(k["leafid"]),
-        tile_m=TILE_M, tile_l=rplan.LANE, interpret=True,
-    ))
+    want = pallas_locate_leaf(k, m_mat)
     ops = port_operands(frozen)
     m = records.shape[0]
     got = trk.locate_leaf_plain(
@@ -123,6 +129,104 @@ def test_locate_leaf_plain_matches_pallas(seed):
     )
     np.testing.assert_array_equal(got.numpy(), want[:m].astype(np.int32))
     np.testing.assert_array_equal(got.numpy(), frozen.route(records))
+
+
+def packed_descent(nodes, in_mask, records, depth):
+    """Block ids by a numpy descent over ``plan.pack_nodes``, decoding
+    ``meta`` and ``w`` as its docstring states."""
+    meta = nodes[:, 0].view(np.uint32).astype(np.int64)
+    left, right = nodes[:, 1].astype(np.int64), nodes[:, 2].astype(np.int64)
+    w = nodes[:, 3].astype(np.int64)
+    kind, col = meta >> 30, meta & 0xFFF
+    off, col_b, op = (meta >> 12) & 0x3FFFF, (meta >> 12) & 0xFFF, meta >> 24
+    bits = in_mask.shape[1]
+    flat = np.append(in_mask.reshape(-1), 0)  # non-IN nodes read the pad
+    rec = records.astype(np.int64)
+    rows = np.arange(rec.shape[0])
+    cur = np.zeros(rec.shape[0], np.int64)
+    for _ in range(depth):
+        k, v = kind[cur], rec[rows, col[cur]]
+        # col_b and op are fields of advanced nodes only
+        vb = rec[rows, np.where(k == 2, col_b[cur], 0)]
+        o = np.where(k == 2, op[cur] & 0x3F, 0)
+        pos = np.clip(v + off[cur], 0, bits - 1)
+        in_set = flat[np.where(k == 1, w[cur] + pos, -1)] != 0
+        adv = np.select([o == 0, o == 1, o == 2, o == 3, o == 4],
+                        [v < vb, v <= vb, v > vb, v >= vb, v == vb], v != vb)
+        go_left = np.select([k == 0, k == 1], [v < w[cur], in_set], adv)
+        cur = np.where(right[cur] >= 0,
+                       np.where(go_left, left[cur], right[cur]), cur)
+    assert (right[cur] == -1).all(), "a record did not reach a leaf"
+    return left[cur].astype(np.int32)
+
+
+def assert_packed_descent_routes(frozen, records):
+    ops = tplan.pack_route_constants(carry_tree(frozen))
+    got = packed_descent(ops["nodes"], ops["in_mask"], records, ops["depth"])
+    np.testing.assert_array_equal(got, frozen.route(records))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_packed_node_descent_matches_numpy_route(seed):
+    frozen, records = setup_case(seed)
+    kinds = set(frozen.cuts.kind[frozen.cut_id[frozen.cut_id >= 0]].tolist())
+    assert len(kinds) >= 2, "the tree should descend more than one cut kind"
+    assert_packed_descent_routes(frozen, records)
+
+
+def test_packed_node_descent_matches_numpy_route_on_tpch(tpch_tree,
+                                                         tpch_small):
+    frozen, bids = tpch_tree
+    records = tpch_small[1]
+    assert_packed_descent_routes(frozen, records)
+    np.testing.assert_array_equal(frozen.route(records), bids)
+
+
+def pallas_route(frozen, records):
+    """The reference's route: eval_cuts_pallas, then locate_leaf_pallas."""
+    k, rec, _ = pallas_operands(frozen, records)
+    bids = pallas_locate_leaf(k, pallas_eval_cuts(k, rec))
+    return bids[:records.shape[0]].astype(np.int32)
+
+
+def assert_route_matches_pallas(frozen, records):
+    got = trk.route(torch.from_numpy(records), port_operands(frozen))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), pallas_route(frozen, records))
+    np.testing.assert_array_equal(got.numpy(), frozen.route(records))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_route_plain_matches_pallas(seed):
+    frozen, records = setup_case(seed)
+    assert_route_matches_pallas(frozen, records)
+
+
+def test_route_plain_matches_pallas_on_tpch(tpch_tree, tpch_small):
+    frozen, _ = tpch_tree
+    assert_route_matches_pallas(frozen, tpch_small[1])
+
+
+def test_cpu_engine_route_goes_through_route(monkeypatch):
+    from repro_torch.engine import LayoutEngine
+
+    frozen, records = setup_case(0)
+    calls = []
+    real = trk.route
+
+    def counting(rec, ops):
+        calls.append(rec.shape[0])
+        return real(rec, ops)
+
+    def refuse(*args):
+        raise AssertionError("route should not call the two-kernel form")
+
+    monkeypatch.setattr(trk, "route", counting)
+    monkeypatch.setattr(trk, "eval_cuts", refuse)
+    monkeypatch.setattr(trk, "locate_leaf", refuse)
+    eng = LayoutEngine(carry_tree(frozen), device="cpu")
+    np.testing.assert_array_equal(eng.route(records), frozen.route(records))
+    assert calls == [records.shape[0]]
 
 
 @pytest.mark.parametrize("seed", SEEDS)
