@@ -38,6 +38,31 @@ and checks:
 * a traced ingest runs exactly one ``fused_ingest`` kernel a batch and
   copies aggregates to the host once, not once a batch.
 
+Then this slice's paths, each counted from 0 just before it, over the same
+table and layout:
+
+* sharded ingest (``sharded_ingest``, batches of 2**20): thread shards at
+  k = 1, 2, 4, 8 (each on its own CUDA stream) and process shards at
+  k = 4, 2 (spawned workers on the card, the table staged once); each
+  merged state equals the single-stream ingest's and the numpy oracle's,
+  one ``fused_ingest`` launch a batch (the workers report theirs), one
+  copy back a shard (a trace at k = 4); the two-pass (``fused=False``)
+  path, one ``route_descend`` a batch, on a 4M-row prefix;
+* spill ingest (``ingest(buffers=...)``): buffer sizes equal the block
+  sizes, and sampled blocks equal a host stable sort of the oracle's ids,
+  row for row; its wall and, from a trace, its split into kernel, sort and
+  copy;
+* the block store: ``write_store`` into a temporary directory, then
+  ``scan_query`` of 10 queries (one a template), each equal to a
+  brute-force ``Query.evaluate`` over the table;
+* ``autotune_fused`` on one batch, persisted under ``build/``; the tuned
+  geometry's whole-table ingests equal the oracle, timed beside the
+  analytic plan's;
+* the range (on ``l_shipdate``) and bottom-up baselines, built on the 1%
+  sample in another process: their Eq. 1 on the card equals the numpy
+  backend's, and one batch routed through each equals the numpy route;
+  printed beside the qd-tree's on the same sample.
+
 Then it times: route and query latencies (median and spread of warm
 calls, host clock; route split into its kernel, from a trace, and the
 ids' copy back), whole-table ingests on fresh trees, one ingest under
@@ -62,6 +87,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -83,6 +109,17 @@ FOLD_REPS = 5  # timed folds of one stream's accumulator
 FOLD_HOST_REPS = 200  # well inside the card's queue of launches
 FINE_TIMEOUT_S = 900  # the finer layout's build, at most
 SEED = 0
+SHARD_THREADS = (1, 2, 4, 8)  # thread-shard counts over the whole table
+SHARD_PROCS = (4, 2)  # process-shard counts (4 first: the pool then serves 2)
+SHARD_REPS = 5  # timed sharded ingests a configuration, after the checked one
+TWO_PASS_ROWS = 1 << 22  # the fused=False shard path's prefix
+SPILL_REPS = 3  # untraced whole-table spill ingests
+SPILL_CHECK_BLOCKS = 5  # blocks held row for row to the oracle's ids
+STORE_QUERIES = 10  # workload queries scanned from the block store
+TUNED_REPS = 3  # whole-table ingests with each geometry, alternated
+RANGE_COLUMN = 0  # l_shipdate: the range baseline's partitioning column
+BASELINE_ROUTE_ROWS = 1 << 16  # sample rows routed through each baseline
+BASELINE_TIMEOUT_S = 600  # the baselines' build, at most
 
 # H100 SXM (NVIDIA data sheet): HBM rate, and the float32 rate outside the
 # tensor cores, taken as the rate of the kernels' int32 compares/atomics
@@ -459,6 +496,435 @@ def fused_bound(tree, ops, bids, m: int, d: int):
                  path + m * (2 * d + n_cat + int(ops["n_adv"]) + 1))
 
 
+def baseline_layouts(sample: np.ndarray, seed: int, n_blocks: int) -> dict:
+    """The paper's baseline layouts over the greedy tree's 1% sample, built
+    by the port's host code (run in a second process): the range layout at
+    ``n_blocks`` blocks, and the bottom-up layout at the greedy tree's
+    minimum block size.  Returns each layout's tree arrays, block ids and
+    build seconds."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.baselines import bottom_up, partitioners
+    from repro_torch.data.workload import make_tpch_workload
+    from repro_torch.data.datagen import make_tpch_like
+
+    schema, _ = make_tpch_like(1, seed=seed)
+    work, _ = make_tpch_workload(schema, n_per_template=10, seed=seed)
+    cuts = work.candidate_cuts()
+    out = {}
+    t0 = time.perf_counter()
+    tree, bids = partitioners.range_layout(
+        sample, schema, cuts, sample.shape[0] // n_blocks, RANGE_COLUMN)
+    out["range"] = (tree.to_arrays(), bids, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    tree, bids = bottom_up.build_bottom_up(
+        sample, work, cuts, bottom_up.BottomUpConfig(block_size=MIN_BLOCK))
+    out["bottom_up"] = (tree.to_arrays(), bids, time.perf_counter() - t0)
+    return out
+
+
+def state_of(partial, n_leaves: int):
+    """A merged ShardState's aggregates from a TightenPartial."""
+    from repro_torch.engine.sharded import ShardState
+
+    return ShardState(shard_ids=(0,), n_leaves=n_leaves,
+                      counts=partial.counts, lo=partial.lo, hi=partial.hi,
+                      cat=partial.cat, adv=partial.adv, n_batches=0,
+                      n_records=0, chunks={})
+
+
+def leaves_equal(a, b) -> bool:
+    return all(np.array_equal(getattr(a, f), getattr(b, f)) for f in
+               ("leaf_lo", "leaf_hi", "leaf_cat", "leaf_adv", "block_sizes"))
+
+
+def shard_phase(ctx, counted) -> dict:
+    """Sharded ingest of the device-resident table: thread shards at each
+    k of SHARD_THREADS, process shards at each k of SHARD_PROCS (staged
+    once a session, each worker's slice kept on the card), and the
+    two-pass (``fused=False``) thread path on a prefix.  Every merged state
+    equals the single-stream ingest's and the numpy oracle's, and the
+    published tree the oracle's; one ``fused_ingest`` launch a batch; one
+    copy back a shard (in a trace).  A run publishes the same tree every
+    time, so the repetitions share one engine."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.qdtree import FrozenQdTree
+    from repro_torch.engine import LayoutEngine
+    from repro_torch.engine import sharded
+
+    rec_dev, n_rows = ctx["rec_dev"], ctx["n_rows"]
+    want_tree, untightened = ctx["oracle_tree"], ctx["untightened"]
+    wants = {"single-stream": state_of(ctx["single_partial"],
+                                       want_tree.n_leaves),
+             "oracle": state_of(ctx["oracle_partial"], want_tree.n_leaves)}
+
+    def check(rep, tree, what):
+        for name, want in wants.items():
+            require(sharded.states_bit_identical(rep.state, want),
+                    f"{what}: merged state differs from the {name} state")
+        require(leaves_equal(tree, want_tree),
+                f"{what}: tightened tree differs from the oracle's")
+
+    def run_thread(eng, k, **kw):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", sharded.PerformanceWarning)
+            return sharded.sharded_ingest(eng, kw.pop("records", rec_dev), k,
+                                          batch=BATCH, executor="thread",
+                                          keep_state=True, **kw)
+
+    out = {"thread": {}, "process": {}}
+    for k in SHARD_THREADS:
+        eng = LayoutEngine(FrozenQdTree.from_arrays(untightened))
+        eng.warm_ingest(sharded.warm_sizes(n_rows, k, BATCH))
+        torch.cuda.synchronize()
+        path = f"shard_thread_{k}"
+        rep = counted(path, lambda: run_thread(eng, k))
+        check(rep, eng.tree, f"thread shards k={k}")
+        launched = ctx["path_launches"][path]
+        fused = launched["fused_ingest_shared"] + launched[
+            "fused_ingest_global"]
+        require(fused == rep.n_batches,
+                f"thread shards k={k}: {fused} fused_ingest launches for "
+                f"{rep.n_batches} batches")
+        reps = [rep] + [run_thread(eng, k) for _ in range(SHARD_REPS)]
+        out["thread"][k] = {
+            "wall_ms": spread([r.wall_s * 1e3 for r in reps[1:]]),
+            "merge_ms": spread([r.merge_s * 1e3 for r in reps[1:]]),
+            "first_wall_ms": rep.wall_s * 1e3, "batches": rep.n_batches,
+            "launches": launched}
+        log(f"thread shards k={k}: wall ms {out['thread'][k]['wall_ms']}")
+    # a traced run at k=4: one fused_ingest a batch, one copy back a shard
+    eng = LayoutEngine(FrozenQdTree.from_arrays(untightened))
+    eng.warm_ingest(sharded.warm_sizes(n_rows, 4, BATCH))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rep = run_thread(eng, 4)
+    tr = trace_counts(prof)
+    require(tr["fused_kernels"] == rep.n_batches,
+            f"traced thread shards: {tr['fused_kernels']} fused_ingest "
+            f"kernels for {rep.n_batches} batches")
+    require(tr["d2h_copies"] == 4,
+            f"traced thread shards k=4: {tr['d2h_copies']} copies back; "
+            f"expected one a shard")
+    out["thread_traced_k4"] = tr
+    try:
+        for k in SHARD_PROCS:
+            eng = LayoutEngine(FrozenQdTree.from_arrays(untightened))
+            t0 = time.perf_counter()
+            with sharded.ProcessShardSession(eng, k, batch=BATCH) as sess:
+                sess.stage(rec_dev)
+                devices = set(sess.worker_devices().values())
+                require(devices == {str(ctx["dev"])},
+                        f"process shards k={k}: workers on {devices}, the "
+                        f"parent on {ctx['dev']}")
+
+                def run_process():
+                    return sharded.sharded_ingest(
+                        eng, None, k, batch=BATCH, session=sess,
+                        keep_state=True)
+
+                # the first round copies each worker's slice to the card
+                run_process()
+                setup_s = time.perf_counter() - t0
+                path = f"shard_process_{k}"
+                rep = counted(path, run_process)
+                check(rep, eng.tree, f"process shards k={k}")
+                worker = sess.stats()["launches"]
+                fused = (worker["fused_ingest_shared"]
+                         + worker["fused_ingest_global"])
+                require(fused == rep.n_batches,
+                        f"process shards k={k}: {fused} fused_ingest "
+                        f"launches in the workers for {rep.n_batches} "
+                        f"batches")
+                require(len(rep.shard_wall_s) == k, "one state a shard")
+                ctx["worker_launches"].append(worker)
+                reps = [run_process() for _ in range(SHARD_REPS)]
+            out["process"][k] = {
+                "wall_ms": spread([r.wall_s * 1e3 for r in reps]),
+                "merge_ms": spread([r.merge_s * 1e3 for r in reps]),
+                "first_wall_ms": rep.wall_s * 1e3, "setup_s": setup_s,
+                "batches": rep.n_batches, "worker_launches": worker}
+            log(f"process shards k={k}: wall ms "
+                f"{out['process'][k]['wall_ms']}, set-up {setup_s:.1f}s")
+    finally:
+        sharded.shutdown_process_pool()
+    # the two-pass path (route, then the host tightener) on a prefix
+    n_pre = min(n_rows, TWO_PASS_ROWS)
+    eng = LayoutEngine(FrozenQdTree.from_arrays(untightened))
+    rep = counted("shard_two_pass", lambda: run_thread(
+        eng, 2, records=rec_dev[:n_pre], fused=False))
+    want = oracle_partial(FrozenQdTree.from_arrays(untightened),
+                          ctx["records"][:n_pre], ctx["workers"])[1]
+    require(sharded.states_bit_identical(
+        rep.state, state_of(want, want_tree.n_leaves)),
+        "two-pass thread shards differ from the numpy oracle")
+    require(ctx["path_launches"]["shard_two_pass"]["route_descend"]
+            == rep.n_batches, "two-pass shards: one route_descend a batch")
+    out["two_pass"] = {"rows": n_pre, "wall_ms": rep.wall_s * 1e3,
+                       "launches": ctx["path_launches"]["shard_two_pass"]}
+    t4, p4 = out["thread"][4]["wall_ms"], out["process"][4]["wall_ms"]
+    out["faster_at_k4"] = ("thread" if t4["median"] <= p4["median"]
+                           else "process")
+    out["default_on_gpu"] = sharded.CUDA_DEFAULT_EXECUTOR
+    return out
+
+
+def spill_trace(prof) -> dict:
+    """A traced spill ingest's device time, ms: the fused_ingest kernels,
+    the device-to-host copies, and the rest (the sort by block, counts and
+    gather)."""
+    import torch
+
+    split = {"kernel_ms": 0.0, "copy_ms": 0.0, "sort_ms": 0.0}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = (ev.time_range.end - ev.time_range.start) / 1e3
+        if "fused_ingest" in ev.name:
+            split["kernel_ms"] += ms
+        elif "DtoH" in ev.name:
+            split["copy_ms"] += ms
+        else:
+            split["sort_ms"] += ms
+    return split
+
+
+def spill_phase(ctx, counted) -> tuple:
+    """``ingest(buffers=...)`` over the whole table: sizes equal the block
+    sizes, and sampled blocks equal a host stable sort of the oracle's
+    block ids, row for row.  Returns (the buffers, their tree, metrics)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.qdtree import FrozenQdTree
+    from repro_torch.data.blocks import BlockBuffers
+    from repro_torch.engine import LayoutEngine
+
+    slices, records = ctx["slices"], ctx["records"]
+    oracle_bids = ctx["oracle_bids"]
+
+    def one():
+        eng = LayoutEngine(FrozenQdTree.from_arrays(ctx["untightened"]))
+        eng.warm_ingest(ctx["sizes"])
+        torch.cuda.synchronize()
+        return eng, BlockBuffers.for_tree(eng.tree)
+
+    eng, buf = one()
+    rep = counted("spill", lambda: eng.ingest(slices, buffers=buf))
+    n = len(slices)
+    launched = ctx["path_launches"]["spill"]
+    require(launched["fused_ingest_shared"] + launched["fused_ingest_global"]
+            == n, f"spill ingest: {launched} for {n} batches")
+    require(np.array_equal(buf.sizes, rep.block_sizes)
+            and np.array_equal(buf.sizes, ctx["oracle_tree"].block_sizes),
+            "spill buffer sizes differ from the block sizes")
+    require(leaves_equal(eng.tree, ctx["oracle_tree"]),
+            "spill ingest: tightened tree differs from the oracle's")
+    rng = np.random.default_rng(SEED)
+    checked = sorted(int(b) for b in rng.choice(
+        np.flatnonzero(buf.sizes), SPILL_CHECK_BLOCKS, replace=False))
+    for b in checked:
+        rows = records[np.flatnonzero(oracle_bids == b)]
+        require(np.array_equal(buf.block(b), rows),
+                f"spill block {b} differs from the oracle's rows")
+    walls = []
+    for _ in range(SPILL_REPS):
+        e2, b2 = one()
+        walls.append(e2.ingest(slices, buffers=b2).wall_s * 1e3)
+    e3, b3 = one()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = e3.ingest(slices, buffers=b3)
+    split = spill_trace(prof)
+    log(f"spill ingest: {spread(walls)} ms; traced split {split}; blocks "
+        f"{checked} equal the oracle's rows")
+    return buf, eng.tree, {
+        "wall_ms": spread(walls), "first_wall_ms": rep.wall_s * 1e3,
+        "traced_wall_ms": traced.wall_s * 1e3, "traced_split_ms": split,
+        "checked_blocks": checked, "launches": launched,
+    }
+
+
+def store_phase(ctx, counted, buf, tree) -> dict:
+    """``write_store`` into a temporary directory, then ``scan_query`` of
+    STORE_QUERIES workload queries: each scan's rows equal a brute-force
+    ``Query.evaluate`` over the table, in block order, and no matching
+    row lies in a block the query skipped."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data.blocks import BlockStore
+
+    records, schema = ctx["records"], tree.schema
+    oracle_bids = ctx["oracle_bids"]
+    root = Path(tempfile.mkdtemp(prefix="qd-store-"))
+    try:
+        t0 = time.perf_counter()
+        buf.write_store(root, tree)
+        write_s = time.perf_counter() - t0
+        store = BlockStore.open(root)  # as a reader would
+        # one query from each of STORE_QUERIES templates
+        every = ctx["work"].queries
+        queries = every[::max(len(every) // STORE_QUERIES, 1)][:STORE_QUERIES]
+        scans = counted("store", lambda: [store.scan_query(q)
+                                          for q in queries])
+        rows = []
+        for i, (q, scan) in enumerate(zip(queries, scans)):
+            sel = np.flatnonzero(q.evaluate(records, schema))
+            sel = sel[np.argsort(oracle_bids[sel], kind="stable")]
+            routed = set(store.engine.route_query(q).tolist())
+            require(set(np.unique(oracle_bids[sel]).tolist()) <= routed,
+                    f"query {i}: a matching row lies in a skipped block")
+            require(np.array_equal(scan.rows, records[sel]),
+                    f"query {i}: scanned rows differ from the brute-force "
+                    f"filter")
+            rows.append({"rows": int(scan.rows.shape[0]),
+                         "blocks_read": scan.blocks_read,
+                         "bytes_read": scan.bytes_read,
+                         "rows_scanned": scan.rows_scanned,
+                         "wall_ms": scan.wall_s * 1e3})
+        launched = ctx["path_launches"]["store"]
+        require(launched["query_intersect"] == len(queries),
+                f"store scans: {launched}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"block store: written in {write_s:.1f}s; scans {rows}")
+    return {"write_s": write_s, "scans": rows, "launches": launched,
+            "rows": int(buf.n_rows)}
+
+
+def autotune_phase(ctx, counted) -> dict:
+    """``autotune_fused`` on one batch, persisted to a store under build/;
+    then whole-table ingests with the tuned geometry (looked up by the
+    engine) and with the analytic plan, alternated: both equal the oracle,
+    and their walls are printed side by side."""
+    import torch
+
+    from repro_torch.core.qdtree import FrozenQdTree
+    from repro_torch.engine import LayoutEngine, autotune
+
+    store = ROOT / "build" / "autotune_cuda.json"
+    none = ROOT / "build" / "autotune_none.json"
+    for path in (store, none):
+        path.unlink(missing_ok=True)
+    before = os.environ.get("REPRO_TORCH_AUTOTUNE_STORE")
+
+    def use(path):
+        os.environ["REPRO_TORCH_AUTOTUNE_STORE"] = str(path)
+
+    try:
+        use(store)
+        eng = LayoutEngine(FrozenQdTree.from_arrays(ctx["untightened"]))
+        out = counted("autotune", lambda: autotune.autotune_fused(
+            eng.tree, ctx["slices"][0], engine=eng))
+        for row in out["rows"]:
+            log(f"autotune candidate {row}")
+        chosen = autotune.LaunchConfig.from_dict(out["chosen"])
+        require(autotune.lookup("cuda", autotune.geometry_key(eng.tree))
+                == chosen, "the chosen geometry was not persisted")
+        walls = {"tuned": [], "analytic": []}
+        for rep_i in range(TUNED_REPS):
+            for name, path in (("analytic", none), ("tuned", store)):
+                use(path)
+                e = LayoutEngine(FrozenQdTree.from_arrays(ctx["untightened"]))
+                e.warm_ingest(ctx["sizes"])
+                torch.cuda.synchronize()
+                acc = e._backend(None).accumulator(e.tree, e.plans, e.device)
+                require(acc.launch == (chosen.launch if name == "tuned"
+                                       else None),
+                        f"{name} ingest took geometry {acc.launch}")
+                r = e.ingest(ctx["slices"])
+                if rep_i == 0:
+                    require(leaves_equal(e.tree, ctx["oracle_tree"]),
+                            f"{name} geometry: tightened tree differs from "
+                            f"the oracle's")
+                walls[name].append(r.wall_s * 1e3)
+        # the kernel alone with each geometry, on one batch
+        use(store)
+        x = ctx["slices"][0]
+        tuned_acc = eng._backend(None).accumulator(eng.tree, eng.plans,
+                                                   eng.device)
+        use(none)
+        plan_acc = eng._backend(None).accumulator(eng.tree, eng.plans,
+                                                  eng.device)
+        kernel_ms = {"tuned": time_ms(lambda: tuned_acc.fold(x), 20),
+                     "analytic": time_ms(lambda: plan_acc.fold(x), 20)}
+        analytic_plan = dict(zip(("kernel", "warps", "smem_bytes",
+                                  "most_blocks"), plan_acc.acc._launch or ()))
+    finally:
+        if before is None:
+            os.environ.pop("REPRO_TORCH_AUTOTUNE_STORE", None)
+        else:
+            os.environ["REPRO_TORCH_AUTOTUNE_STORE"] = before
+    log(f"autotune: chose {chosen}; ingest ms {walls}; kernel {kernel_ms}")
+    return {"geometry": out["geometry"], "rows": out["rows"],
+            "chosen": out["chosen"], "analytic_plan": analytic_plan,
+            "ingest_ms": {k: spread(v) for k, v in walls.items()},
+            "fold_ms": kernel_ms,
+            "launches": ctx["path_launches"]["autotune"]}
+
+
+def baseline_phase(ctx, counted, layouts) -> dict:
+    """The baselines' Eq. 1 over the sample on the card (``query_intersect``
+    on their tightened descriptions, their own block ids' sizes) against
+    the numpy backend's, exactly; one batch routed through each baseline
+    tree (``route_descend``) against the numpy route; and the qd-tree's
+    Eq. 1 over the same sample, for the comparison."""
+    import torch
+
+    from repro_torch.core.qdtree import FrozenQdTree
+    from repro_torch.engine import LayoutEngine
+    from repro_torch.engine import backends as be
+    from repro_torch.engine import plan as tplan
+
+    sample, wt = ctx["sample"], ctx["wt"]
+    numpy_be = be.get_backend("numpy")
+    out = {}
+
+    def eq1(eng, sizes):
+        hits, scanned = eng._backend(None).query_intersect(
+            eng.tree, eng.plans, wt, eng.device)
+        return hits, scanned, int((hits * sizes[:, None]).sum())
+
+    for name, (arrays, bids, build_s) in layouts.items():
+        tree = FrozenQdTree.from_arrays(arrays)
+        sizes = np.bincount(bids, minlength=tree.n_leaves).astype(np.int64)
+        tree.block_sizes = sizes
+        eng = LayoutEngine(tree)
+        batch = sample[:BASELINE_ROUTE_ROWS]
+        hits, scanned, total, routed = counted(
+            f"baseline_{name}", lambda: (*eq1(eng, sizes), eng.route(
+                torch.from_numpy(batch).to(ctx["dev"]))))
+        n_hits, n_scanned = numpy_be.query_intersect(
+            tree, tplan.PlanCache(), wt, ctx["dev"])
+        require(np.array_equal(hits, n_hits)
+                and np.array_equal(scanned, n_scanned),
+                f"{name} layout: Eq. 1 on the card differs from numpy")
+        require(np.array_equal(routed, tree.route(batch)),
+                f"{name} layout: route differs from the numpy route")
+        out[name] = {
+            "blocks": tree.n_leaves, "depth": tree.depth,
+            "scanned_fraction": total / (sample.shape[0] * wt.n_queries),
+            "build_s": build_s,
+            "launches": ctx["path_launches"][f"baseline_{name}"],
+        }
+    qd = LayoutEngine(FrozenQdTree.from_arrays(ctx["untightened"]))
+    st = counted("baseline_qdtree", lambda: qd.skip_stats(sample, ctx["work"]))
+    want = numpy_be.query_intersect(qd.tree, tplan.PlanCache(), wt,
+                                    ctx["dev"])
+    require(np.array_equal(st.query_hits, want[0])
+            and np.array_equal(st.conj_scanned, want[1]),
+            "qd-tree on the sample: Eq. 1 on the card differs from numpy")
+    out["qdtree"] = {"blocks": qd.tree.n_leaves,
+                     "scanned_fraction": st.scanned_fraction,
+                     "launches": ctx["path_launches"]["baseline_qdtree"]}
+    log(f"baselines on the {sample.shape[0]}-row sample: "
+        f"{ {k: v['scanned_fraction'] for k, v in out.items()} }")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=FULL_ROWS,
@@ -469,13 +935,14 @@ def main(argv=None) -> int:
 
     dev = require_cuda()
     sys.path.insert(0, str(ROOT / "src"))
-    # the finer layout is learned in a second process while the rest runs
-    with multiprocessing.get_context("spawn").Pool(1) as pool:
+    # the finer layout and the baselines are built in other processes while
+    # the rest runs
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
         fine_job = pool.apply_async(fine_layout, (SEED,))
-        return run(args, dev, torch, fine_job)
+        return run(args, dev, torch, pool, fine_job)
 
 
-def run(args, dev, torch, fine_job) -> int:
+def run(args, dev, torch, pool, fine_job) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import rewards
@@ -543,6 +1010,8 @@ def run(args, dev, torch, fine_job) -> int:
         f"{cuts.n_cuts} cuts ({cuts.n_adv} adv), greedy on {sample.shape[0]}"
         f" rows in {greedy_s:.1f}s: {tree.n_leaves} leaves, {tree.n_nodes} "
         f"nodes, depth {tree.depth}")
+    base_job = pool.apply_async(baseline_layouts,
+                                (sample, SEED, tree.n_leaves))
     t0 = time.perf_counter()
     fine_arrays = fine_job.get(timeout=FINE_TIMEOUT_S)
     fine_wait_s = time.perf_counter() - t0
@@ -621,7 +1090,7 @@ def run(args, dev, torch, fine_job) -> int:
             "block sizes")
     t0 = time.perf_counter()
     oracle_tree = FrozenQdTree.from_arrays(untightened)
-    _, part = oracle_partial(oracle_tree, records, workers)
+    oracle_bids, part = oracle_partial(oracle_tree, records, workers)
     tightener = IncrementalTightener(oracle_tree)
     tightener.merge(part)
     tightener.apply()
@@ -703,6 +1172,7 @@ def run(args, dev, torch, fine_job) -> int:
     for s in slices:
         acc.fold(s)
     torch.cuda.synchronize()
+    single_partial = acc.partial()
     fold_ms = []
     for _ in range(FOLD_REPS):
         t0 = time.perf_counter()
@@ -787,6 +1257,47 @@ def run(args, dev, torch, fine_job) -> int:
         lambda: qk.query_intersect(leaf, conj, layout), "query_intersect",
         LAT_REPS)
 
+    # -- this slice's paths, each counted from 0: sharded ingest, spill,
+    # block store, autotune, baselines -------------------------------------
+    ctx = {
+        "dev": dev, "records": records, "rec_dev": rec_dev, "slices": slices,
+        "sizes": sizes, "n_rows": n_rows, "untightened": untightened,
+        "oracle_tree": oracle_tree, "oracle_bids": oracle_bids,
+        "oracle_partial": part, "single_partial": single_partial,
+        "workers": workers, "path_launches": path_launches,
+        "worker_launches": [], "work": work, "wt": wt, "sample": sample,
+    }
+    phase_s = {}
+    t0 = time.perf_counter()
+    shards = shard_phase(ctx, counted)
+    phase_s["shard"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spill_buf, spill_tree, spill = spill_phase(ctx, counted)
+    phase_s["spill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = store_phase(ctx, counted, spill_buf, spill_tree)
+    del spill_buf
+    phase_s["store"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tuned = autotune_phase(ctx, counted)
+    phase_s["autotune"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    layouts = base_job.get(timeout=BASELINE_TIMEOUT_S)
+    phase_s["baseline_wait"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    baselines = baseline_phase(ctx, counted, layouts)
+    phase_s["baseline"] = time.perf_counter() - t0
+    # every path's launches, the process shards' (made in their workers)
+    # included
+    launches = {k: sum(c[k] for c in path_launches.values())
+                + sum(w.get(k, 0) for w in ctx["worker_launches"])
+                for k in _build.LAUNCH_NAMES}
+    log(f"launches by path: {path_launches}; in process-shard workers: "
+        f"{ctx['worker_launches']}")
+    for name, n in launches.items():
+        if name in OFF_PATH:
+            require(n == 0, f"kernel {name} launched on the main path")
+
     # -- bounds from this run's inputs ---------------------------------------
     m, d = x.shape
     C, L, bits = cuts.n_cuts, tree.n_leaves, int(ops["bits"])
@@ -867,6 +1378,9 @@ def run(args, dev, torch, fine_job) -> int:
         "datagen_s": datagen_s, "greedy_s": greedy_s,
         "fine_wait_s": fine_wait_s, "oracle_s": oracle_s,
         "host_threads": workers,
+        "sharded_ingest": shards, "spill_ingest": spill,
+        "block_store": store, "autotune": tuned, "baselines": baselines,
+        "phase_s": phase_s,
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         "total_s": time.perf_counter() - t_start,
     }
@@ -874,6 +1388,29 @@ def run(args, dev, torch, fine_job) -> int:
     print(f"build seconds: {build_s:.3f}")
     print(f"fold once an ingest: {fold_med:.6f} ms "
           f"({fold_med / n_batches:.6f} ms over each of {n_batches} batches)")
+    for executor in ("thread", "process"):
+        for k, r in shards[executor].items():
+            w, mg = r["wall_ms"], r["merge_ms"]
+            print(f"sharded ingest, {executor} k={k}: wall {w['median']:.3f} "
+                  f"ms "
+                  f"(min {w['min']:.3f}, max {w['max']:.3f}), merge "
+                  f"{mg['median']:.3f} ms, {r['batches']} batches, launches "
+                  f"{r.get('launches') or r.get('worker_launches')}")
+    print(f"sharded ingest: faster at k=4 {shards['faster_at_k4']}; default "
+          f"on a GPU {shards['default_on_gpu']}")
+    print(f"spill ingest: {spill['wall_ms']} ms; traced split "
+          f"{spill['traced_split_ms']}")
+    print(f"block store: {store['rows']} rows written in "
+          f"{store['write_s']:.3f} s; scans {store['scans']}")
+    for row in tuned["rows"]:
+        print(f"autotune candidate: {row}")
+    print(f"autotune: chose {tuned['chosen']} (analytic plan "
+          f"{tuned['analytic_plan']}); ingest ms {tuned['ingest_ms']}; one "
+          f"fold ms {tuned['fold_ms']}")
+    print("baselines on the sample, scanned fraction: " + ", ".join(
+        f"{k} {v['scanned_fraction']:.6f} ({v['blocks']} blocks)"
+        for k, v in baselines.items())
+        + f"; qd-tree over the whole table {stats.scanned_fraction:.6f}")
     print(json.dumps({"metrics": metrics}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Data substrate: synthetic corpora and query workloads."""
+"""Data substrate: synthetic corpora, workloads, block store."""
 
 from repro_torch.data.datagen import (  # noqa: F401
     make_errorlog_ext,
@@ -10,3 +10,4 @@ from repro_torch.data.workload import (  # noqa: F401
     make_errorlog_int_workload,
     make_tpch_workload,
 )
+from repro_torch.data.blocks import BlockStore, ScanResult  # noqa: F401

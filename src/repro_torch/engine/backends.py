@@ -6,7 +6,9 @@ operations against a ``FrozenQdTree``:
   * ``route(tree, cache, records, device)``       — record batch → BIDs
   * ``accumulator(tree, cache, device)``          — a running fold of an
     ingest stream: ``fold(records, return_bids)`` per batch, one
-    ``partial()`` (a TightenPartial) at the end
+    ``partial()`` (a TightenPartial) at the end; on the torch backend its
+    launch geometry is the autotuner's for the tree's shape, where one is
+    stored (``engine/autotune.py``), else planned by shape
   * ``fused_ingest(tree, cache, records, device)`` — BIDs + TightenPartial
     of one batch (a fresh accumulator)
   * ``query_intersect(tree, cache, wt, device)``   — (n_leaves, n_queries)
@@ -93,11 +95,14 @@ class Backend:
         raise NotImplementedError
 
     def accumulator(self, tree: FrozenQdTree, cache: PlanCache,
-                    device: torch.device):
+                    device: torch.device, launch=None):
         """A running route + tighten fold over any number of batches.
 
-        ``fold(records, return_bids)`` routes a batch and folds it in
-        (its int32 block ids if ``return_bids``, else ``None``);
+        ``fold(records, return_bids, on_device=False)`` routes a batch and
+        folds it in (its int32 block ids if ``return_bids``, else
+        ``None``; as a tensor on the engine's device if ``on_device`` and
+        the backend has one, else as numpy);  ``launch`` pins the torch
+        backend's kernel geometry (``IngestAccumulator``);
         ``partial()`` returns the whole stream's ``TightenPartial``,
         bit-identical to routing followed by ``IncrementalTightener.update``
         over every folded record.
@@ -140,7 +145,8 @@ class HostAccumulator:
         self.tree = tree
         self.tightener = IncrementalTightener(tree)
 
-    def fold(self, records, return_bids: bool = False):
+    def fold(self, records, return_bids: bool = False,
+             on_device: bool = False):
         rec = as_host(records)
         bids = self.tree.route(rec)
         self.tightener.update(rec, bids)
@@ -155,7 +161,7 @@ class NumpyBackend(Backend):
     def route(self, tree, cache, records, device):
         return tree.route(as_host(records))
 
-    def accumulator(self, tree, cache, device):
+    def accumulator(self, tree, cache, device, launch=None):
         return HostAccumulator(tree)
 
     def query_intersect(self, tree, cache, wt, device):
@@ -191,18 +197,24 @@ class DeviceAccumulator:
     """The torch backend's running fold: aggregates stay on the device.
 
     Each ``fold`` is one ``fused_ingest`` launch (plus the block ids' copy
-    when asked); ``partial`` copies the aggregates to the host once.
+    when asked for them on the host); ``partial`` copies the aggregates to
+    the host once.
     """
 
-    def __init__(self, tree: FrozenQdTree, ops: dict, device: torch.device):
+    def __init__(self, tree: FrozenQdTree, ops: dict, device: torch.device,
+                 launch=None):
         self.tree = tree
         self.device = device
-        self.acc = fk.IngestAccumulator(ops)
+        self.launch = launch
+        self.acc = fk.IngestAccumulator(ops, launch)
 
-    def fold(self, records, return_bids: bool = False):
+    def fold(self, records, return_bids: bool = False,
+             on_device: bool = False):
         bids = self.acc.fold(_on_device(records, self.device),
                              bids=return_bids)
-        return bids.cpu().numpy() if return_bids else None
+        if not return_bids or on_device:
+            return bids
+        return bids.cpu().numpy()
 
     def partial(self):
         return self.acc.partial(self.tree)
@@ -235,9 +247,14 @@ class TorchBackend(Backend):
         ops = self._tree_plan(tree, cache, device).operands
         return rk.route(_on_device(records, device), ops).cpu().numpy()
 
-    def accumulator(self, tree, cache, device):
+    def accumulator(self, tree, cache, device, launch=None):
         ops = self._tree_plan(tree, cache, device).operands
-        return DeviceAccumulator(tree, ops, device)
+        if launch is None and device.type == "cuda":
+            from repro_torch.engine import autotune
+
+            cfg = autotune.lookup("cuda", autotune.geometry_key(tree))
+            launch = cfg.launch if cfg is not None else None
+        return DeviceAccumulator(tree, ops, device, launch)
 
     def _query_plan(self, tree, cache, device) -> CompiledPlan:
         sig = planlib.tree_signature(tree)

@@ -3,6 +3,7 @@
     eng = LayoutEngine(frozen_tree)              # backend "torch", the GPU
     bids = eng.route(records)                    # route_descend
     report = eng.ingest(batch_iter)              # fused_ingest per batch
+    eng.ingest(batch_iter, buffers=BlockBuffers.for_tree(tree))  # + spill
     hits = eng.query_hits(workload)              # (n_leaves, n_queries) bool
     lists = eng.route_queries(workload)          # per-query BID IN (...) lists
     stats = eng.skip_stats(records, workload)    # paper Eq. 1 metrics
@@ -321,6 +322,7 @@ class LayoutEngine:
         self,
         batches: Iterable | Iterator,
         tighten: bool = True,
+        buffers=None,  # data.blocks.BlockBuffers | None
         backend: Optional[str] = None,
         observe=None,  # Workload | WorkloadTensors | ObservationProbe | None
         on_observation=None,  # Callable[[WindowStat], None] | None
@@ -328,9 +330,13 @@ class LayoutEngine:
     ) -> IngestReport:
         """Route arriving micro-batches and fold them into the layout.
 
-        Per batch: route and incrementally min-max-tighten the leaf
-        descriptions, exactly equivalent to one-shot tightening over the
-        concatenation of all batches (min/max/any are associative).
+        Per batch: route → append to ``buffers`` (if given) → incrementally
+        min-max-tighten the leaf descriptions, exactly equivalent to
+        one-shot tightening over the concatenation of all batches
+        (min/max/any are associative).  A tensor batch spills with its
+        block ids kept on its device, where ``BlockBuffers.append`` sorts
+        it; only a spill buffer or an observation asks the fold for block
+        ids at all, so a plain ingest still copies back once.
 
         ``fused=True`` (the default) takes the single-pass path: each
         batch is folded into the backend's running accumulator (on the
@@ -353,6 +359,7 @@ class LayoutEngine:
         tightener = IncrementalTightener(self.tree) if tighten else None
         sizes = None if tighten else np.zeros(self.tree.n_leaves, np.int64)
         use_fused = fused and tightener is not None
+        need_bids = buffers is not None or probe is not None
         n_batches = n_records = 0
         t0 = time.perf_counter()
         acc = (
@@ -364,15 +371,21 @@ class LayoutEngine:
             if batch.shape[0] == 0:
                 continue
             if use_fused:
-                bids = acc.fold(batch, return_bids=probe is not None)
+                bids = acc.fold(
+                    batch, return_bids=need_bids,
+                    on_device=(buffers is not None
+                               and not isinstance(batch, np.ndarray)),
+                )
             else:
                 bids = self.route(batch, backend=backend)
                 if tightener is not None:
                     tightener.update(be.as_host(batch), bids)
                 else:
                     sizes += np.bincount(bids, minlength=sizes.shape[0])
+            if buffers is not None:
+                buffers.append(batch, bids)
             if probe is not None:
-                stat = probe.observe(bids)
+                stat = probe.observe(be.as_host(bids))
                 observed = observed.merge(stat)
                 if on_observation is not None:
                     on_observation(stat)

@@ -43,16 +43,20 @@ MIN_BUCKET = 32  # one warp: the smallest bucket a size rounds up to
 _SIG_COUNTER = itertools.count()  # guarded by: _SIG_LOCK
 _SIG_LOCK = threading.Lock()
 
-BUILD_COUNTS: Counter = Counter()
+BUILD_COUNTS: Counter = Counter()  # guarded by: _BUILD_LOCK
+_BUILD_LOCK = threading.Lock()
 
 
 def count_build(name: str) -> None:
-    """Called from inside plan builders — runs once per plan built."""
-    BUILD_COUNTS[name] += 1
+    """Called from inside plan builders — runs once per plan built (thread
+    shards may build at once, hence the lock)."""
+    with _BUILD_LOCK:
+        BUILD_COUNTS[name] += 1
 
 
 def build_counts() -> dict[str, int]:
-    return dict(BUILD_COUNTS)
+    with _BUILD_LOCK:
+        return dict(BUILD_COUNTS)
 
 
 def build_delta(before: dict[str, int], after: dict[str, int]) -> dict:

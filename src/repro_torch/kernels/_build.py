@@ -12,7 +12,9 @@ together.
 Every launch function takes ``c_void_p`` for each pointer and for the
 stream, and returns ``cudaGetLastError()``; :func:`check` raises on a
 non-zero code.  :data:`LAUNCHES` counts the launches each wrapper made,
-by kernel (:data:`LAUNCH_NAMES`).
+by kernel (:data:`LAUNCH_NAMES`); wrappers on several host threads (the
+thread shards of ``engine/sharded.py``) count through :func:`count_launch`,
+under a lock, so every launch is counted exactly once.
 """
 
 from __future__ import annotations
@@ -83,19 +85,29 @@ LAUNCH_NAMES = ("eval_cuts", "locate_leaf", "route_descend",
                 "fused_ingest_shared", "fused_ingest_global",
                 "query_intersect")
 
-LAUNCHES: collections.Counter = collections.Counter()
+LAUNCHES: collections.Counter = collections.Counter()  # guarded by: _COUNT_LOCK
+_COUNT_LOCK = threading.Lock()
 
 _LIBS: dict[str, ctypes.CDLL] = {}  # guarded by: _LOCK
 _LOCK = threading.Lock()
 BUILD_SECONDS: dict[str, float] = {}  # guarded by: _LOCK
 
 
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``: the wrappers call this where they
+    launch, and nowhere else."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+
+
 def launch_counts() -> dict[str, int]:
-    return {k: LAUNCHES.get(k, 0) for k in LAUNCH_NAMES}
+    with _COUNT_LOCK:
+        return {k: LAUNCHES.get(k, 0) for k in LAUNCH_NAMES}
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES.clear()
+    with _COUNT_LOCK:
+        LAUNCHES.clear()
 
 
 def _nvcc() -> str:

@@ -14,7 +14,8 @@ On a CUDA tensor ``fold`` launches one of two kernels of
 ``csrc/fused_ingest.cu``: the shared-memory kernel when the tree's
 aggregates fit a block's shared memory, else the global-atomic kernel.
 The choice, the warps a block and the grid's cap are planned once a shape
-(``_build.plan``), not once a batch.
+(``_build.plan``), not once a batch, or pinned by the caller (the
+autotuner's geometry, ``engine/autotune.py``), checked against the card.
 The plain PyTorch version beside them evaluates the full predicate
 matrix, locates leaves in path-constraint form and folds with scatters
 into the same accumulator layout; the wrapper takes it only for a tensor
@@ -50,6 +51,7 @@ I32_MIN = -(2**31)
 # kernel moves
 VARIANTS = {None: 0, "shared": 1, "global": 2}
 KERNEL_NAMES = {1: "fused_ingest_shared", 2: "fused_ingest_global"}
+MAX_WARPS = 32  # csrc/fused_ingest.cu's kMaxWarps: 1024 threads a block
 
 # The kernel the accumulators made under :func:`_forced` take; None
 # chooses by shape.  For tests and measurement only.
@@ -86,7 +88,13 @@ class IngestAccumulator:
 
     FIELDS = ("counts", "lo", "hi", "cat", "advt", "advf")
 
-    def __init__(self, ops: dict):
+    def __init__(self, ops: dict, launch: Optional[tuple] = None):
+        """``launch`` pins the geometry, ``(variant, warps a block, grid
+        cap)`` with variant "shared" or "global" (the global kernel sizes
+        its own grid, so its cap is unused); None plans it by shape.  A
+        pinned geometry the card cannot run raises ``ValueError``.  On the
+        CPU the plain version runs and the geometry is not used.
+        """
         self.ops = ops
         dev = ops["cat_off"].device
         L, d = int(ops["n_leaves"]), int(ops["cat_off"].shape[0])
@@ -121,12 +129,13 @@ class IngestAccumulator:
         )
         self._launch = None
         if dev.type == "cuda":
-            shape = (L, d, cw, aw, int(ops["cat_dims"].shape[0]),
-                     int(ops["n_adv"]))
+            shape = plan_shape(ops)
             index = torch.cuda.current_device() if dev.index is None \
                 else dev.index
-            self._launch = _build.plan("fused_ingest", index, *shape,
-                                       VARIANTS[_FORCED])
+            self._launch = (
+                _build.plan("fused_ingest", index, *shape, VARIANTS[_FORCED])
+                if launch is None else pinned_plan(index, shape, *launch)
+            )
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
         return tuple(getattr(self, f) for f in self.FIELDS)
@@ -162,7 +171,7 @@ class IngestAccumulator:
             *self._launch, _build.stream_ptr(dev),
         )
         _build.check(rc, "fused_ingest")
-        _build.LAUNCHES[KERNEL_NAMES[self._launch[0]]] += 1
+        _build.count_launch(KERNEL_NAMES[self._launch[0]])
         return out
 
     def partial(self, tree: FrozenQdTree) -> TightenPartial:
@@ -191,6 +200,48 @@ class IngestAccumulator:
             adv[:, :, 1] = unpack_words(f["advf"], na)
             adv &= ne[:, None, None]
         return TightenPartial(counts=counts, lo=lo, hi=hi, cat=cat, adv=adv)
+
+
+def plan_shape(ops: dict) -> tuple[int, ...]:
+    """The tree's shape as ``fused_ingest_plan`` takes it: leaves, columns,
+    categorical and advanced-cut words a leaf, categorical columns and
+    advanced cuts."""
+    return (int(ops["n_leaves"]), int(ops["cat_off"].shape[0]),
+            int(ops["cw"]), int(ops["aw"]), int(ops["cat_dims"].shape[0]),
+            int(ops["n_adv"]))
+
+
+def pinned_plan(index: int, shape: tuple, variant: str, warps: int,
+                max_blocks: int) -> tuple[int, int, int, int]:
+    """The launch plan of a pinned geometry on device ``index``.
+
+    Checked, never clamped: a geometry the card cannot run raises
+    ``ValueError`` with the reason.  The shared kernel's bytes are the
+    aggregates plus one 32-row tile a warp; the shape's own plan
+    (``fused_ingest_plan``, forced shared) gives the most warps that fit.
+    """
+    if variant not in ("shared", "global"):
+        raise ValueError(f"variant must be 'shared' or 'global', not "
+                         f"{variant!r}")
+    warps, max_blocks = int(warps), int(max_blocks)
+    if not 1 <= warps <= MAX_WARPS:
+        raise ValueError(f"{warps} warps a block: the kernels take 1 to "
+                         f"{MAX_WARPS}")
+    if variant == "global":
+        return (VARIANTS["global"], warps, 0, 0)
+    if max_blocks < 1:
+        raise ValueError(f"a grid cap of {max_blocks} blocks")
+    try:
+        kernel, fit, smem, _ = _build.plan("fused_ingest", index, *shape,
+                                           VARIANTS["shared"])
+    except RuntimeError as exc:
+        raise ValueError(f"the tree's aggregates do not fit a block's "
+                         f"shared memory ({exc})") from None
+    if warps > fit:
+        raise ValueError(f"{warps} warps do not fit beside the aggregates: "
+                         f"at most {fit} fit a block's shared memory")
+    tile = 4 * 32 * shape[1]
+    return (kernel, warps, smem - (fit - warps) * tile, max_blocks)
 
 
 def pack_bits(present: torch.Tensor, n_words: int) -> torch.Tensor:

@@ -86,5 +86,5 @@ def query_intersect(
         _build.stream_ptr(dev),
     )
     _build.check(rc, "query_intersect")
-    _build.LAUNCHES["query_intersect"] += 1
+    _build.count_launch("query_intersect")
     return hits, scanned

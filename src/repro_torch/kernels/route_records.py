@@ -93,7 +93,7 @@ def eval_cuts(records: torch.Tensor, ops: dict) -> torch.Tensor:
         _build.stream_ptr(records.device),
     )
     _build.check(rc, "eval_cuts")
-    _build.LAUNCHES["eval_cuts"] += 1
+    _build.count_launch("eval_cuts")
     return out
 
 
@@ -146,7 +146,7 @@ def locate_leaf(m_mat: torch.Tensor, ops: dict) -> torch.Tensor:
         _build.stream_ptr(m_mat.device),
     )
     _build.check(rc, "locate_leaf")
-    _build.LAUNCHES["locate_leaf"] += 1
+    _build.count_launch("locate_leaf")
     return out
 
 
@@ -212,5 +212,5 @@ def route(records: torch.Tensor, ops: dict) -> torch.Tensor:
         p(out), *plan, _build.stream_ptr(records.device),
     )
     _build.check(rc, "route_descend")
-    _build.LAUNCHES["route_descend"] += 1
+    _build.count_launch("route_descend")
     return out

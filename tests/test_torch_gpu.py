@@ -462,3 +462,126 @@ def test_wrappers_refuse_mismatched_operands():
         trk.route(rec.to(torch.int64), ops)
     with pytest.raises(ValueError, match="int32"):
         trk.route(rec.t(), ops)  # not contiguous
+
+
+def _leaf_arrays(tree):
+    return [getattr(tree, f).copy() for f in
+            ("leaf_lo", "leaf_hi", "leaf_cat", "leaf_adv", "block_sizes")]
+
+
+def _fresh(frozen):
+    from repro_torch.core.qdtree import FrozenQdTree
+
+    return FrozenQdTree.from_arrays(frozen.to_arrays())
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_thread_shards_on_streams_match_one_stream(k):
+    """k thread shards, each on its own CUDA stream with its own device
+    accumulator, publish what one stream's ingest publishes; one
+    ``fused_ingest`` launch a batch."""
+    import warnings
+
+    from repro_torch.engine import sharded
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    frozen, records, _ = random_case(3, m=20_000)
+    rec = torch.from_numpy(records).to(dev)
+    one = _fresh(frozen)
+    LayoutEngine(one).ingest(sharded.micro_batches(rec, 777))
+    tree = _fresh(frozen)
+    eng = LayoutEngine(tree)
+    _build.reset_launch_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", sharded.PerformanceWarning)
+        rep = sharded.sharded_ingest(eng, rec, k, batch=777,
+                                     executor="thread")
+    counts = _build.launch_counts()
+    assert rep.n_batches == sum(
+        -(-p.shape[0] // 777) for p in sharded.shard_slices(rec, k))
+    assert counts["fused_ingest_shared"] + counts["fused_ingest_global"] == (
+        rep.n_batches)
+    for a, b in zip(_leaf_arrays(tree), _leaf_arrays(one)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_launch_counts_exact_from_eight_threads():
+    import threading
+
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    frozen, records, _ = random_case(1)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(records).to(dev)
+    accs = [tfk.IngestAccumulator(ops) for _ in range(8)]
+    name = tfk.KERNEL_NAMES[accs[0]._launch[0]]
+    _build.reset_launch_counts()
+
+    def fold(acc):
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            for _ in range(50):
+                acc.fold(rec)
+            torch.cuda.current_stream(dev).synchronize()
+
+    threads = [threading.Thread(target=fold, args=(a,)) for a in accs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert _build.launch_counts()[name] == 8 * 50
+
+
+def test_tuned_geometry_matches_the_analytic_plan(tmp_path, monkeypatch):
+    """The autotuner's chosen geometry, looked up by the engine's
+    accumulator, folds what the analytic plan folds."""
+    from repro_torch.engine import autotune
+    from repro_torch.engine import backends as tbe
+
+    dev = _cuda()
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_STORE", str(tmp_path / "a.json"))
+    frozen, records, _ = random_case(7, m=20_000)
+    rec = torch.from_numpy(records).to(dev)
+    eng = LayoutEngine(frozen)
+    out = autotune.autotune_fused(frozen, rec, reps=2, engine=eng)
+    assert any(r["status"] == "ok" for r in out["rows"])
+    chosen = autotune.lookup("cuda", autotune.geometry_key(frozen))
+    assert chosen is not None and chosen.to_dict() == out["chosen"]
+    torch_be = tbe.get_backend("torch")
+    tuned = torch_be.accumulator(frozen, tplan.PlanCache(), dev)
+    assert tuned.launch == chosen.launch
+    analytic = tbe.DeviceAccumulator(
+        frozen, tplan.to_device(tplan.pack_route_constants(frozen), dev), dev)
+    for acc in (tuned, analytic):
+        for s in range(0, rec.shape[0], 3001):
+            acc.fold(rec[s:s + 3001])
+    a, b = tuned.partial(), analytic.partial()
+    for f in ("counts", "lo", "hi", "cat", "adv"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    with pytest.raises(ValueError, match="warps"):
+        torch_be.accumulator(frozen, tplan.PlanCache(), dev,
+                             launch=("shared", 64, 132))
+
+
+def test_block_buffers_device_sort_matches_host():
+    from repro_torch.data.blocks import BlockBuffers
+
+    dev = _cuda()
+    frozen, records, _ = random_case(0, m=20_000)
+    host, on_card = BlockBuffers.for_tree(frozen), BlockBuffers.for_tree(
+        frozen)
+    eng = LayoutEngine(_fresh(frozen))
+    for s in range(0, records.shape[0], 4099):
+        batch = records[s:s + 4099]
+        bids = frozen.route(batch)
+        host.append(batch, bids)
+        on_card.append(torch.from_numpy(batch).to(dev),
+                       torch.from_numpy(bids).to(dev))
+    spilled = BlockBuffers.for_tree(frozen)
+    eng.ingest([torch.from_numpy(records[s:s + 4099]).to(dev)
+                for s in range(0, records.shape[0], 4099)], buffers=spilled)
+    for buf in (on_card, spilled):
+        np.testing.assert_array_equal(buf.sizes, host.sizes)
+        for b in range(frozen.n_leaves):
+            np.testing.assert_array_equal(buf.block(b), host.block(b))
