@@ -48,13 +48,13 @@ table and layout:
   one ``fused_ingest`` launch a batch (the workers report theirs), one
   copy back a shard (a trace at k = 4); the two-pass (``fused=False``)
   path, one ``route_descend`` a batch, on a 4M-row prefix;
-* spill ingest (``ingest(buffers=...)``): buffer sizes equal the block
-  sizes, and sampled blocks equal a host stable sort of the oracle's ids,
-  row for row; its wall and, from a trace, its split into kernel, sort and
-  copy;
-* the block store: ``write_store`` into a temporary directory, then
-  ``scan_query`` of 10 queries (one a template), each equal to a
-  brute-force ``Query.evaluate`` over the table;
+* spill ingest (``ingest(buffers=...)``) of a 4,194,304-row prefix:
+  buffer sizes equal the block sizes, and sampled blocks equal a host
+  stable sort of the oracle's ids, row for row; its wall and, from a
+  trace, its split into kernel, sort and copy;
+* the block store of that prefix: ``write_store`` into a temporary
+  directory, then ``scan_query`` of 10 queries (one a template), each
+  equal to a brute-force ``Query.evaluate`` over the prefix;
 * ``autotune_fused`` on one batch, persisted under ``build/``; the tuned
   geometry's whole-table ingests equal the oracle, timed beside the
   analytic plan's;
@@ -62,6 +62,29 @@ table and layout:
   sample in another process: their Eq. 1 on the card equals the numpy
   backend's, and one batch routed through each equals the numpy route;
   printed beside the qd-tree's on the same sample.
+
+Then the layout lifecycle, each path counted from 0:
+
+* WOODBLOCK on the greedy tree's 1% sample: ``TreeEnv``'s cut matrix is
+  one ``eval_cuts`` launch, equal to ``preds.eval_cuts`` (the kernel timed
+  at that shape against its plain version and its bound);
+  ``build_layout(strategy="woodblock")`` within a 60 s budget (block ids
+  and Eq. 1 hits equal numpy's); one ``ppo_update`` on the card against
+  the CPU's at a stated tolerance; episodes, policy steps (one a tree
+  level) and updates timed;
+* the service: an observed ingest (the per-leaf counts on the card) whose
+  every batch's WindowStat equals the host probe's, with one accumulator
+  copy back in a trace; ``LayoutService.ingest`` of the whole table at
+  the default batch; ``benchmarks/drift_rebuild.py``'s scenario at the
+  table's scale through ``LayoutService.auto_rebuilder`` (no rebuild
+  failed, each ingest call's state equal to the numpy oracle's for its
+  generation, no plan
+  builds outside a swap but each call's description plan, a rebuild
+  deployed after the shift within 1.2x a greedy rebuild); a rebuild on a
+  ``drift-rebuild`` thread under concurrent routing, a timed swap,
+  rollback and release, each followed by route and route_queries against
+  numpy; a tracker-driven two-replica deploy whose cheapest routing
+  equals the numpy backend's.
 
 Then it times: route and query latencies (median and spread of warm
 calls, host clock; route split into its kernel, from a trace, and the
@@ -113,6 +136,7 @@ SHARD_THREADS = (1, 2, 4, 8)  # thread-shard counts over the whole table
 SHARD_PROCS = (4, 2)  # process-shard counts (4 first: the pool then serves 2)
 SHARD_REPS = 5  # timed sharded ingests a configuration, after the checked one
 TWO_PASS_ROWS = 1 << 22  # the fused=False shard path's prefix
+STORE_ROWS = 1 << 22  # the spill ingest's and the block store's prefix
 SPILL_REPS = 3  # untraced whole-table spill ingests
 SPILL_CHECK_BLOCKS = 5  # blocks held row for row to the oracle's ids
 STORE_QUERIES = 10  # workload queries scanned from the block store
@@ -120,6 +144,17 @@ TUNED_REPS = 3  # whole-table ingests with each geometry, alternated
 RANGE_COLUMN = 0  # l_shipdate: the range baseline's partitioning column
 BASELINE_ROUTE_ROWS = 1 << 16  # sample rows routed through each baseline
 BASELINE_TIMEOUT_S = 600  # the baselines' build, at most
+WOODBLOCK_BUDGET_S = 60  # build_layout(strategy="woodblock", time_budget_s)
+# one PPO update on the card against the CPU: float32 sums in another
+# order, then one Adam step of at most lr = 3e-4 a parameter
+PPO_RTOL, PPO_ATOL = 1e-4, 1e-6
+SHIPDATE, EXTENDEDPRICE = 0, 5  # the drift scenario's two query columns
+DRIFT_QUERIES, DRIFT_FRAC = 20, 0.04  # benchmarks/drift_rebuild.py's
+RESERVOIR = 400_000  # rows a drift rebuild trains on: the 1% sample's size
+ORACLE_RATIO = 1.2  # recovered scanned fraction against a greedy rebuild
+OBSERVE_REPS = 3  # observed and unobserved whole-table ingests, alternated
+CHECK_ROWS = 1 << 16  # rows routed against numpy around each swap
+REPLICA_ROUNDS = 4  # serving rounds of each workload the tracker records
 
 # H100 SXM (NVIDIA data sheet): HBM rate, and the float32 rate outside the
 # tensor cores, taken as the rate of the kernels' int32 compares/atomics
@@ -925,6 +960,610 @@ def baseline_phase(ctx, counted, layouts) -> dict:
     return out
 
 
+def d2h_copies(prof) -> list:
+    """The device-to-host copies of a profiler trace: (bytes, ms) each.
+    Bytes come from the trace's copy records; None where a record has no
+    byte count."""
+    import tempfile
+
+    path = Path(tempfile.mkdtemp(prefix="qd-trace-")) / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    path.unlink()
+    path.parent.rmdir()
+    return [
+        (ev.get("args", {}).get("bytes"), ev.get("dur", 0.0) / 1e3)
+        for ev in events
+        if ev.get("cat") == "gpu_memcpy" and "DtoH" in ev.get("name", "")
+    ]
+
+
+def woodblock_phase(ctx, counted) -> dict:
+    """WOODBLOCK on the greedy tree's 1% sample: ``TreeEnv``'s cut matrix
+    (one ``eval_cuts`` launch, equal to ``preds.eval_cuts`` on the host),
+    the kernel at that shape against its plain version and its bound;
+    ``build_layout(strategy="woodblock")`` within WOODBLOCK_BUDGET_S (its
+    block ids equal the numpy route, its Eq. 1 hits the numpy hits); one
+    ``ppo_update`` on the card against the same update on the CPU."""
+    import copy
+
+    import torch
+
+    from repro_torch.core import predicates as preds
+    from repro_torch.core.routing import cut_table_arrays
+    from repro_torch.core.woodblock import agent, ppo
+    from repro_torch.core.woodblock.env import TreeEnv
+    from repro_torch.engine import LayoutEngine
+    from repro_torch.engine import backends as be
+    from repro_torch.engine import plan as tplan
+    from repro_torch.kernels import route_records as rk
+    from repro_torch.service import build_layout
+
+    dev, sample, work, cuts = (ctx["dev"], ctx["sample"], ctx["work"],
+                               ctx["cuts"])
+    t0 = time.perf_counter()
+    env = counted("woodblock_env",
+                  lambda: TreeEnv(sample, work, cuts, MIN_BLOCK, device=dev))
+    env_s = time.perf_counter() - t0
+    launched = ctx["path_launches"]["woodblock_env"]
+    require(launched["eval_cuts"] == 1 and sum(launched.values()) == 1,
+            f"TreeEnv launched {launched}; expected one eval_cuts")
+    t0 = time.perf_counter()
+    require(np.array_equal(env.cut_matrix, preds.eval_cuts(sample, cuts)),
+            "TreeEnv's cut matrix differs from preds.eval_cuts")
+    host_eval_s = time.perf_counter() - t0
+    # the kernel at the env's shape: against its plain version, timed
+    ops = tplan.to_device(cut_table_arrays(cuts), dev)
+    rec = torch.from_numpy(sample).to(dev)
+    err = max_abs_err([rk.eval_cuts(rec, ops)], [rk.eval_cuts_plain(rec,
+                                                                    ops)])
+    require(err == 0.0, f"eval_cuts differs from its plain version by {err}")
+    ms, plain_ms = (time_ms(lambda: rk.eval_cuts(rec, ops), 20),
+                    time_ms(lambda: rk.eval_cuts_plain(rec, ops), 3))
+    m, d = sample.shape
+    table = sum(int(v.numel() * v.element_size()) for v in ops.values()
+                if isinstance(v, torch.Tensor))
+    bound_ms, bound_by = bound(m * d * 4 + table + m * cuts.n_cuts,
+                               m * cuts.n_cuts)
+    log(f"TreeEnv on {m} rows x {cuts.n_cuts} cuts: one eval_cuts launch, "
+        f"equal to preds.eval_cuts; kernel {ms:.6f} ms (bound {bound_ms:.6f}"
+        f" ms, {bound_by}), plain {plain_ms:.6f} ms")
+
+    # the agent, timed where it syncs: a policy step per tree level (states
+    # in, actions out) and each PPO update; the last update's inputs kept
+    policy_ms, update_ms, last = [], [], {}
+    orig_policy, orig_update = agent.Woodblock._policy_fn, ppo.ppo_update
+
+    def timed_policy(self, states, legals):
+        t = time.perf_counter()
+        out = orig_policy(self, states, legals)
+        policy_ms.append(((time.perf_counter() - t) * 1e3, len(states)))
+        return out
+
+    def timed_update(net, opt, batch, cfg):
+        last.update(net=copy.deepcopy(net), opt=copy.deepcopy(opt),
+                    batch=batch, cfg=cfg)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_update(net, opt, batch, cfg)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    agent.Woodblock._policy_fn, ppo.ppo_update = timed_policy, timed_update
+    try:
+        build = counted("woodblock", lambda: build_layout(
+            sample, work, strategy="woodblock", cuts=cuts,
+            min_block=MIN_BLOCK, seed=SEED, device=dev,
+            time_budget_s=WOODBLOCK_BUDGET_S))
+    finally:
+        agent.Woodblock._policy_fn, ppo.ppo_update = orig_policy, orig_update
+    launched = ctx["path_launches"]["woodblock"]
+    require(launched["eval_cuts"] == 1,
+            f"build_woodblock launched {launched}; expected one eval_cuts")
+    tree = build.tree
+    require(np.array_equal(build.bids, tree.route(sample)),
+            "woodblock layout: block ids differ from the numpy route")
+    wt = work.tensorize(tree.cuts)
+    n_hits, _ = be.get_backend("numpy").query_intersect(
+        tree, tplan.PlanCache(), wt, dev)
+    require(np.array_equal(LayoutEngine(tree, device=dev).query_hits(wt),
+                           n_hits),
+            "woodblock layout: Eq. 1 hits on the card differ from numpy")
+    require(0.0 < build.scanned_fraction <= 1.0, "woodblock scanned")
+
+    # one PPO update on the card against the CPU, from the last update's
+    # inputs
+    card_net, cpu_net = last["net"], copy.deepcopy(last["net"]).cpu()
+    cpu_opt = {"m": {k: v.cpu() for k, v in last["opt"]["m"].items()},
+               "v": {k: v.cpu() for k, v in last["opt"]["v"].items()},
+               "t": last["opt"]["t"]}
+    cpu_batch = {k: v.cpu() for k, v in last["batch"].items()}
+    cfg = last["cfg"]
+    timing_net, timing_opt = (copy.deepcopy(card_net),
+                              copy.deepcopy(last["opt"]))
+    card_net, card_opt, _ = ppo.ppo_update(card_net, last["opt"],
+                                           last["batch"], cfg)
+    cpu_net, cpu_opt, _ = ppo.ppo_update(cpu_net, cpu_opt, cpu_batch, cfg)
+    ppo_err, ppo_ok = 0.0, True
+    pairs = [(a.detach().cpu(), b.detach()) for (_, a), (_, b) in zip(
+        card_net.named_parameters(), cpu_net.named_parameters())]
+    pairs += [(card_opt[s][k].cpu(), cpu_opt[s][k])
+              for s in ("m", "v") for k in cpu_opt[s]]
+    for a, b in pairs:
+        diff = (a - b).abs()
+        ppo_err = max(ppo_err, float(diff.max()))
+        ppo_ok &= bool((diff <= PPO_ATOL + PPO_RTOL * b.abs()).all())
+    require(ppo_ok, f"ppo_update on the card differs from the CPU's beyond "
+                    f"rtol {PPO_RTOL}, atol {PPO_ATOL} (max {ppo_err})")
+    ppo_card_ms = time_ms(lambda: ppo.ppo_update(
+        timing_net, timing_opt, last["batch"], cfg), 10)
+    n_ep = int(build.metrics["n_episodes"])
+    levels = np.array([t for t, _ in policy_ms])
+    out = {
+        "sample_rows": m, "cuts": cuts.n_cuts, "env_s": env_s,
+        "host_eval_cuts_s": host_eval_s,
+        "eval_cuts": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "max_abs_err": err},
+        "budget_s": WOODBLOCK_BUDGET_S, "build_s": build.build_s,
+        "episodes": n_ep, "episodes_per_s": n_ep / build.build_s,
+        "policy_steps": len(policy_ms),
+        "policy_step_ms": spread(levels.tolist()),
+        "policy_step_nodes_mean": float(np.mean([n for _, n in policy_ms])),
+        "ppo_updates": len(update_ms), "ppo_update_ms": spread(update_ms),
+        "ppo_update_card_ms": ppo_card_ms,
+        "ppo_batch_rows": int(last["batch"]["weight"].shape[0]),
+        "ppo_card_vs_cpu_max_abs_err": ppo_err,
+        "ppo_tolerance": {"rtol": PPO_RTOL, "atol": PPO_ATOL},
+        "leaves": tree.n_leaves, "depth": tree.depth,
+        "best_scanned_sample": float(build.metrics["best_scanned_sample"]),
+        "scanned_fraction": build.scanned_fraction,
+        "greedy_scanned_sample": ctx["greedy_scanned_sample"],
+        "launches": {"env": ctx["path_launches"]["woodblock_env"],
+                     "build": launched},
+    }
+    log(f"woodblock: {n_ep} episodes in {build.build_s:.1f}s; best "
+        f"{out['best_scanned_sample']:.6f} on the sample against greedy's "
+        f"{ctx['greedy_scanned_sample']:.6f}; policy step "
+        f"{out['policy_step_ms']} ms; ppo_update {ppo_card_ms:.3f} ms, card "
+        f"vs CPU max {ppo_err:.3g}")
+    return out
+
+
+def range_workload(schema, dim: int, n_queries: int, frac: float,
+                   seed: int):
+    """Random range queries over one column, each ``frac`` of its domain
+    (``benchmarks/drift_rebuild.py``'s workloads)."""
+    from repro_torch.core import predicates as preds
+    from repro_torch.core import query as qry
+
+    rng = np.random.default_rng(seed)
+    dom = schema.doms[dim]
+    width = max(int(dom * frac), 1)
+    queries = []
+    for _ in range(n_queries):
+        lo = int(rng.integers(0, max(dom - width, 1)))
+        queries.append(qry.Query.conjunction([
+            qry.RangeAtom(dim, preds.OP_GE, lo),
+            qry.RangeAtom(dim, preds.OP_LT, lo + width)]))
+    return qry.Workload(schema, tuple(queries))
+
+
+def oracle_tightened(tree, records: np.ndarray, bids: np.ndarray):
+    """A copy of ``tree`` tightened by the numpy oracle on ``records``."""
+    from repro_torch.core.qdtree import FrozenQdTree, IncrementalTightener
+
+    out = FrozenQdTree.from_arrays(tree.to_arrays())
+    t = IncrementalTightener(out)
+    t.update(records, bids)
+    t.apply()
+    return out
+
+
+def service_phase(ctx, counted) -> dict:
+    """The layout lifecycle on the greedy layout (``LayoutService``).
+
+    An observed ingest (the device probe) against an unobserved one: every
+    batch's WindowStat equals the host probe's over the oracle's ids, the
+    tree equals the oracle's, and a trace shows one accumulator copy back
+    (the per-batch sums are 8 bytes each, the ids never come back), with
+    every batch scored on the card.  ``LayoutService.ingest`` of the
+    whole table in one call at the default batch: one ``fused_ingest`` a
+    2^20-row batch, equal to the oracle.  Then
+    ``benchmarks/drift_rebuild.py``'s scenario at the table's scale: the
+    first half ingested under shipdate ranges, the second under
+    extendedprice ranges, one batch a call through ``auto_rebuilder``
+    (rebuilds inline, on a RESERVOIR-row reservoir); each call's block
+    sizes and the last call of each generation's descriptions equal the
+    numpy oracle's for the generation it ingested into, no rebuild
+    failed, one accumulator copy back a call, no plan builds outside a swap but the per-call
+    query-description plan.  A rebuild deployed after the shift recovers
+    to within 1.2x a greedy build on a 1% sample of the second half.  A
+    rebuild on a ``drift-rebuild`` thread under concurrent routing, a
+    timed swap, rollback and release, each followed by route and
+    route_queries against numpy; a tracker-driven k = 2 replica deploy
+    whose cheapest routing equals the numpy backend's."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor as Pool
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch
+
+    from repro_torch.core.qdtree import FrozenQdTree
+    from repro_torch.engine import LayoutEngine, WindowStat
+    from repro_torch.engine import backends as be
+    from repro_torch.engine.engine import ObservationProbe
+    from repro_torch.engine import plan as tplan
+    from repro_torch.kernels import fused_ingest as fk
+    from repro_torch.service import (DriftConfig, IngestOptions, LayoutBuild,
+                                     LayoutService, RebuildPolicy,
+                                     build_layout)
+
+    dev, records, rec_dev = ctx["dev"], ctx["records"], ctx["rec_dev"]
+    slices, sizes, n_rows = ctx["slices"], ctx["sizes"], ctx["n_rows"]
+    oracle_bids, untightened = ctx["oracle_bids"], ctx["untightened"]
+    schema, sample = ctx["work"].schema, ctx["sample"]
+    work_a = range_workload(schema, SHIPDATE, DRIFT_QUERIES, DRIFT_FRAC,
+                            SEED + 1)
+    work_b = range_workload(schema, EXTENDEDPRICE, DRIFT_QUERIES,
+                            DRIFT_FRAC, SEED + 2)
+    n_b = len(slices)
+    out = {}
+
+    # -- the device probe against the host probe; observed vs unobserved --
+    def fresh():
+        eng = LayoutEngine(FrozenQdTree.from_arrays(untightened), device=dev)
+        eng.warm_ingest(sizes)
+        torch.cuda.synchronize()
+        return eng
+
+    eng = fresh()
+    probe = eng.observation_probe(work_a)
+    require(probe.on_device is not None and probe.on_device.device == dev
+            and probe.on_device.dtype == torch.int64,
+            "an engine on the card keeps the probe's counts on the card")
+    seen = []
+    counted("service_observe", lambda: eng.ingest(
+        slices, observe=probe, on_observation=seen.append))
+    want = [WindowStat(int(probe.per_leaf[oracle_bids[s:s + BATCH]].sum()),
+                       min(BATCH, n_rows - s) * probe.n_queries,
+                       min(BATCH, n_rows - s))
+            for s in range(0, n_rows, BATCH)]
+    require(seen == want, "device-probe observations differ from the host "
+                          "probe's over the oracle's ids")
+    require(leaves_equal(eng.tree, ctx["oracle_tree"]),
+            "observed ingest: tightened tree differs from the oracle's")
+    walls = {"observed": [], "unobserved": []}
+    for _ in range(OBSERVE_REPS):
+        walls["unobserved"].append(fresh().ingest(slices).wall_s * 1e3)
+        walls["observed"].append(
+            fresh().ingest(slices, observe=probe).wall_s * 1e3)
+    traced_eng = fresh()
+    device_sums = []
+    orig_observe = ObservationProbe.observe
+
+    def counting_observe(self, bids):
+        device_sums.append(isinstance(bids, torch.Tensor)
+                           and bids.device == dev)
+        return orig_observe(self, bids)
+
+    ObservationProbe.observe = counting_observe
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            traced_eng.ingest(slices, observe=probe)
+    finally:
+        ObservationProbe.observe = orig_observe
+    copies = d2h_copies(prof)
+    known = [b for b, _ in copies if b is not None]
+    require(len(known) == len(copies), f"copies without byte counts: "
+                                       f"{copies[:4]}")
+    # each batch is scored once, on the card, from ids that stay there
+    require(len(device_sums) == n_b and all(device_sums),
+            f"observed ingest scored {len(device_sums)} batches "
+            f"({sum(device_sums)} on the card) for {n_b} batches")
+    # the accumulator once; every other copy a batch's 8-byte sum (the
+    # block ids never come back). The trace may drop some of the small
+    # copies (it showed 15 for 16 batches once), so their number is held
+    # by the count of device sums above, not by the trace
+    big = [b for b in known if b > 8]
+    require(len(big) == 1 and len(known) <= n_b + 1,
+            f"observed ingest copied back {sorted(known)[-4:]} ... "
+            f"({len(known)} copies for {n_b} batches); expected one "
+            f"accumulator copy and an 8-byte sum a batch")
+    out["observe"] = {
+        "wall_ms": {k: spread(v) for k, v in walls.items()},
+        "d2h_copies": len(known), "device_sums": len(device_sums),
+        "accumulator_bytes": big[0],
+        "launches": ctx["path_launches"]["service_observe"],
+    }
+    log(f"observed ingest: per-batch stats equal the host probe's; walls "
+        f"{out['observe']['wall_ms']} ms; copies back {len(known)} "
+        f"(accumulator {big[0]} B)")
+
+    # -- the service's ingest entry point on the whole table in one call, at
+    # IngestOptions' default batch on the card (one fused_ingest a batch) --
+    whole = LayoutService(FrozenQdTree.from_arrays(untightened), device=dev)
+    default_batch = whole.ingest_batch(IngestOptions())
+    require(default_batch == BATCH,
+            f"the service's default batch on the card is {default_batch}")
+    whole.engine.warm_ingest(sizes)
+    seen = []
+    rep = counted("service_ingest", lambda: whole.ingest(
+        rec_dev, IngestOptions(observe=probe), on_observation=seen.append))
+    launched = ctx["path_launches"]["service_ingest"]
+    require(rep.n_batches == n_b and launched["fused_ingest_shared"] == n_b
+            and sum(launched.values()) == n_b,
+            f"svc.ingest of {n_rows} rows: {rep.n_batches} batches, "
+            f"launches {launched}")
+    require(seen == want and leaves_equal(whole.tree, ctx["oracle_tree"]),
+            "svc.ingest at the default batch differs from the oracle")
+    out["ingest_default"] = {"batch": default_batch, "batches": rep.n_batches,
+                             "wall_ms": rep.wall_s * 1e3,
+                             "launches": launched}
+    log(f"svc.ingest of the whole table at the default batch "
+        f"{default_batch}: {rep.n_batches} fused_ingest launches, "
+        f"{rep.wall_s * 1e3:.3f} ms")
+    del whole
+
+    # -- the drift scenario ----------------------------------------------
+    boot = FrozenQdTree.from_arrays(untightened)
+    boot_bids = boot.route(sample)
+    boot.tighten(sample, boot_bids)
+    svc = LayoutService(LayoutBuild(
+        tree=boot, bids=boot_bids, strategy="greedy", build_s=0.0,
+        metrics={"scanned_fraction": float("nan"),
+                 "n_leaves": boot.n_leaves},
+        provenance={"strategy": "greedy"}), device=dev)
+    gen0 = svc.generation
+    rebuilder = svc.auto_rebuilder(RebuildPolicy(
+        workload=work_a,
+        drift=DriftConfig(window=8, min_fill=4, abs_threshold=0.5,
+                          rel_degradation=1.0, hysteresis=2, cooldown=8),
+        reservoir_capacity=RESERVOIR, executor="sync",
+        rebuild_kw=dict(min_block=MIN_BLOCK, seed=SEED)))
+
+    def warm(engine):
+        engine.warm_ingest(sizes)
+        for w in (work_a, work_b):
+            engine.query_hits(w)
+        torch.cuda.synchronize()
+
+    warm(svc.engine)
+    partials = []
+    orig_partial = fk.IngestAccumulator.partial
+
+    def counting_partial(self, tree):
+        partials.append(1)
+        return orig_partial(self, tree)
+
+    shift = n_b // 2
+    calls = []
+
+    def drift():
+        for i, b in enumerate(slices):
+            if i == shift:
+                rebuilder.set_workload(work_b)  # the queries drift, silently
+            versions0 = {g: tplan.desc_version(svc.version(g).tree)
+                         for g in svc.versions()}
+            live0, builds0 = svc.generation, tplan.build_counts()
+            events0 = len(rebuilder.events)
+            del partials[:]
+            rep = svc.ingest([b], IngestOptions(monitor=rebuilder))
+            torch.cuda.synchronize()
+            into = [g for g, v in versions0.items()
+                    if tplan.desc_version(svc.version(g).tree) != v]
+            require(len(into) == 1, f"call {i}: ingested into {into}")
+            swapped = svc.generation != live0
+            calls.append({"batch": i, "gen": into[0], "swapped": swapped,
+                          "rebuilt": len(rebuilder.events) > events0,
+                          "builds": tplan.build_delta(builds0,
+                                                      tplan.build_counts()),
+                          "copies": len(partials), "rep": rep})
+            if swapped:
+                warm(svc.engine)  # the new generation's plans: swap cost
+
+    fk.IngestAccumulator.partial = counting_partial
+    try:
+        counted("service_drift", drift)
+    finally:
+        fk.IngestAccumulator.partial = orig_partial
+    failed = [e.error for e in rebuilder.events if e.error]
+    require(not failed, f"drift rebuilds failed: {failed}")
+    deployed = [e for e in rebuilder.events if e.deployed]
+    require(len(deployed) >= 1 and svc.generation != gen0,
+            "the workload shift did not deploy a rebuild")
+    require(all(e.observation > 0 for e in deployed)
+            and min(c["batch"] for c in calls if c["swapped"]) >= shift,
+            "a rebuild deployed before the shift")
+    # each call against the numpy oracle of the generation it ingested into
+    last_of = {}
+    for c in calls:
+        s = c["batch"] * BATCH
+        rows = records[s:s + BATCH]
+        tree = svc.version(c["gen"]).tree
+        bids = (oracle_bids[s:s + BATCH] if c["gen"] == gen0
+                else tree.route(rows))
+        require(np.array_equal(c["rep"].block_sizes,
+                               np.bincount(bids, minlength=tree.n_leaves)),
+                f"call {c['batch']}: block sizes differ from the oracle's")
+        # a call that ran a rebuild also folded the rebuild's build records
+        require(c["copies"] == 1 or (c["rebuilt"] and c["copies"] > 1),
+                f"call {c['batch']}: {c['copies']} accumulator copies back")
+        other = {k: v for k, v in c["builds"].items() if k != "query:torch"}
+        require(c["swapped"] or (not other
+                                 and c["builds"].get("query:torch", 0) <= 1),
+                f"call {c['batch']}: plans built outside a swap: "
+                f"{c['builds']}")
+        last_of[c["gen"]] = (c["batch"], rows, bids)
+    for g, (i, rows, bids) in last_of.items():
+        tree = svc.version(g).tree
+        want = oracle_tightened(tree, rows, bids)
+        require(all(np.array_equal(getattr(want, f), getattr(tree, f))
+                    for f in ("leaf_lo", "leaf_hi", "leaf_cat", "leaf_adv")),
+                f"generation {g}: descriptions after call {i} differ from "
+                f"the numpy oracle's")
+    phase_b, phase_b_dev = records[shift * BATCH:], rec_dev[shift * BATCH:]
+    recovered = svc.skip_stats(phase_b_dev, work_b, tighten=False)
+    oracle_build = build_layout(phase_b[::SAMPLE_EVERY], work_b,
+                                min_block=MIN_BLOCK, seed=SEED, device=dev,
+                                plan_cache=svc.plans)
+    oracle = LayoutEngine(oracle_build.tree, device=dev,
+                          plan_cache=svc.plans).skip_stats(
+        phase_b_dev, work_b, tighten=False)
+    ratio = recovered.scanned_fraction / oracle.scanned_fraction
+    require(ratio <= ORACLE_RATIO,
+            f"recovered {recovered.scanned_fraction:.6f} is {ratio:.3f}x the "
+            f"greedy oracle's {oracle.scanned_fraction:.6f}")
+    rates = [c["rep"].observation.scanned_fraction
+             if c["rep"].observation is not None else None for c in calls]
+    ev = deployed[0]
+    out["drift"] = {
+        "calls": len(calls), "shift_batch": shift,
+        "swap_batches": [c["batch"] for c in calls if c["swapped"]],
+        "rebuilds_deployed": len(deployed),
+        "events": [{"observation": e.observation, "deployed": e.deployed,
+                    "skipped": e.skipped, "reason": e.decision.reason,
+                    "error": e.error, "wall_s": e.wall_s}
+                   for e in rebuilder.events],
+        "rebuild_s": ev.wall_s, "rebuild_build_s": ev.report.build_s,
+        "rebuild_score_s": ev.report.score_s,
+        "rebuild_leaves": ev.report.build.n_leaves,
+        "batch_rates": rates,
+        "pre_shift_rate_max": max(r for r in rates[:shift] if r is not None),
+        "post_shift_rate_peak": max(r for r in rates[shift:]
+                                    if r is not None),
+        "recovered_scanned": recovered.scanned_fraction,
+        "oracle_scanned": oracle.scanned_fraction,
+        "oracle_ratio": ratio, "oracle_leaves": oracle_build.tree.n_leaves,
+        "query_plan_builds": sum(c["builds"].get("query:torch", 0)
+                                 for c in calls if not c["swapped"]),
+        "launches": ctx["path_launches"]["service_drift"],
+    }
+    rebuilder.close()
+    log(f"drift: rebuilds deployed at batches "
+        f"{out['drift']['swap_batches']} (shift at {shift}); recovered "
+        f"{recovered.scanned_fraction:.6f} against the greedy oracle's "
+        f"{oracle.scanned_fraction:.6f} ({ratio:.3f}x)")
+
+    # -- hot swap from another thread under concurrent routing; timed swap,
+    # rollback and release, each checked against numpy ------------------
+    check_dev = rec_dev[-CHECK_ROWS:]
+    check = records[-CHECK_ROWS:]
+    numpy_route = {}
+
+    def routed_like_numpy(v) -> bool:
+        if v.generation not in numpy_route:
+            numpy_route[v.generation] = v.tree.route(check)
+        return np.array_equal(v.engine.route(check_dev),
+                              numpy_route[v.generation])
+
+    def same_as_numpy(what):
+        v = svc.live_version()
+        require(np.array_equal(svc.route(check_dev), v.tree.route(check)),
+                f"after {what}: route differs from numpy")
+        for w in (work_a, work_b):
+            for got, want in zip(svc.route_queries(w),
+                                 svc.route_queries(w, backend="numpy")):
+                require(np.array_equal(got, want),
+                        f"after {what}: route_queries differs from numpy")
+
+    same_as_numpy("the drift rebuild's swap")
+    reservoir = rebuilder.reservoir.snapshot()
+    before = svc.generation
+    stop, routes, bad = threading.Event(), [0], []
+
+    def router():
+        while not stop.is_set():
+            v = svc.live_version()
+            if not routed_like_numpy(v):
+                bad.append(v.generation)
+            routes[0] += 1
+            time.sleep(0.001)  # leave the rebuild the GIL
+
+    def lifecycle():
+        with Pool(1, thread_name_prefix="drift-rebuild") as pool:
+            fut = pool.submit(svc.rebuild, reservoir, work_b, swap="always",
+                              min_block=MIN_BLOCK // 2, seed=SEED)
+            r = threading.Thread(target=router)
+            r.start()
+            try:
+                # svc.rebuild called directly: a failure raises here (only
+                # AutoRebuilder turns errors into events)
+                bg = fut.result()
+            finally:
+                stop.set()
+                r.join()
+        require(bg.swapped and svc.generation != before and not bad,
+                f"background rebuild: swapped {bg.swapped}, generations "
+                f"routed unlike numpy {bad}")
+        same_as_numpy("a rebuild on another thread")
+        times = {}
+        t = time.perf_counter()
+        g_swap = svc.swap(oracle_build)
+        times["swap_ms"] = (time.perf_counter() - t) * 1e3
+        same_as_numpy("swap")
+        t = time.perf_counter()
+        g_back = svc.rollback()
+        times["rollback_ms"] = (time.perf_counter() - t) * 1e3
+        require(g_back == bg.new_generation, f"rollback went to {g_back}")
+        same_as_numpy("rollback")
+        t = time.perf_counter()
+        times["release_evicted"] = svc.release(g_swap)
+        times["release_ms"] = (time.perf_counter() - t) * 1e3
+        same_as_numpy("release")
+        return bg, times
+
+    bg, times = counted("service_swap", lifecycle)
+    out["lifecycle"] = {
+        "background_rebuild_s": bg.build_s + bg.score_s,
+        "routes_during_rebuild": routes[0], **times,
+        "launches": ctx["path_launches"]["service_swap"],
+    }
+    log(f"lifecycle: {routes[0]} routes during a background rebuild, all "
+        f"like numpy; {times}")
+
+    # -- replicas from the tracker ----------------------------------------
+    from repro_torch.core import query as qry
+
+    mix = qry.Workload(schema, work_a.queries + work_b.queries)
+    tracker = svc.workload_tracker()
+    for _ in range(REPLICA_ROUNDS):
+        svc.serve(work_a, tracker=tracker)
+        svc.serve(work_b, tracker=tracker)
+    top = 2 * DRIFT_QUERIES  # every served signature
+    one = svc.rebuild_replicas(sample, k=1, tracker=tracker, top_k=top,
+                               swap="never", min_block=MIN_BLOCK, seed=SEED)
+    rep = counted("service_replicas", lambda: svc.rebuild_replicas(
+        sample, k=2, tracker=tracker, top_k=top, swap="always",
+        min_block=MIN_BLOCK, seed=SEED))
+    rset = svc.live_replica_set()
+    require(rep.swapped and rset.k == len(rep.builds) == 2,
+            f"the replica set was not deployed: {rep.swapped}, "
+            f"{len(rep.builds)} builds")
+    got = svc.route_queries_cheapest(mix)
+    want = svc.route_queries_cheapest(mix, backend="numpy")
+    for q, (a, b) in enumerate(zip(got, want)):
+        require(a.replica_id == b.replica_id and a.cost == b.cost
+                and np.array_equal(a.bids, b.bids),
+                f"replicas: query {q}'s cheapest route differs from numpy's")
+    # Eq. 1 on the sample over the tracked mix: one layout for the whole
+    # mix (1x storage) against cheapest-replica routing over two (2x)
+    scanned = {"1x": one.candidate_scanned, "2x": rep.candidate_scanned}
+    out["replicas"] = {
+        "k": rset.k, "clusters": [len(c) for c in rep.clusters],
+        "leaves": [v.tree.n_leaves for v in rset.versions],
+        "build_s": rep.build_s, "score_s": rep.score_s,
+        "live_scanned": rep.live_scanned, "scanned": scanned,
+        "chosen_replicas": np.bincount([r.replica_id for r in got],
+                                       minlength=rset.k).tolist(),
+        "launches": ctx["path_launches"]["service_replicas"],
+    }
+    log(f"replicas: k={rset.k}, cheapest routing equal to numpy's; the "
+        f"tracked mix on the sample scans {scanned}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=FULL_ROWS,
@@ -1271,11 +1910,25 @@ def run(args, dev, torch, pool, fine_job) -> int:
     t0 = time.perf_counter()
     shards = shard_phase(ctx, counted)
     phase_s["shard"] = time.perf_counter() - t0
+    # the spill and the store on a prefix of the table, against the numpy
+    # oracle of that prefix (PERF.md §4: the run's length)
     t0 = time.perf_counter()
-    spill_buf, spill_tree, spill = spill_phase(ctx, counted)
+    n_pre = min(n_rows, STORE_ROWS)
+    pre_tree = FrozenQdTree.from_arrays(untightened)
+    pre_part = oracle_partial(pre_tree, records[:n_pre], workers)[1]
+    tightener = IncrementalTightener(pre_tree)
+    tightener.merge(pre_part)
+    tightener.apply()
+    pre_slices = [rec_dev[s:min(s + BATCH, n_pre)]
+                  for s in range(0, n_pre, BATCH)]
+    pctx = {**ctx, "records": records[:n_pre], "n_rows": n_pre,
+            "slices": pre_slices, "sizes": {x.shape[0] for x in pre_slices},
+            "oracle_bids": oracle_bids[:n_pre], "oracle_tree": pre_tree}
+    spill_buf, spill_tree, spill = spill_phase(pctx, counted)
+    spill["rows"] = n_pre
     phase_s["spill"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    store = store_phase(ctx, counted, spill_buf, spill_tree)
+    store = store_phase(pctx, counted, spill_buf, spill_tree)
     del spill_buf
     phase_s["store"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1287,6 +1940,16 @@ def run(args, dev, torch, pool, fine_job) -> int:
     t0 = time.perf_counter()
     baselines = baseline_phase(ctx, counted, layouts)
     phase_s["baseline"] = time.perf_counter() - t0
+    # -- the layout lifecycle: WOODBLOCK and the service layers, each path
+    # counted from 0 ---------------------------------------------------------
+    ctx["cuts"] = cuts
+    ctx["greedy_scanned_sample"] = baselines["qdtree"]["scanned_fraction"]
+    t0 = time.perf_counter()
+    woodblock = woodblock_phase(ctx, counted)
+    phase_s["woodblock"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    service = service_phase(ctx, counted)
+    phase_s["service"] = time.perf_counter() - t0
     # every path's launches, the process shards' (made in their workers)
     # included
     launches = {k: sum(c[k] for c in path_launches.values())
@@ -1294,9 +1957,13 @@ def run(args, dev, torch, pool, fine_job) -> int:
                 for k in _build.LAUNCH_NAMES}
     log(f"launches by path: {path_launches}; in process-shard workers: "
         f"{ctx['worker_launches']}")
-    for name, n in launches.items():
-        if name in OFF_PATH:
-            require(n == 0, f"kernel {name} launched on the main path")
+    # eval_cuts is back on a counted path: WOODBLOCK's env; locate_leaf
+    # stays off every path
+    require(all(c["locate_leaf"] == 0 for c in path_launches.values()),
+            "locate_leaf launched on a counted path")
+    require(all(c["eval_cuts"] == 0 for p, c in path_launches.items()
+                if not p.startswith("woodblock")),
+            "eval_cuts launched outside WOODBLOCK's env")
 
     # -- bounds from this run's inputs ---------------------------------------
     m, d = x.shape
@@ -1322,6 +1989,15 @@ def run(args, dev, torch, pool, fine_job) -> int:
             L * nq * (2 * n_num + n_ent + 4 * aw) + L * nq,
         ),
     }
+    # eval_cuts at the shape its counted path (WOODBLOCK's env) gives it
+    wb_eval = woodblock["eval_cuts"]
+    eval_cuts_batch = {"ms": times["eval_cuts"][0],
+                       "plain_ms": times["eval_cuts"][1],
+                       "bound_ms": bounds_ms["eval_cuts"][0],
+                       "max_abs_err": errs["eval_cuts"]}
+    times["eval_cuts"] = (wb_eval["ms"], wb_eval["plain_ms"])
+    bounds_ms["eval_cuts"] = (wb_eval["bound_ms"], wb_eval["bound_by"])
+    errs["eval_cuts"] = wb_eval["max_abs_err"]
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         ms, plain_ms = times[name]
@@ -1360,6 +2036,7 @@ def run(args, dev, torch, pool, fine_job) -> int:
         "fused_global_on_main_layout_ms": global_on_main_ms,
         "route_global_on_main_layout_ms": route_global_on_main_ms,
         "route_descend_fine_ms": route_fine_ms,
+        "eval_cuts_batch": eval_cuts_batch,
         "fused_fold_host_ms": fold_host_ms,
         "fused_shared_plan": shared_plan,
         "query_intersect_kernel_ms": q_kernel_ms,
@@ -1380,6 +2057,7 @@ def run(args, dev, torch, pool, fine_job) -> int:
         "host_threads": workers,
         "sharded_ingest": shards, "spill_ingest": spill,
         "block_store": store, "autotune": tuned, "baselines": baselines,
+        "woodblock": woodblock, "service": service,
         "phase_s": phase_s,
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         "total_s": time.perf_counter() - t_start,
@@ -1411,6 +2089,26 @@ def run(args, dev, torch, pool, fine_job) -> int:
         f"{k} {v['scanned_fraction']:.6f} ({v['blocks']} blocks)"
         for k, v in baselines.items())
         + f"; qd-tree over the whole table {stats.scanned_fraction:.6f}")
+    wb = woodblock
+    print(f"woodblock: {wb['episodes']} episodes in {wb['build_s']:.3f} s "
+          f"({wb['episodes_per_s']:.4f}/s); policy step "
+          f"{wb['policy_step_ms']['median']:.3f} ms a level "
+          f"({wb['policy_steps']} levels, {wb['policy_step_nodes_mean']:.1f} "
+          f"nodes each); ppo_update {wb['ppo_update_card_ms']:.3f} ms "
+          f"(card vs CPU max {wb['ppo_card_vs_cpu_max_abs_err']:.3g}); env "
+          f"eval_cuts {wb_eval['ms']:.6f} ms against a "
+          f"{wb_eval['bound_ms']:.6f} ms bound; best scanned on the sample "
+          f"{wb['best_scanned_sample']:.6f} against greedy's "
+          f"{wb['greedy_scanned_sample']:.6f}")
+    sv = service
+    print(f"service: observed ingest {sv['observe']['wall_ms']['observed']}"
+          f" ms against unobserved {sv['observe']['wall_ms']['unobserved']} "
+          f"ms; rebuild {sv['drift']['rebuild_s']:.3f} s; swap "
+          f"{sv['lifecycle']['swap_ms']:.3f} ms; rollback "
+          f"{sv['lifecycle']['rollback_ms']:.3f} ms; recovered "
+          f"{sv['drift']['recovered_scanned']:.6f} against the oracle's "
+          f"{sv['drift']['oracle_scanned']:.6f}; scanned at 1x and 2x "
+          f"{sv['replicas']['scanned']}")
     print(json.dumps({"metrics": metrics}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

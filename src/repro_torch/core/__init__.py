@@ -4,9 +4,10 @@ Public surface:
   predicates — Schema / CutTable / predicate evaluation (numpy)
   qdtree     — Node/QdTree (construction) + FrozenQdTree (serving)
   query      — Query/Workload, tensorization, block intersection
-  rewards    — C(P) skip metrics
+  rewards    — C(P) skip metrics, per-node RL rewards
   greedy     — paper Algorithm 1
   routing    — torch predicate evaluation + the routing shim
+  woodblock  — deep-RL construction agent (paper Sec 5), in PyTorch
 """
 
 from repro_torch.core.predicates import (  # noqa: F401
@@ -40,6 +41,7 @@ from repro_torch.core.query import (  # noqa: F401
 from repro_torch.core.rewards import (  # noqa: F401
     SkipStats,
     evaluate_layout,
+    per_node_rewards,
     selectivity_lower_bound,
 )
 from repro_torch.core.greedy import GreedyConfig, build_greedy  # noqa: F401

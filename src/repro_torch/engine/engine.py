@@ -27,6 +27,7 @@ import time
 from typing import Iterable, Iterator, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core import query as qry
 from repro_torch.core.qdtree import FrozenQdTree, IncrementalTightener
@@ -78,17 +79,36 @@ class ObservationProbe:
 
     ``per_leaf[b]`` is the number of queries whose ``BID IN (...)`` list
     contains block ``b`` — ``query_hits(workload).sum(axis=1)`` computed
-    once.  Per-batch accounting is then a numpy gather + sum (``observe``).
+    once.  ``on_device`` holds the same counts as an int64 tensor on the
+    engine's GPU (None on the CPU): a batch whose block ids stay on that
+    device is then scored by a gather and a sum there, and only the sum
+    comes back; numpy ids take the host gather.  Both are exact integer
+    sums.  Pickling drops the device copy (process shards score on the
+    host form).
     """
 
     per_leaf: np.ndarray  # (n_leaves,) int64 queries scanning each block
     n_queries: int
+    on_device: Optional[torch.Tensor] = dataclasses.field(
+        default=None, compare=False, repr=False
+    )
 
-    def observe(self, bids: np.ndarray) -> WindowStat:
-        """Eq. 1 partial for one routed batch."""
+    def __reduce__(self):
+        return (ObservationProbe, (self.per_leaf, self.n_queries))
+
+    def observe(self, bids) -> WindowStat:
+        """Eq. 1 partial for one routed batch (numpy ids or a tensor)."""
         m = int(bids.shape[0])
+        if isinstance(bids, torch.Tensor):
+            if self.on_device is None or self.on_device.device != bids.device:
+                raise ValueError(
+                    f"probe has no per-leaf counts on {bids.device}"
+                )
+            scanned = int(self.on_device.index_select(0, bids).sum())
+        else:
+            scanned = int(self.per_leaf[bids].sum())
         return WindowStat(
-            scanned_tuples=int(self.per_leaf[bids].sum()),
+            scanned_tuples=scanned,
             capacity=m * self.n_queries,
             n_records=m,
         )
@@ -200,13 +220,19 @@ class LayoutEngine:
         self,
         workload: qry.Workload | qry.WorkloadTensors,
         backend: Optional[str] = None,
+        track=None,  # service.tracker.WorkloadTracker | None
     ) -> list[np.ndarray]:
         """Per-query BID IN (...) lists for a whole workload (Sec 3.3).
 
         One tensorization and one ``query_hits`` dispatch serve every
-        query.
+        query.  ``track`` records each served query's canonical predicate
+        signature into the given
+        :class:`~repro_torch.service.tracker.WorkloadTracker` (host numpy:
+        no dispatch, no plan-cache traffic).
         """
         wt = self._tensorize(workload)
+        if track is not None:
+            track.record(workload, cuts=self.tree.cuts)
         hits = self.query_hits(wt, backend=backend)
         return [
             np.nonzero(hits[:, q])[0].astype(np.int32)
@@ -214,15 +240,18 @@ class LayoutEngine:
         ]
 
     def route_query(
-        self, query: qry.Query, backend: Optional[str] = None
+        self, query: qry.Query, backend: Optional[str] = None, track=None
     ) -> np.ndarray:
         """BID IN (...) list for one query — 1-query ``route_queries``.
 
         Dispatches like every other entry point (on the GPU: one
         ``query_intersect`` launch) and tensorizes directly, bypassing the
-        workload LRU.
+        workload LRU.  ``track`` records the query as ``route_queries``
+        does.
         """
         wl = qry.Workload(self.tree.schema, (query,))
+        if track is not None:
+            track.record(wl, cuts=self.tree.cuts)
         return self.route_queries(
             wl.tensorize(self.tree.cuts), backend=backend
         )[0]
@@ -309,13 +338,23 @@ class LayoutEngine:
         workload: "qry.Workload | qry.WorkloadTensors | ObservationProbe",
         backend: Optional[str] = None,
     ) -> ObservationProbe:
-        """Per-leaf hit counts for ``workload`` against the current layout."""
+        """Per-leaf hit counts for ``workload`` against the current layout,
+        on the host and, for an engine on a GPU, on its device too."""
         if isinstance(workload, ObservationProbe):
-            return workload
-        hits = self.query_hits(workload, backend=backend)
-        return ObservationProbe(
-            per_leaf=hits.sum(axis=1).astype(np.int64),
-            n_queries=int(hits.shape[1]),
+            probe = workload
+        else:
+            hits = self.query_hits(workload, backend=backend)
+            probe = ObservationProbe(
+                per_leaf=hits.sum(axis=1).astype(np.int64),
+                n_queries=int(hits.shape[1]),
+            )
+        if self.device.type != "cuda" or (
+            probe.on_device is not None
+            and probe.on_device.device == self.device
+        ):
+            return probe
+        return dataclasses.replace(
+            probe, on_device=torch.from_numpy(probe.per_leaf).to(self.device)
         )
 
     def ingest(
@@ -360,6 +399,9 @@ class LayoutEngine:
         sizes = None if tighten else np.zeros(self.tree.n_leaves, np.int64)
         use_fused = fused and tightener is not None
         need_bids = buffers is not None or probe is not None
+        # the ids stay on the device for a spill of tensor batches, and for
+        # an observation the probe scores there (only its sum comes back)
+        device_probe = probe is not None and probe.on_device is not None
         n_batches = n_records = 0
         t0 = time.perf_counter()
         acc = (
@@ -373,8 +415,9 @@ class LayoutEngine:
             if use_fused:
                 bids = acc.fold(
                     batch, return_bids=need_bids,
-                    on_device=(buffers is not None
-                               and not isinstance(batch, np.ndarray)),
+                    on_device=(device_probe and buffers is None) or (
+                        buffers is not None
+                        and not isinstance(batch, np.ndarray)),
                 )
             else:
                 bids = self.route(batch, backend=backend)
@@ -385,7 +428,7 @@ class LayoutEngine:
             if buffers is not None:
                 buffers.append(batch, bids)
             if probe is not None:
-                stat = probe.observe(be.as_host(bids))
+                stat = probe.observe(bids if device_probe else be.as_host(bids))
                 observed = observed.merge(stat)
                 if on_observation is not None:
                     on_observation(stat)

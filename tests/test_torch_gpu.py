@@ -585,3 +585,142 @@ def test_block_buffers_device_sort_matches_host():
         np.testing.assert_array_equal(buf.sizes, host.sizes)
         for b in range(frozen.n_leaves):
             np.testing.assert_array_equal(buf.block(b), host.block(b))
+
+
+def test_tree_env_cut_matrix_is_one_eval_cuts_launch():
+    """WOODBLOCK's env evaluates its sample's cut matrix in one
+    ``eval_cuts`` launch, bit for bit ``preds.eval_cuts``."""
+    from repro_torch.core.woodblock.env import TreeEnv
+    from repro_torch.kernels import _build
+
+    _cuda()
+    frozen, records, work = random_case(2, m=5000)
+    _build.reset_launch_counts()
+    env = TreeEnv(records, work, frozen.cuts, min_block_sample=50)
+    assert env.device.type == "cuda"
+    assert _build.launch_counts()["eval_cuts"] == 1
+    np.testing.assert_array_equal(env.cut_matrix,
+                                  preds.eval_cuts(records, frozen.cuts))
+
+
+def test_device_observation_probe_equals_host_probe():
+    """An engine on the card scores each observed batch on the device
+    (per-leaf counts as an int64 tensor, ids never copied back): every
+    WindowStat equals the host probe's over the numpy route."""
+    from repro_torch.engine import sharded
+
+    dev = _cuda()
+    frozen, records, work = random_case(4, m=20_000)
+    eng = LayoutEngine(_fresh(frozen))
+    probe = eng.observation_probe(work)
+    assert probe.on_device is not None and probe.on_device.device == dev
+    assert probe.on_device.dtype == torch.int64
+    rec = torch.from_numpy(records).to(dev)
+    seen = []
+    rep = eng.ingest(sharded.micro_batches(rec, 1111), observe=probe,
+                     on_observation=seen.append)
+    host = probe.per_leaf
+    want = [
+        (int(host[frozen.route(records[s:s + 1111])].sum()),
+         min(1111, records.shape[0] - s) * probe.n_queries)
+        for s in range(0, records.shape[0], 1111)
+    ]
+    assert [(w.scanned_tuples, w.capacity) for w in seen] == want
+    assert rep.observation.scanned_tuples == sum(w[0] for w in want)
+
+
+def test_release_during_thread_sharded_ingest_on_card(monkeypatch):
+    """A generation swapped out and released while its thread shards run
+    on their streams: the stale run's merged state equals the numpy
+    oracle's, and the new generation routes like numpy."""
+    import threading
+    import warnings
+
+    from repro_torch.core.qdtree import IncrementalTightener
+    from repro_torch.engine import sharded
+    from repro_torch.service import IngestOptions, LayoutBuild, LayoutService
+
+    dev = _cuda()
+    frozen, records, _ = random_case(6, m=40_000)
+    other, _, _ = random_case(7, m=40_000)
+    svc = LayoutService(_fresh(frozen))
+    old = svc.live_version()
+    rec = torch.from_numpy(records).to(dev)
+    svc.route(rec[:100])  # the old generation's plan exists
+    started, go = threading.Event(), threading.Event()
+    orig = sharded._run_shard
+
+    def gated(ingestor, batches):
+        started.set()
+        assert go.wait(30)
+        return orig(ingestor, batches)
+
+    monkeypatch.setattr(sharded, "_run_shard", gated)
+    out = []
+
+    def run():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", sharded.PerformanceWarning)
+            out.append(svc.ingest(
+                rec, IngestOptions(shards=4, executor="thread", batch=3001),
+                keep_state=True))
+
+    t = threading.Thread(target=run)
+    t.start()
+    assert started.wait(30)
+    svc.swap(LayoutBuild(tree=_fresh(other), bids=np.zeros(0, np.int32),
+                         strategy="adopted", build_s=0.0, metrics={},
+                         provenance={}))
+    assert svc.release(old.generation) > 0
+    go.set()
+    t.join(60)
+    (rep,) = out
+    assert rep.stale_generation and not rep.published
+    want = IncrementalTightener(frozen)
+    want.update(records, frozen.route(records))
+    for f in ("counts", "lo", "hi", "cat", "adv"):
+        np.testing.assert_array_equal(getattr(rep.state, f),
+                                      getattr(want, f), f)
+    np.testing.assert_array_equal(svc.route(rec), other.route(records))
+
+
+def test_ppo_update_on_card_matches_cpu():
+    """One PPO update and one sampling step of the WOODBLOCK net on the
+    card against the same on the CPU (float32, another summation order)."""
+    from repro_torch.core.woodblock import networks, ppo
+    from repro_torch.core.woodblock.env import Transition
+
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    feat, acts, n = 96, 40, 300
+    trans = [
+        Transition(state=rng.integers(0, 2, feat).astype(np.float32),
+                   legal=rng.random(acts) < 0.5, action=0,
+                   logp=float(-rng.random()), value=float(rng.random()),
+                   node_key=i, reward=float(rng.random()))
+        for i in range(n)
+    ]
+    for t in trans:
+        t.legal[0] = True
+    cpu = networks.make_net(feat, acts, torch.Generator().manual_seed(1))
+    card = networks.make_net(feat, acts, torch.Generator().manual_seed(1),
+                             device=dev)
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(cpu.named_parameters(),
+                                  card.named_parameters()):
+            b.copy_(a)
+    cfg = ppo.PPOConfig()
+    cpu, ocpu, _ = ppo.ppo_update(
+        cpu, ppo.adam_init(cpu), ppo.make_batch(trans, n, acts, feat), cfg)
+    card, ocard, _ = ppo.ppo_update(
+        card, ppo.adam_init(card),
+        ppo.make_batch(trans, n, acts, feat, device=dev), cfg)
+    for (k, a), (_, b) in zip(cpu.named_parameters(),
+                              card.named_parameters()):
+        np.testing.assert_allclose(b.detach().cpu().numpy(),
+                                   a.detach().numpy(), rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
+    batch = ppo.make_batch(trans, n, acts, feat, device=dev)
+    a, lp, v = ppo.policy_step(card, batch["states"], batch["legal"],
+                               torch.Generator(device=dev).manual_seed(3))
+    assert a.device == dev and batch["legal"][torch.arange(n), a].all()
