@@ -145,6 +145,7 @@ RANGE_COLUMN = 0  # l_shipdate: the range baseline's partitioning column
 BASELINE_ROUTE_ROWS = 1 << 16  # sample rows routed through each baseline
 BASELINE_TIMEOUT_S = 600  # the baselines' build, at most
 WOODBLOCK_BUDGET_S = 60  # build_layout(strategy="woodblock", time_budget_s)
+COPY_REPS = 3  # copies back of the env's matrix in each form, alternated
 # one PPO update on the card against the CPU: float32 sums in another
 # order, then one Adam step of at most lr = 3e-4 a parameter
 PPO_RTOL, PPO_ATOL = 1e-4, 1e-6
@@ -309,6 +310,20 @@ def traced_kernel_ms(fn, name: str, reps: int) -> float:
     return float(np.median(spans[name]))
 
 
+def traced_kernel_sample(fn, name: str, reps: int) -> dict:
+    """Device times of the kernel ``name`` over ``reps`` calls of ``fn``
+    under ``torch.profiler``, where the trace may drop some of its
+    events (it dropped seven of ten 0.1 ms ``eval_cuts`` kernels at the
+    env's shape on the H100): the median of those it kept and their
+    count.  The launches themselves are counted by the wrappers.  Fails
+    if it kept none, or shows another kernel of the repo."""
+    spans = traced_kernels(fn, reps)
+    require(set(spans) == {name} and 0 < len(spans[name]) <= reps,
+            f"the trace shows {({k: len(v) for k, v in spans.items()})} "
+            f"kernels for {reps} calls of {name}")
+    return {"ms": float(np.median(spans[name])), "events": len(spans[name])}
+
+
 def max_abs_err(got, want) -> float:
     """Largest |difference| over matching integer tensors (exact: 0.0)."""
     import torch
@@ -417,18 +432,23 @@ def route_forced(rec, ops, variant):
 
 def compare_kernels(tree, rec, wt, dev, ctx: str,
                     variants=VARIANTS) -> dict[str, float]:
-    """Each kernel against its plain version on the same inputs (exact);
-    ``route_descend`` (both kernels) also against the two-kernel form."""
+    """Each kernel against its plain version on the same inputs (exact):
+    both kernels of ``eval_cuts``, ``locate_leaf`` and ``route_descend``,
+    the last also against the two-kernel form."""
     from repro_torch.kernels import query_intersect as qk
     from repro_torch.kernels import route_records as rk
 
     ops = route_ops(tree, dev)
-    errs = {}
-    m_k = rk.eval_cuts(rec, ops)
-    errs["eval_cuts"] = max_abs_err([m_k], [rk.eval_cuts_plain(rec, ops)])
-    two_kernel = rk.locate_leaf(m_k, ops)
-    errs["locate_leaf"] = max_abs_err([two_kernel],
-                                      [rk.locate_leaf_plain(m_k, ops)])
+    errs = {"eval_cuts": 0.0, "locate_leaf": 0.0}
+    m_p = rk.eval_cuts_plain(rec, ops)
+    two_plain = rk.locate_leaf_plain(m_p, ops)
+    for v in VARIANTS:  # each kernel of the pair, forced
+        with rk._forced(v):
+            m_k = rk.eval_cuts(rec, ops)
+            two_kernel = rk.locate_leaf(m_k, ops)
+        errs["eval_cuts"] = max(errs["eval_cuts"], max_abs_err([m_k], [m_p]))
+        errs["locate_leaf"] = max(errs["locate_leaf"],
+                                  max_abs_err([two_kernel], [two_plain]))
     want = rk.route_plain(rec, ops)
     errs["route_descend"] = 0.0
     for v in VARIANTS:
@@ -508,6 +528,40 @@ def leaf_depths(tree) -> np.ndarray:
     leaf = tree.leaf_bid >= 0
     out[tree.leaf_bid[leaf]] = depth[leaf]
     return out
+
+
+def leaf_paths(tree) -> np.ndarray:
+    """(n_leaves, depth) the cut ids on each leaf's root path, -1 past its
+    end."""
+    out = np.full((tree.n_leaves, max(tree.depth, 1)), -1, np.int64)
+    paths = {0: []}
+    for node in range(tree.n_nodes):  # BFS order: parents come first
+        path = paths.pop(node)
+        if tree.cut_id[node] >= 0:
+            path = path + [int(tree.cut_id[node])]
+            paths[int(tree.left[node])] = paths[int(tree.right[node])] = path
+        else:
+            out[tree.leaf_bid[node], :len(path)] = path
+    return out
+
+
+def path_sectors(tree, bids: np.ndarray, chunk: int = 1 << 18) -> int:
+    """Distinct 32-byte sectors of the (m, n_cuts) uint8 predicate matrix
+    that the rows' root paths read (row r, leaf ``bids[r]``): the least a
+    descent over the matrix reads, since the card reads whole sectors."""
+    paths, n_cuts, m = leaf_paths(tree), tree.cuts.n_cuts, bids.shape[0]
+    seen = np.zeros((m * n_cuts + 31) // 32, bool)
+    for s in range(0, m, chunk):
+        p = paths[bids[s:s + chunk]]
+        base = np.arange(s, s + p.shape[0], dtype=np.int64)[:, None] * n_cuts
+        seen[((base + p) >> 5)[p >= 0]] = True
+    return int(seen.sum())
+
+
+def eval_table_bytes(ops) -> int:
+    """What eval_cuts reads of its operands: the packed cuts and in_mask."""
+    return sum(int(ops[k].numel() * ops[k].element_size())
+               for k in ("cut_pack", "in_mask"))
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -978,6 +1032,76 @@ def d2h_copies(prof) -> list:
     ]
 
 
+def env_split(sample, work, cuts, dev) -> tuple:
+    """``TreeEnv``'s set-up in its parts, each on the host clock around
+    work that ends in a sync (ms), before this slice and after it.
+    Before: the check and the upload of the strided 1% sample (the upload
+    gathers it), and the copy back of the matrix into pageable memory
+    (``.cpu()``).  After: one gather of the sample, the check and upload
+    of the contiguous copy, and the copy back into pinned memory
+    (``env.to_host``).  Both: the operands' packing and upload, the kernel
+    with its launch, ``workload.tensorize`` and the featurizer.  The two
+    copies back each go into a fresh allocation, the forms alternated
+    COPY_REPS times; one more pinned copy goes into a block the host
+    allocator reuses.  ``before_ms`` and ``after_ms`` sum the parts, with
+    the median copy of each form.  Returns the parts, and the uploaded
+    sample and operands."""
+    import torch
+
+    from repro_torch.core.woodblock import env as wenv
+    from repro_torch.core.woodblock.featurize import Featurizer
+    from repro_torch.engine import plan as tplan
+    from repro_torch.kernels import route_records as rk
+
+    def part(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def upload(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    out = {}
+    _, out["validate_strided_ms"] = part(
+        lambda: work.schema.validate_records(sample))
+    _, out["upload_strided_ms"] = part(lambda: upload(sample))
+    flat, out["gather_ms"] = part(lambda: np.ascontiguousarray(sample))
+    _, out["validate_ms"] = part(lambda: work.schema.validate_records(flat))
+    rec, out["upload_ms"] = part(lambda: upload(flat))
+    ops, out["upload_operands_ms"] = part(
+        lambda: tplan.to_device(tplan.pack_cut_table(cuts), dev))
+    mat, out["kernel_ms"] = part(lambda: rk.eval_cuts(rec, ops).view(
+        torch.bool))
+    forms = {"pageable": lambda: mat.cpu().numpy(),
+             "pinned": lambda: wenv.to_host(mat)}
+    copies, held = {"pageable": [], "pinned": []}, []
+    for i in range(COPY_REPS):
+        for form in ("pageable", "pinned")[::1 if i % 2 == 0 else -1]:
+            h, t = part(forms[form])
+            held.append(h)
+            copies[form].append(t)
+    require(all(np.array_equal(h, held[0]) for h in held[1:]),
+            "the copies back differ")
+    del held
+    _, out["copy_pinned_reused_ms"] = part(forms["pinned"])
+    _, out["tensorize_ms"] = part(lambda: work.tensorize(cuts))
+    _, out["featurizer_ms"] = part(lambda: Featurizer(work.schema,
+                                                      cuts.n_adv))
+    out["copy_pageable_ms"] = copies["pageable"]
+    out["copy_pinned_ms"] = copies["pinned"]
+    both = (out["upload_operands_ms"] + out["kernel_ms"]
+            + out["tensorize_ms"] + out["featurizer_ms"])
+    out["before_ms"] = (both + out["validate_strided_ms"]
+                        + out["upload_strided_ms"]
+                        + float(np.median(copies["pageable"])))
+    out["after_ms"] = (both + out["gather_ms"] + out["validate_ms"]
+                       + out["upload_ms"]
+                       + float(np.median(copies["pinned"])))
+    return out, rec, ops
+
+
 def woodblock_phase(ctx, counted) -> dict:
     """WOODBLOCK on the greedy tree's 1% sample: ``TreeEnv``'s cut matrix
     (one ``eval_cuts`` launch, equal to ``preds.eval_cuts`` on the host),
@@ -990,7 +1114,6 @@ def woodblock_phase(ctx, counted) -> dict:
     import torch
 
     from repro_torch.core import predicates as preds
-    from repro_torch.core.routing import cut_table_arrays
     from repro_torch.core.woodblock import agent, ppo
     from repro_torch.core.woodblock.env import TreeEnv
     from repro_torch.engine import LayoutEngine
@@ -1012,22 +1135,24 @@ def woodblock_phase(ctx, counted) -> dict:
     require(np.array_equal(env.cut_matrix, preds.eval_cuts(sample, cuts)),
             "TreeEnv's cut matrix differs from preds.eval_cuts")
     host_eval_s = time.perf_counter() - t0
-    # the kernel at the env's shape: against its plain version, timed
-    ops = tplan.to_device(cut_table_arrays(cuts), dev)
-    rec = torch.from_numpy(sample).to(dev)
+    # the env's set-up in its parts; the kernel at the env's shape against
+    # its plain version, timed, and alone in a trace
+    split, rec, ops = env_split(sample, work, cuts, dev)
     err = max_abs_err([rk.eval_cuts(rec, ops)], [rk.eval_cuts_plain(rec,
                                                                     ops)])
     require(err == 0.0, f"eval_cuts differs from its plain version by {err}")
     ms, plain_ms = (time_ms(lambda: rk.eval_cuts(rec, ops), 20),
                     time_ms(lambda: rk.eval_cuts_plain(rec, ops), 3))
+    trace = traced_kernel_sample(lambda: rk.eval_cuts(rec, ops), "eval_cuts",
+                                 LAT_REPS)
+    trace_ms = trace["ms"]
     m, d = sample.shape
-    table = sum(int(v.numel() * v.element_size()) for v in ops.values()
-                if isinstance(v, torch.Tensor))
-    bound_ms, bound_by = bound(m * d * 4 + table + m * cuts.n_cuts,
-                               m * cuts.n_cuts)
+    bound_ms, bound_by = bound(m * d * 4 + eval_table_bytes(ops)
+                               + m * cuts.n_cuts, m * cuts.n_cuts)
     log(f"TreeEnv on {m} rows x {cuts.n_cuts} cuts: one eval_cuts launch, "
-        f"equal to preds.eval_cuts; kernel {ms:.6f} ms (bound {bound_ms:.6f}"
-        f" ms, {bound_by}), plain {plain_ms:.6f} ms")
+        f"equal to preds.eval_cuts; kernel {ms:.6f} ms, {trace_ms:.6f} in a "
+        f"trace (bound {bound_ms:.6f} ms, {bound_by}), plain {plain_ms:.6f} "
+        f"ms; set-up {env_s * 1e3:.3f} ms, split {split}")
 
     # the agent, timed where it syncs: a policy step per tree level (states
     # in, actions out) and each PPO update; the last update's inputs kept
@@ -1103,8 +1228,11 @@ def woodblock_phase(ctx, counted) -> dict:
     out = {
         "sample_rows": m, "cuts": cuts.n_cuts, "env_s": env_s,
         "host_eval_cuts_s": host_eval_s,
-        "eval_cuts": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "max_abs_err": err},
+        "eval_cuts": {"ms": ms, "trace_ms": trace_ms,
+                      "trace_events": trace["events"], "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "max_abs_err": err},
+        "env_split_ms": split,
         "budget_s": WOODBLOCK_BUDGET_S, "build_s": build.build_s,
         "episodes": n_ep, "episodes_per_s": n_ep / build.build_s,
         "policy_steps": len(policy_ms),
@@ -1891,6 +2019,11 @@ def run(args, dev, torch, pool, fine_job) -> int:
     torch.cuda.synchronize()
     plan_keys = ("kernel", "warps", "smem_bytes", "most_blocks")
     shared_plan = dict(zip(plan_keys, acc_s._launch))
+    # eval_cuts and locate_leaf alone in a trace, at the main path's shapes
+    eval_trace = traced_kernel_sample(lambda: rk.eval_cuts(x, ops),
+                                      "eval_cuts", LAT_REPS)
+    locate_trace = traced_kernel_sample(lambda: rk.locate_leaf(m_mat, ops),
+                                        "locate_leaf", LAT_REPS)
     # the query kernel's own device time, without the wrapper's host side
     q_kernel_ms = traced_kernel_ms(
         lambda: qk.query_intersect(leaf, conj, layout), "query_intersect",
@@ -1968,18 +2101,18 @@ def run(args, dev, torch, pool, fine_job) -> int:
     # -- bounds from this run's inputs ---------------------------------------
     m, d = x.shape
     C, L, bits = cuts.n_cuts, tree.n_leaves, int(ops["bits"])
-    table = sum(int(v.numel() * v.element_size()) for k, v in ops.items()
-                if k in ("kind", "dim", "cutpoint", "in_mask", "cat_off",
-                         "adv", "adv_id"))
     nodes = 4 * 4 * tree.n_nodes
     path = int(leaf_depths(tree)[route_bids].sum())  # cuts read on descent
+    # the sectors of the predicate matrix the rows' paths read
+    sectors = path_sectors(tree, route_bids)
     nq = wt.n_conjuncts
     n_num = int(layout["num_dims"].shape[0])
     n_ent, aw = int(layout["seg_word"].shape[0]), int(layout["aw"])
     kl, kc = int(leaf["desc"].shape[1]), int(conj["desc"].shape[1])
     bounds_ms = {
-        "eval_cuts": bound(m * d * 4 + table + m * C, m * C),
-        "locate_leaf": bound(path + nodes + m * 4, path),
+        "eval_cuts": bound(m * d * 4 + eval_table_bytes(ops) + m * C,
+                           m * C),
+        "locate_leaf": bound(32 * sectors + nodes + m * 4, path),
         "route_descend": bound(
             m * d * 4 + nodes + int(ops["in_mask"].numel()) + m * 4, path),
         "fused_ingest_shared": fused_bound(tree, ops, route_bids, m, d),
@@ -1992,6 +2125,8 @@ def run(args, dev, torch, pool, fine_job) -> int:
     # eval_cuts at the shape its counted path (WOODBLOCK's env) gives it
     wb_eval = woodblock["eval_cuts"]
     eval_cuts_batch = {"ms": times["eval_cuts"][0],
+                       "trace_ms": eval_trace["ms"],
+                       "trace_events": eval_trace["events"],
                        "plain_ms": times["eval_cuts"][1],
                        "bound_ms": bounds_ms["eval_cuts"][0],
                        "max_abs_err": errs["eval_cuts"]}
@@ -2037,6 +2172,10 @@ def run(args, dev, torch, pool, fine_job) -> int:
         "route_global_on_main_layout_ms": route_global_on_main_ms,
         "route_descend_fine_ms": route_fine_ms,
         "eval_cuts_batch": eval_cuts_batch,
+        "locate_leaf_trace": locate_trace,
+        "locate_leaf_path_sectors": sectors,
+        "eval_cuts_plan": dict(zip(plan_keys, rk.eval_cuts_plan(ops))),
+        "locate_leaf_plan": dict(zip(plan_keys, rk.locate_leaf_plan(ops))),
         "fused_fold_host_ms": fold_host_ms,
         "fused_shared_plan": shared_plan,
         "query_intersect_kernel_ms": q_kernel_ms,

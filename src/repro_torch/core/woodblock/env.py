@@ -8,9 +8,9 @@ complete qd-tree; rewards are computed afterwards (Sec 5.2.2).
 
 The sample's (m, n_cuts) cut matrix is evaluated once, at construction: on
 a GPU by one launch of the ``eval_cuts`` kernel
-(``kernels/route_records.py``, ``csrc/eval_cuts.cu``), copied back once;
-with ``device="cpu"`` by its plain PyTorch version.  Episodes are host
-numpy over that matrix.
+(``kernels/route_records.py``, ``csrc/eval_cuts.cu``), copied back once
+into pinned memory; with ``device="cpu"`` by its plain PyTorch version.
+Episodes are host numpy over that matrix.
 """
 
 from __future__ import annotations
@@ -24,22 +24,33 @@ from repro_torch.core import predicates as preds
 from repro_torch.core import query as qry
 from repro_torch.core import rewards as rw
 from repro_torch.core.qdtree import Node, QdTree, singleton_tree
-from repro_torch.core.routing import cut_table_arrays
 from repro_torch.core.woodblock.featurize import Featurizer
 from repro_torch.engine import plan as planlib
 from repro_torch.kernels import route_records as rk
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array.  A CUDA tensor comes back by one copy into a
+    fresh pinned host tensor, on the current stream, then a sync of that
+    stream; the array's base keeps the pinned tensor alive."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host.numpy()
 
 
 def cut_matrix(
     sample: np.ndarray, cuts: preds.CutTable, device: torch.device
 ) -> np.ndarray:
     """(m, n_cuts) bool: ``preds.eval_cuts`` by one ``eval_cuts`` launch on
-    a GPU device (the plain version on the CPU), copied back once.  The
-    operands are the cut table's arrays, as ``plan.pack_route_constants``
-    packs a tree's."""
-    ops = planlib.to_device(cut_table_arrays(cuts), device)
+    a GPU device (the plain version on the CPU), copied back once
+    (:func:`to_host`).  The operands are ``plan.pack_cut_table``'s, as
+    ``plan.pack_route_constants`` packs a tree's."""
+    ops = planlib.to_device(planlib.pack_cut_table(cuts), device)
     rec = torch.from_numpy(np.ascontiguousarray(sample, np.int32)).to(device)
-    return rk.eval_cuts(rec, ops).view(torch.bool).cpu().numpy()
+    return to_host(rk.eval_cuts(rec, ops).view(torch.bool))
 
 
 @dataclasses.dataclass
@@ -75,6 +86,9 @@ class TreeEnv:
     ):
         self.device = planlib.resolve_device(device)
         self.schema = workload.schema
+        # one gather of a strided sample (a view such as records[::100]),
+        # so the check, the upload and the episodes read contiguous rows
+        sample = np.ascontiguousarray(sample)
         self.schema.validate_records(sample)
         self.sample = sample
         self.workload = workload

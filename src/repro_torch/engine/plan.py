@@ -249,70 +249,86 @@ def path_matrices(tree: FrozenQdTree) -> tuple[np.ndarray, np.ndarray]:
     return pos, neg
 
 
-def pack_nodes(tree: FrozenQdTree) -> np.ndarray:
-    """(n_nodes, 4) int32: each node, its cut included, as one 16-byte load.
+def pack_cuts(cuts: CutTable) -> np.ndarray:
+    """(n_cuts, 2) int32: each cut as ``(meta, w)``, one 8-byte load.
 
-    ``(meta, left, right, w)``; a leaf is ``(0, block id, -1, 0)``.  The
-    cut's kind sits in ``meta``'s top two bits and a column in its low 12:
+    The cut's kind sits in ``meta``'s top two bits and a column in its low
+    12:
 
     * range: ``meta = dim``, ``w`` the cutpoint (``rec[dim] < w``);
     * IN: ``meta = 1 << 30 | cat_off[dim] << 12 | dim``, ``w`` the cut's
       first byte in ``in_mask`` (``c * bits``);
-    * advanced: ``meta = 2 << 30 | op << 24 | col_b << 12 | col_a``.
+    * advanced: ``meta = 2 << 30 | op << 24 | col_b << 12 | col_a``,
+      ``w = 0``.
 
-    So a descent reads no cut table but ``in_mask``.  Raises when a column
-    index, a bit offset or an in_mask offset does not fit its field.
+    So a kernel reads no cut table but this and ``in_mask``
+    (``csrc/descend.cuh::packed_cut``).  Raises when a column index, a bit
+    offset or an in_mask offset does not fit its field.
     """
-    cuts = tree.cuts
     ca = cut_table_arrays(cuts)
     bits = int(ca["in_mask"].shape[1])
-    c = tree.cut_id.astype(np.int64)
-    internal = c >= 0
-    cc = np.where(internal, c, cuts.n_cuts)  # leaves read a dummy cut
-
-    def per_cut(a):
-        return np.append(np.asarray(a, np.int64), 0)[cc]
-
-    kind, dim = per_cut(ca["kind"]), per_cut(ca["dim"])
-    adv = np.concatenate([ca["adv"].astype(np.int64), np.zeros((1, 3),
-                                                               np.int64)])
-    a = adv[np.where(kind == KIND_ADV, per_cut(ca["adv_id"]), -1)]
+    kind, dim = ca["kind"].astype(np.int64), ca["dim"].astype(np.int64)
+    c = np.arange(kind.shape[0], dtype=np.int64)
+    adv = np.concatenate([ca["adv"].astype(np.int64),
+                          np.zeros((1, 3), np.int64)])
+    a = adv[np.where(kind == KIND_ADV, ca["adv_id"], -1)]  # others: zeros
     col_a, op, col_b = a[:, 0], a[:, 1], a[:, 2]
     off = ca["cat_off"].astype(np.int64)[dim]
     fields = ((dim, 1 << 12), (col_a, 1 << 12), (col_b, 1 << 12),
-              (off, 1 << 18), (op, 1 << 6), (cc * bits, 1 << 31))
-    if any(((v[internal] < 0) | (v[internal] >= top)).any()
-           for v, top in fields):
-        raise ValueError("a cut does not fit the packed node format")
+              (off, 1 << 18), (op, 1 << 6), (c * bits, 1 << 31))
+    if any(((v < 0) | (v >= top)).any() for v, top in fields):
+        raise ValueError("a cut does not fit the packed cut format")
     meta = np.select(
         [kind == KIND_RANGE, kind == KIND_ADV],
         [dim, 2 << 30 | op << 24 | col_b << 12 | col_a],
         1 << 30 | off << 12 | dim,
     )
-    w = np.where(kind == KIND_RANGE, per_cut(ca["cutpoint"]),
-                 np.where(kind == KIND_ADV, 0, cc * bits))
+    w = np.where(kind == KIND_RANGE, ca["cutpoint"],
+                 np.where(kind == KIND_ADV, 0, c * bits))
+    # meta's top bit makes advanced cuts negative as int32: wrap, not clip
+    packed = np.stack([meta, w], axis=1).astype(np.uint32).view(np.int32)
+    return np.ascontiguousarray(packed)
+
+
+def pack_cut_table(cuts: CutTable) -> dict:
+    """The operands of ``eval_cuts`` (numpy, host): the cut table's arrays
+    (:func:`~repro_torch.core.routing.cut_table_arrays`, which the plain
+    version reads) and ``cut_pack`` (:func:`pack_cuts`, which the kernel
+    reads beside ``in_mask``)."""
+    return {**cut_table_arrays(cuts), "cut_pack": pack_cuts(cuts)}
+
+
+def pack_nodes(tree: FrozenQdTree) -> np.ndarray:
+    """(n_nodes, 4) int32: each node, its cut included, as one 16-byte load.
+
+    ``(meta, left, right, w)``, with ``(meta, w)`` the node's cut as
+    :func:`pack_cuts` packs it; a leaf is ``(0, block id, -1, 0)``.  So a
+    descent reads no cut table but ``in_mask``.  Raises as
+    :func:`pack_cuts` does.
+    """
+    cut = np.concatenate([pack_cuts(tree.cuts), np.zeros((1, 2), np.int32)])
+    internal = tree.cut_id >= 0
+    mw = cut[np.where(internal, tree.cut_id, -1)]  # leaves read the zeros
     out = np.stack([
-        np.where(internal, meta, 0),
+        mw[:, 0],
         np.where(internal, tree.left, tree.leaf_bid),
         np.where(internal, tree.right, -1),
-        np.where(internal, w, 0),
+        mw[:, 1],
     ], axis=1)
-    # meta's top bit makes advanced nodes negative as int32: wrap, not clip
-    return np.ascontiguousarray(out.astype(np.uint32).view(np.int32))
+    return np.ascontiguousarray(out.astype(np.int32))
 
 
 def pack_route_constants(tree: FrozenQdTree) -> dict:
     """Operands of the route and ingest kernels (numpy, host).
 
-    The cut table (:func:`~repro_torch.core.routing.cut_table_arrays`), the
-    node arrays the kernels descend (``nodes`` packed for the ingest
-    kernels), the path matrices the plain ``locate_leaf`` uses, the
-    categorical dims whose presence bits ingest sets, and the integer
-    sizes: ``cw``/``aw`` are the 32-bit words a leaf's categorical and
-    advanced-cut bits take.
+    The cut table (:func:`pack_cut_table`), the node arrays the kernels
+    descend (``nodes`` packed for the ingest kernels), the path matrices
+    the plain ``locate_leaf`` uses, the categorical dims whose presence
+    bits ingest sets, and the integer sizes: ``cw``/``aw`` are the 32-bit
+    words a leaf's categorical and advanced-cut bits take.
     """
     schema = tree.schema
-    out: dict = dict(cut_table_arrays(tree.cuts))
+    out = pack_cut_table(tree.cuts)
     pos, neg = path_matrices(tree)
     bits = int(out["in_mask"].shape[1])
     out.update(

@@ -45,8 +45,18 @@ I64 = ctypes.c_int64
 
 # argument types of each <name>_launch, in order (csrc/*.cu)
 _ARGTYPES = {
-    "eval_cuts": [P, I64, I32, P, P, P, P, I32, I32, P, P, P, P, P],
-    "locate_leaf": [P, I64, I32, P, P, P, P, I32, P, P],
+    "eval_cuts": [
+        P, I64, I32, P, I32,  # records, packed cuts
+        P, I32, P,  # in_mask, bits, out
+        I32, I32, I32, I32,  # the plan: kernel, warps, smem, most blocks
+        P,  # stream
+    ],
+    "locate_leaf": [
+        P, I64, I32,  # predicate matrix
+        P, P, P, P, I32, I32, P,  # node arrays, nodes, depth, bids
+        I32, I32, I32, I32,  # the plan: kernel, warps, smem, most blocks
+        P,  # stream
+    ],
     "route_descend": [
         P, I64, I32, P, I32, I32,  # records, nodes, depth
         P, I32, P,  # in_mask, bits, bids
@@ -71,6 +81,12 @@ _ARGTYPES = {
 
 # argument types of the other entry points a library has
 _EXTRA = {
+    "eval_cuts": {
+        "eval_cuts_plan": [I32] * 4 + [ctypes.POINTER(I32)],  # plan
+    },
+    "locate_leaf": {
+        "locate_leaf_plan": [I32] * 3 + [ctypes.POINTER(I32)],  # plan
+    },
     "route_descend": {
         "route_descend_plan": [I32] * 3 + [ctypes.POINTER(I32)],  # plan
     },

@@ -1,5 +1,6 @@
-// Shared device helpers for the qd-tree kernels: one candidate cut on one
-// record, over int32 dictionary codes with integer compares.
+// Shared helpers for the qd-tree kernels: the cut kinds, an advanced
+// cut's compare over int32 dictionary codes, a grid size, and the launch
+// plan of a persistent kernel with a shared-memory tile a warp.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -8,20 +9,7 @@
 // Cut kinds (core/predicates.py).
 #define KIND_RANGE 0
 #define KIND_IN 1
-
-// The shared candidate-cut table in struct-of-arrays form, as packed by
-// core/routing.py::cut_table_arrays.  All arrays live on the device.
-struct CutTable {
-  const int32_t* kind;      // (n_cuts,)
-  const int32_t* dim;       // (n_cuts,) column of range/IN cuts
-  const int32_t* cutpoint;  // (n_cuts,) range cut: rec[dim] < cutpoint
-  const uint8_t* in_mask;   // (n_cuts, bits) IN membership over the bit space
-  const int32_t* cat_off;   // (D,) categorical bit offset per column
-  const int32_t* adv;       // (A, 3) rows (col_a, op, col_b)
-  const int32_t* adv_id;    // (n_cuts,) advanced predicate of an adv cut
-  int n_cuts;
-  int bits;
-};
+#define KIND_ADV 2
 
 // col_a op col_b; ops 0-4 are <, <=, >, >=, ==, anything else is !=.
 __device__ __forceinline__ bool adv_true(int op, int32_t va, int32_t vb) {
@@ -35,21 +23,6 @@ __device__ __forceinline__ bool adv_true(int op, int32_t va, int32_t vb) {
   }
 }
 
-// Does record `rec` (a row of D codes) satisfy cut c?
-__device__ __forceinline__ bool eval_cut(const int32_t* __restrict__ rec,
-                                         int c, const CutTable& t) {
-  const int kind = t.kind[c];
-  if (kind == KIND_RANGE) return rec[t.dim[c]] < t.cutpoint[c];
-  if (kind == KIND_IN) {
-    const int d = t.dim[c];
-    int pos = rec[d] + t.cat_off[d];
-    pos = min(max(pos, 0), t.bits - 1);  // same clip as the plain version
-    return t.in_mask[(int64_t)c * t.bits + pos] != 0;
-  }
-  const int32_t* a = t.adv + 3 * t.adv_id[c];
-  return adv_true(a[1], rec[a[0]], rec[a[2]]);
-}
-
 // Grid size for a grid-stride loop over n items: enough blocks to fill
 // the card, never more than the items need.
 __host__ __forceinline__ unsigned grid_for(int64_t n, int threads) {
@@ -58,4 +31,64 @@ __host__ __forceinline__ unsigned grid_for(int64_t n, int threads) {
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
   return (unsigned)blocks;
+}
+
+// The launch plan of a persistent kernel whose block holds `fixed` bytes of
+// dynamic shared memory plus `per_warp` bytes a warp, made once a shape:
+// plan = {kernel, warps a block, dynamic shared bytes, most blocks
+// resident on the card}.  variant: 0 chooses by shape (1, the shared
+// kernel, iff `min_warps` warps fit beside `fixed`; else 2, the global
+// kernel, at 256 threads a block), 1 or 2 forces one.  The shared kernel
+// takes the warps a block (at most `max_warps`) that put the most warps
+// on an SM, the larger on a tie.  Returns a cudaError_t: a shared-memory
+// request the card refuses is returned, never worked around.
+static inline int plan_shared(const void* kernel, long long fixed,
+                              long long per_warp, int min_warps,
+                              int max_warps, int variant, int* plan) {
+  int dev = 0, optin = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (!err)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (!err)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err) return (int)err;
+
+  if (variant == 0) variant = fixed + min_warps * per_warp <= optin ? 1 : 2;
+  plan[0] = variant;
+  plan[1] = 8;  // global kernel: 256 threads a block
+  plan[2] = 0;
+  plan[3] = 0;
+  if (variant != 1) return 0;
+
+  // The kernel's limit is raised to all the card offers, so that a plan
+  // for a small shape never lowers what a larger shape's launches need; a
+  // request past it (one warp that does not fit) goes to CUDA, which
+  // refuses it.
+  long long smem = fixed + per_warp;
+  const long long limit = smem > optin ? smem : optin;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(limit > INT32_MAX ? INT32_MAX : limit));
+  int warps = 1, per_sm = 0;
+  for (int w = max_warps; w >= 1 && !err; --w) {
+    const long long bytes = fixed + w * per_warp;
+    if (bytes > optin) continue;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        w * 32, (size_t)bytes);
+    if (!err && w * blocks > warps * per_sm) {
+      warps = w;
+      per_sm = blocks;
+      smem = bytes;
+    }
+  }
+  if (err) {
+    cudaGetLastError();  // clear it: the next launch must not see it
+    return (int)err;
+  }
+  plan[1] = warps;
+  plan[2] = (int)smem;
+  plan[3] = sms * (per_sm > 0 ? per_sm : 1);
+  return 0;
 }

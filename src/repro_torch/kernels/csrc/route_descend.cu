@@ -102,62 +102,13 @@ __global__ void route_descend_global(Route r) {
 }  // namespace
 
 // The launch plan of a tree, made once a shape (kernels/route_records.py
-// keeps it): plan = {kernel, warps a block, dynamic shared bytes, most
-// blocks resident on the card}.  variant: 0 chooses by shape, 1 forces the
-// shared kernel, 2 the global one.  The shared kernel takes the warps a
-// block (at most 32) that put the most warps on an SM, the larger on a
-// tie.  Returns a cudaError_t: a shared-memory request the card refuses is
-// returned, never worked around.
+// keeps it): common.cuh::plan_shared over the packed nodes and a warp's
+// tile of 32 records.  variant: 0 chooses by shape, 1 forces the shared
+// kernel, 2 the global one.
 extern "C" int route_descend_plan(int n_nodes, int d, int variant,
                                   int* plan) {
-  int dev = 0, optin = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (!err)
-    err = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (!err)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err) return (int)err;
-
-  const long long nodes = 16LL * n_nodes;
-  const long long tile = 4LL * 32 * d;
-  if (variant == 0) variant = nodes + kMinWarps * tile <= optin ? 1 : 2;
-  plan[0] = variant;
-  plan[1] = 8;  // global kernel: 256 threads a block
-  plan[2] = 0;
-  plan[3] = 0;
-  if (variant != 1) return 0;
-
-  // The kernel's limit is raised to all the card offers, so that a plan
-  // for a small tree never lowers what a larger tree's launches need; a
-  // request past it (one warp that does not fit) goes to CUDA, which
-  // refuses it.
-  long long smem = nodes + tile;
-  const long long limit = smem > optin ? smem : optin;
-  err = cudaFuncSetAttribute(route_descend_shared,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)(limit > INT32_MAX ? INT32_MAX : limit));
-  int warps = 1, per_sm = 0;
-  for (int w = kMaxWarps; w >= 1 && !err; --w) {
-    const long long bytes = nodes + w * tile;
-    if (bytes > optin) continue;
-    int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, route_descend_shared, w * 32, (size_t)bytes);
-    if (!err && w * blocks > warps * per_sm) {
-      warps = w;
-      per_sm = blocks;
-      smem = bytes;
-    }
-  }
-  if (err) {
-    cudaGetLastError();  // clear it: the next launch must not see it
-    return (int)err;
-  }
-  plan[1] = warps;
-  plan[2] = (int)smem;
-  plan[3] = sms * (per_sm > 0 ? per_sm : 1);
-  return 0;
+  return plan_shared((const void*)route_descend_shared, 16LL * n_nodes,
+                     4LL * 32 * d, kMinWarps, kMaxWarps, variant, plan);
 }
 
 // One batch, by the plan route_descend_plan made: no host query of the

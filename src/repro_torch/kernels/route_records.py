@@ -6,14 +6,17 @@
 no predicate matrix is built.  ``eval_cuts`` (the predicate matrix) and
 ``locate_leaf`` (block ids from it) are the port's counterparts of the
 reference's two Pallas kernels, whose composition ``route`` computes;
-its plain version is that composition.  Each function has a CUDA kernel
-and a plain PyTorch version beside it.  The wrapper launches the kernel
-for a CUDA tensor and raises if the launch fails; it takes the plain
-version only for a tensor on the CPU.
+its plain version is that composition.  Each function has two CUDA
+kernels, one that stages its tiles in shared memory and one that reads
+global memory, chosen by shape in a launch plan made once a shape, and a
+plain PyTorch version beside them.  The wrapper launches a kernel for a
+CUDA tensor and raises if the launch fails; it takes the plain version
+only for a tensor on the CPU.
 
 ``ops`` is the dict of route operands from
 :func:`repro_torch.engine.plan.pack_route_constants`, uploaded to the
-records' device (:func:`repro_torch.engine.plan.to_device`).
+records' device (:func:`repro_torch.engine.plan.to_device`);
+``eval_cuts`` needs only :func:`repro_torch.engine.plan.pack_cut_table`.
 """
 
 from __future__ import annotations
@@ -67,6 +70,39 @@ def _require_records(records: torch.Tensor, ops: dict, name: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# launch plans: the kernel of each function is chosen by shape
+# ---------------------------------------------------------------------------
+# the ``variant`` argument of the plan functions; each function's two
+# kernels move its one launch counter
+VARIANTS = {None: 0, "shared": 1, "global": 2}
+
+# The kernel that plans made under :func:`_forced` take; None chooses by
+# shape.  For tests and measurement only.
+_FORCED: Optional[str] = None
+
+
+@contextlib.contextmanager
+def _forced(variant: Optional[str]):
+    """Plans made inside take ``variant`` ("shared" or "global"); forcing
+    the shared kernel on a shape too large for it raises."""
+    global _FORCED
+    before, _FORCED = _FORCED, variant
+    try:
+        yield
+    finally:
+        _FORCED = before
+
+
+def _plan(name: str, t: torch.Tensor, *shape: int) -> tuple:
+    """``<name>_plan``'s launch plan for ``shape`` on ``t``'s CUDA device:
+    (kernel, warps a block, shared bytes, most blocks), made once a shape
+    and variant (:func:`repro_torch.kernels._build.plan`)."""
+    index = torch.cuda.current_device() if t.device.index is None \
+        else t.device.index
+    return _build.plan(name, index, *shape, VARIANTS[_FORCED])
+
+
+# ---------------------------------------------------------------------------
 # eval_cuts
 # ---------------------------------------------------------------------------
 def eval_cuts_plain(records: torch.Tensor, ops: dict) -> torch.Tensor:
@@ -74,22 +110,30 @@ def eval_cuts_plain(records: torch.Tensor, ops: dict) -> torch.Tensor:
     return eval_cuts_torch(records, ops)
 
 
+def eval_cuts_plan(ops: dict) -> tuple:
+    """eval_cuts's launch plan for the cut table of ``ops`` (on a CUDA
+    device), by its cut count, the records' width and the IN bits."""
+    return _plan("eval_cuts", ops["cut_pack"], int(ops["cut_pack"].shape[0]),
+                 int(ops["cat_off"].shape[0]), int(ops["in_mask"].shape[1]))
+
+
 def eval_cuts(records: torch.Tensor, ops: dict) -> torch.Tensor:
-    """(m, n_cuts) uint8: 1 iff record r satisfies cut c."""
+    """(m, n_cuts) uint8: 1 iff record r satisfies cut c.  On a CUDA
+    tensor one ``eval_cuts`` launch over ``ops["cut_pack"]`` and
+    ``ops["in_mask"]``."""
     if not _kernel_device(records, "eval_cuts"):
         return eval_cuts_plain(records, ops)
     _require_records(records, ops, "eval_cuts")
     m, d = records.shape
-    n_cuts = int(ops["kind"].shape[0])
+    n_cuts = int(ops["cut_pack"].shape[0])
     out = torch.empty((m, n_cuts), dtype=torch.uint8, device=records.device)
     if m == 0 or n_cuts == 0:
         return out
     fn = _build.library("eval_cuts").eval_cuts_launch
     p = _build.ptr
     rc = fn(
-        p(records), m, d, p(ops["kind"]), p(ops["dim"]), p(ops["cutpoint"]),
-        p(ops["in_mask"]), n_cuts, int(ops["in_mask"].shape[1]),
-        p(ops["cat_off"]), p(ops["adv"]), p(ops["adv_id"]), p(out),
+        p(records), m, d, p(ops["cut_pack"]), n_cuts, p(ops["in_mask"]),
+        int(ops["in_mask"].shape[1]), p(out), *eval_cuts_plan(ops),
         _build.stream_ptr(records.device),
     )
     _build.check(rc, "eval_cuts")
@@ -126,13 +170,20 @@ def locate_leaf_plain(m_mat: torch.Tensor, ops: dict) -> torch.Tensor:
     return out
 
 
+def locate_leaf_plan(ops: dict) -> tuple:
+    """locate_leaf's launch plan for the tree of ``ops`` (on a CUDA
+    device), by its node and cut counts."""
+    return _plan("locate_leaf", ops["cut_id"], int(ops["cut_id"].shape[0]),
+                 int(ops["cut_pack"].shape[0]))
+
+
 def locate_leaf(m_mat: torch.Tensor, ops: dict) -> torch.Tensor:
     """(m,) int32 block id of each record from its predicate-matrix row."""
     if not _kernel_device(m_mat, "locate_leaf"):
         return locate_leaf_plain(m_mat, ops)
     _require(m_mat, torch.uint8, "locate_leaf")
     m, n_cuts = m_mat.shape
-    if n_cuts != ops["kind"].shape[0]:
+    if n_cuts != ops["cut_pack"].shape[0]:
         raise ValueError("locate_leaf: predicate matrix width != n_cuts")
     _same_device(m_mat.device, "locate_leaf", ops)
     out = torch.empty(m, dtype=torch.int32, device=m_mat.device)
@@ -142,7 +193,8 @@ def locate_leaf(m_mat: torch.Tensor, ops: dict) -> torch.Tensor:
     p = _build.ptr
     rc = fn(
         p(m_mat), m, n_cuts, p(ops["cut_id"]), p(ops["left"]),
-        p(ops["right"]), p(ops["leaf_bid"]), int(ops["depth"]), p(out),
+        p(ops["right"]), p(ops["leaf_bid"]), int(ops["cut_id"].shape[0]),
+        int(ops["depth"]), p(out), *locate_leaf_plan(ops),
         _build.stream_ptr(m_mat.device),
     )
     _build.check(rc, "locate_leaf")
@@ -153,36 +205,13 @@ def locate_leaf(m_mat: torch.Tensor, ops: dict) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # route: one descent a record (route_descend)
 # ---------------------------------------------------------------------------
-# route_descend_plan's ``variant`` argument; both kernels move the one
-# ``route_descend`` launch counter
-VARIANTS = {None: 0, "shared": 1, "global": 2}
-
-# The kernel that plans made under :func:`_forced` take; None chooses by
-# shape.  For tests and measurement only.
-_FORCED: Optional[str] = None
-
-
-@contextlib.contextmanager
-def _forced(variant: Optional[str]):
-    """Plans made inside take ``variant`` ("shared" or "global"); forcing
-    the shared kernel on a tree too large for it raises."""
-    global _FORCED
-    before, _FORCED = _FORCED, variant
-    try:
-        yield
-    finally:
-        _FORCED = before
-
-
 def route_plan(ops: dict) -> tuple:
     """route_descend's launch plan for the tree of ``ops`` (on a CUDA
     device): (kernel, warps a block, shared bytes, most blocks), made once
     a tree shape.  The engine keeps it in its tree plan as
     ``ops["route_plan"]``, so a batch makes no host query of the card."""
-    dev = ops["nodes"].device
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    return _build.plan("route_descend", index, int(ops["nodes"].shape[0]),
-                       int(ops["cat_off"].shape[0]), VARIANTS[_FORCED])
+    return _plan("route_descend", ops["nodes"], int(ops["nodes"].shape[0]),
+                 int(ops["cat_off"].shape[0]))
 
 
 def route_plain(records: torch.Tensor, ops: dict) -> torch.Tensor:

@@ -39,21 +39,51 @@ def _cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def random_case(seed, m=3000, splits=40):
-    """A random tree over every cut kind, its records and a workload."""
-    rng = np.random.default_rng(seed)
-    schema = preds.Schema((
-        preds.Column("x", "numeric", 5000),
-        preds.Column("y", "numeric", 64),
-        preds.Column("c", "categorical", 6),
-        preds.Column("z", "numeric", 5000),
-        preds.Column("k", "categorical", 40),
-    ))
-    records = np.stack([
+SCHEMA = preds.Schema((
+    preds.Column("x", "numeric", 5000),
+    preds.Column("y", "numeric", 64),
+    preds.Column("c", "categorical", 6),
+    preds.Column("z", "numeric", 5000),
+    preds.Column("k", "categorical", 40),
+))
+
+
+def case_records(rng, m):
+    return np.stack([
         rng.integers(0, 5000, m), rng.integers(0, 64, m),
         rng.integers(0, 6, m), rng.integers(0, 5000, m),
         rng.integers(0, 40, m),
     ], axis=1).astype(np.int32)
+
+
+def grow_tree(cuts, records, rng, splits, chain=False):
+    """A tree over ``cuts`` grown by ``splits`` random legal splits of
+    random leaves; with ``chain``, of the larger child of the last split,
+    which makes the tree as deep as the records allow."""
+    tree = singleton_tree(cuts.schema, cuts, np.arange(records.shape[0]))
+    M = preds.eval_cuts(records, cuts)
+    leaves = [tree.root]
+    for _ in range(splits):
+        if chain:
+            node = max(leaves[-2:], key=lambda n: n.size)
+        else:
+            node = leaves[int(rng.integers(0, len(leaves)))]
+        legal = [c for c in range(cuts.n_cuts)
+                 if 0 < M[node.rows, c].sum() < node.size]
+        if not legal:
+            continue
+        leaves = [n for n in leaves if n is not node]
+        leaves += list(tree.split(
+            node, int(rng.choice(legal)), cut_matrix=M
+        ))
+    return tree.freeze()
+
+
+def random_case(seed, m=3000, splits=40):
+    """A random tree over every cut kind, its records and a workload."""
+    rng = np.random.default_rng(seed)
+    schema = SCHEMA
+    records = case_records(rng, m)
     b = preds.CutTableBuilder(schema)
     for c in rng.integers(1, 5000, 12):
         b.add_range(0, preds.OP_LT, int(c))
@@ -66,19 +96,7 @@ def random_case(seed, m=3000, splits=40):
     for op in range(6):
         b.add_adv(0, op, 3)
     cuts = b.build()
-    tree = singleton_tree(schema, cuts, np.arange(m))
-    M = preds.eval_cuts(records, cuts)
-    leaves = [tree.root]
-    for _ in range(splits):
-        node = leaves[int(rng.integers(0, len(leaves)))]
-        legal = [c for c in range(cuts.n_cuts)
-                 if 0 < M[node.rows, c].sum() < node.size]
-        if not legal:
-            continue
-        leaves = [n for n in leaves if n is not node]
-        leaves += list(tree.split(
-            node, int(rng.choice(legal)), cut_matrix=M
-        ))
+    frozen = grow_tree(cuts, records, rng, splits)
     atoms = [
         qry.RangeAtom(0, preds.OP_LT, 2500), qry.RangeAtom(3, preds.OP_GE, 900),
         qry.InAtom(2, (1, 4)), qry.InAtom(4, (3, 5, 30)),
@@ -92,7 +110,7 @@ def random_case(seed, m=3000, splits=40):
         ])
         for _ in range(12)
     )
-    return tree.freeze(), records, qry.Workload(schema, queries)
+    return frozen, records, qry.Workload(schema, queries)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -161,6 +179,196 @@ def test_route_descend_plan_by_shape():
     assert _plan(dev.index, too_many, 21, 0)[0] == 2
     with pytest.raises(RuntimeError, match="route_descend kernel launch"):
         _plan(dev.index, optin // 16, 21, 1)
+
+
+def cut_table(seed, n_cuts):
+    """``n_cuts`` cuts over ``SCHEMA`` in shuffled order, so that the kinds
+    interleave.  From 8 cuts up: every advanced op, the IN set {0} of the
+    first categorical column (bit 0) and {39} of the last (bit bits - 1),
+    the two ends of the plain version's clip."""
+    rng = np.random.default_rng(seed)
+    b = preds.CutTableBuilder(SCHEMA)
+    for op in range(6):
+        b.add_adv(0, op, 3)
+    b.add_in(2, [0])
+    b.add_in(4, [39])
+    for c in rng.choice(np.arange(1, 5000), 200, replace=False):
+        b.add_range(0, preds.OP_LT, int(c))
+        b.add_range(3, preds.OP_LT, int(c))
+    for c in range(1, 64, 4):
+        b.add_range(1, preds.OP_LT, c)
+    for _ in range(120):
+        b.add_in(4, rng.choice(40, 7, replace=False).tolist())
+        b.add_in(2, rng.choice(6, 3, replace=False).tolist())
+    full = b.build()
+    one = full.in_mask.sum(axis=1) == 1
+    ends = (full.in_mask[:, 0] | full.in_mask[:, -1]) & one
+    special = np.flatnonzero((full.kind == preds.KIND_ADV) | ends)
+    assert special.shape[0] == 8
+    rest = np.setdiff1d(np.arange(full.n_cuts), special)
+    if n_cuts < special.shape[0]:
+        pick = rng.choice(special, n_cuts, replace=False)
+    else:
+        pick = np.concatenate([special, rng.choice(
+            rest, n_cuts - special.shape[0], replace=False)])
+    pick = rng.permutation(pick)
+    return preds.CutTable(
+        schema=SCHEMA, kind=full.kind[pick], dim=full.dim[pick],
+        cutpoint=full.cutpoint[pick], in_mask=full.in_mask[pick],
+        adv_id=full.adv_id[pick], adv=full.adv,
+    )
+
+
+def edge_records(seed, m):
+    """``m`` records in the domains; in every fourth row the first
+    categorical column at 0, in another the last at 39 (its bit is bits -
+    1), in a third z == x (so that every advanced op splits them)."""
+    rng = np.random.default_rng(seed)
+    rec = case_records(rng, m)
+    rec[::4, 2] = 0
+    rec[1::4, 4] = 39
+    rec[2::4, 3] = rec[2::4, 0]
+    return rec
+
+
+def _variant_kernel(variant):
+    return 2 if variant == "global" else 1
+
+
+EVAL_SIZES = [0, 1, 31, 33, 2**16 + 5]
+N_CUTS = [1, 17, 379]
+
+
+@pytest.mark.parametrize("variant", ["shared", "global"])
+@pytest.mark.parametrize("n_cuts", N_CUTS)
+@pytest.mark.parametrize("m", EVAL_SIZES)
+def test_eval_cuts_matches_plain(m, n_cuts, variant):
+    """Each eval_cuts kernel equals its plain version and preds.eval_cuts:
+    at the allocation's start and at a row view 20 bytes in (not 16-byte
+    aligned), over every cut kind in shuffled order."""
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    cuts = cut_table(n_cuts + m % 7, n_cuts)
+    host = edge_records(m, m + 1)
+    ops = tplan.to_device(tplan.pack_cut_table(cuts), dev)
+    full = torch.from_numpy(host).to(dev)
+    with trk._forced(variant):
+        assert trk.eval_cuts_plan(ops)[0] == _variant_kernel(variant)
+        for rec, want_host in ((full[:m], host[:m]), (full[1:], host[1:])):
+            assert rec.shape[0] == m
+            before = _build.launch_counts()["eval_cuts"]
+            got = trk.eval_cuts(rec, ops)
+            assert _build.launch_counts()["eval_cuts"] == before + (m > 0)
+            torch.cuda.synchronize()
+            assert torch.equal(got, trk.eval_cuts_plain(rec, ops))
+            np.testing.assert_array_equal(got.cpu().numpy().astype(bool),
+                                          preds.eval_cuts(want_host, cuts))
+
+
+@pytest.mark.parametrize("variant", ["shared", "global"])
+def test_eval_cuts_clips_out_of_domain_codes_like_plain(variant):
+    """Codes below a categorical column's domain and past it clip, in both
+    kernels, to bit 0 and bit bits - 1 as the plain version clips them."""
+    dev = _cuda()
+    cuts = cut_table(5, 379)
+    host = edge_records(5, 4099)
+    host[::3, 2] = -3
+    host[1::3, 4] = 45
+    host[2::5, 2] = 9  # past c's domain: into k's bits
+    ops = tplan.to_device(tplan.pack_cut_table(cuts), dev)
+    rec = torch.from_numpy(host).to(dev)
+    with trk._forced(variant):
+        got = trk.eval_cuts(rec, ops)
+    torch.cuda.synchronize()
+    assert torch.equal(got, trk.eval_cuts_plain(rec, ops))
+
+
+def _locate_case(n_cuts, m, splits, seed, chain=False):
+    cuts = cut_table(seed, n_cuts)
+    records = edge_records(seed, 3000)
+    frozen = grow_tree(cuts, records, np.random.default_rng(seed), splits,
+                       chain)
+    return frozen, np.resize(records, (m + 1, records.shape[1]))
+
+
+def _assert_locate(frozen, host, m, variant):
+    """locate_leaf (``variant`` forced) on the kernel's predicate matrix of
+    ``host[:m]`` and of the view ``host[1:]`` (``n_cuts`` bytes in): equal
+    to the plain version, the numpy route and route_descend."""
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    full = torch.from_numpy(host).to(dev)
+    m_full = trk.eval_cuts(full, ops)
+    with trk._forced(variant):
+        assert trk.locate_leaf_plan(ops)[0] == _variant_kernel(variant)
+        for rows, want_host in ((slice(0, m), host[:m]),
+                                (slice(1, m + 1), host[1:])):
+            mm = m_full[rows]
+            before = _build.launch_counts()["locate_leaf"]
+            got = trk.locate_leaf(mm, ops)
+            assert _build.launch_counts()["locate_leaf"] == before + (m > 0)
+            torch.cuda.synchronize()
+            assert torch.equal(got, trk.locate_leaf_plain(mm, ops))
+            assert torch.equal(got, trk.route(full[rows], ops))
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          frozen.route(want_host))
+
+
+@pytest.mark.parametrize("variant", ["shared", "global"])
+@pytest.mark.parametrize("n_cuts", N_CUTS)
+@pytest.mark.parametrize("m", EVAL_SIZES)
+def test_locate_leaf_matches_plain(m, n_cuts, variant):
+    """Each locate_leaf kernel over trees on 1, 17 and 379 cuts (one cut: a
+    tree of depth 1)."""
+    frozen, host = _locate_case(n_cuts, m, 60, n_cuts + m % 7)
+    if n_cuts == 1:
+        assert frozen.depth == 1
+    _assert_locate(frozen, host, m, variant)
+
+
+@pytest.mark.parametrize("variant", ["shared", "global"])
+def test_locate_leaf_on_a_deep_tree(variant):
+    """The deepest random tree: a chain of random splits over 379 cuts,
+    deeper than tpch-40M's greedy tree (19)."""
+    frozen, host = _locate_case(379, 40_000, 60, 11, chain=True)
+    assert frozen.depth > 19
+    _assert_locate(frozen, host, 40_000, variant)
+
+
+def test_eval_cuts_and_locate_leaf_plans_by_shape():
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    props = torch.cuda.get_device_properties(dev)
+    optin = props.shared_memory_per_block_optin
+    # tpch-40M: 379 cuts at 21 columns, 1,447 nodes
+    kernel, warps, smem, most = _build.plan("eval_cuts", dev.index, 379, 21,
+                                            146, 0)
+    # the table (8 B a cut), the IN flags (5 words a cut: 146 bits, 32 to
+    # a word, the count made odd), then a warp's tile of 16 records as
+    # staged and transposed (a column's 16 values 20 words apart) and its
+    # output tile
+    per_warp = 64 * 21 + 80 * 21 + 16 * 379
+    assert (kernel, smem) == (1, 3040 + 7584 + warps * per_warp)
+    assert most >= props.multi_processor_count
+    kernel, warps, smem, most = _build.plan("locate_leaf", dev.index, 1447,
+                                            379, 0)
+    # the nodes, then two barriers (8 B) and two tiles of 16 rows a warp
+    assert (kernel, smem) == (1, 16 * 1447 + 16 + warps * 2 * (16 * 379 + 8))
+    assert most >= props.multi_processor_count
+    # past four warps' tiles: the global kernel; forcing the shared one
+    # past the card's limit raises
+    too_many = optin // 64 + 1  # eval_cuts cuts
+    assert _build.plan("eval_cuts", dev.index, too_many, 21, 146, 0)[0] == 2
+    with pytest.raises(RuntimeError, match="eval_cuts kernel launch"):
+        _build.plan("eval_cuts", dev.index, optin // 32 + 1, 21, 146, 1)
+    too_many = (optin - 4 * 2 * (16 * 379 + 8)) // 16  # locate_leaf nodes
+    assert _build.plan("locate_leaf", dev.index, too_many, 379, 0)[0] == 2
+    with pytest.raises(RuntimeError, match="locate_leaf kernel launch"):
+        _build.plan("locate_leaf", dev.index, optin // 16, 379, 1)
 
 
 @pytest.mark.parametrize("seed", SEEDS)

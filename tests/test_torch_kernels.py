@@ -4,7 +4,9 @@ Each kernel module of ``repro_torch`` holds a CUDA kernel and a plain
 PyTorch version.  On the CPU the plain versions run; here they meet the
 Pallas functions of ``repro`` (interpret mode) on the same trees, records
 and workloads, made from a seed with numpy.  A numpy descent over the
-packed nodes, which three CUDA kernels descend, meets the numpy route.
+packed nodes, which three CUDA kernels descend, meets the numpy route,
+and a numpy decoding of the packed cuts, which four kernels test, meets
+the Pallas predicate matrix.
 Block ids, predicate matrices, per-leaf aggregates and hit matrices
 compare exactly; the
 Pallas per-conjunct scanned sum is float32, so it is held at rtol=1e-6
@@ -26,7 +28,10 @@ from repro.engine import plan as rplan  # noqa: E402
 from repro.kernels import fused_ingest as rfk  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
 from repro.kernels import route_records as rrk  # noqa: E402
+from repro_torch.core import predicates as tpreds  # noqa: E402
 from repro_torch.core import query as tqry  # noqa: E402
+from repro_torch.core.qdtree import singleton_tree  # noqa: E402
+from repro_torch.core.routing import cut_table_arrays  # noqa: E402
 from repro_torch.core.qdtree import FrozenQdTree as TorchTree  # noqa: E402
 from repro_torch.engine import plan as tplan  # noqa: E402
 from repro_torch.kernels import fused_ingest as tfk  # noqa: E402
@@ -180,6 +185,133 @@ def test_packed_node_descent_matches_numpy_route_on_tpch(tpch_tree,
     records = tpch_small[1]
     assert_packed_descent_routes(frozen, records)
     np.testing.assert_array_equal(frozen.route(records), bids)
+
+
+def packed_eval(cut_pack, in_mask, records):
+    """The (m, n_cuts) predicate matrix by a numpy decoding of
+    ``plan.pack_cuts``'s ``(meta, w)``, as its docstring states."""
+    meta = cut_pack[:, 0].view(np.uint32).astype(np.int64)
+    w = cut_pack[:, 1].astype(np.int64)
+    kind, col = meta >> 30, meta & 0xFFF
+    off, col_b, op = (meta >> 12) & 0x3FFFF, (meta >> 12) & 0xFFF, meta >> 24
+    bits = in_mask.shape[1]
+    flat = np.append(in_mask.reshape(-1), 0)  # non-IN cuts read the pad
+    rec = records.astype(np.int64)
+    v = rec[:, col]
+    vb = rec[:, np.where(kind == 2, col_b, 0)]  # col_b: advanced cuts only
+    o = np.where(kind == 2, op & 0x3F, 0)
+    pos = np.clip(v + off, 0, bits - 1)
+    in_set = flat[np.where(kind == 1, w + pos, -1)] != 0
+    adv = np.select([o == 0, o == 1, o == 2, o == 3, o == 4],
+                    [v < vb, v <= vb, v > vb, v >= vb, v == vb], v != vb)
+    return np.select([kind == 0, kind == 1], [v < w, in_set], adv)
+
+
+def assert_packed_cuts_evaluate(frozen, records):
+    k, rec, _ = pallas_operands(frozen, records)
+    want = pallas_eval_cuts(k, rec)
+    m, c = records.shape[0], frozen.cuts.n_cuts
+    ops = tplan.pack_cut_table(carry_tree(frozen).cuts)
+    assert ops["cut_pack"].shape == (c, 2)
+    assert ops["cut_pack"].dtype == np.int32
+    got = packed_eval(ops["cut_pack"], ops["in_mask"], records)
+    np.testing.assert_array_equal(got, want[:m, :c] != 0)
+    np.testing.assert_array_equal(got, tpreds.eval_cuts(records,
+                                                        frozen.cuts))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_packed_cuts_evaluate_as_pallas(seed):
+    frozen, records = setup_case(seed)
+    kinds = set(frozen.cuts.kind.tolist())
+    assert kinds == {0, 1, 2}, "the table should hold every cut kind"
+    assert_packed_cuts_evaluate(frozen, records)
+
+
+def test_packed_cuts_evaluate_as_pallas_on_tpch(tpch_tree, tpch_small):
+    frozen, _ = tpch_tree
+    assert_packed_cuts_evaluate(frozen, tpch_small[1][:2000])
+
+
+def pack_nodes_before(tree):
+    """``plan.pack_nodes`` as it was before it was built on ``pack_cuts``:
+    each internal node's cut packed from the cut table's arrays."""
+    cuts = tree.cuts
+    ca = cut_table_arrays(cuts)
+    bits = int(ca["in_mask"].shape[1])
+    c = tree.cut_id.astype(np.int64)
+    internal = c >= 0
+    cc = np.where(internal, c, cuts.n_cuts)  # leaves read a dummy cut
+
+    def per_cut(a):
+        return np.append(np.asarray(a, np.int64), 0)[cc]
+
+    kind, dim = per_cut(ca["kind"]), per_cut(ca["dim"])
+    adv = np.concatenate([ca["adv"].astype(np.int64),
+                          np.zeros((1, 3), np.int64)])
+    a = adv[np.where(kind == 2, per_cut(ca["adv_id"]), -1)]
+    col_a, op, col_b = a[:, 0], a[:, 1], a[:, 2]
+    off = ca["cat_off"].astype(np.int64)[dim]
+    meta = np.select(
+        [kind == 0, kind == 2],
+        [dim, 2 << 30 | op << 24 | col_b << 12 | col_a],
+        1 << 30 | off << 12 | dim,
+    )
+    w = np.where(kind == 0, per_cut(ca["cutpoint"]),
+                 np.where(kind == 2, 0, cc * bits))
+    out = np.stack([
+        np.where(internal, meta, 0),
+        np.where(internal, tree.left, tree.leaf_bid),
+        np.where(internal, tree.right, -1),
+        np.where(internal, w, 0),
+    ], axis=1)
+    return np.ascontiguousarray(out.astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("seed", SEEDS + ["tpch"])
+def test_pack_nodes_on_pack_cuts_is_byte_equal(seed, request):
+    if seed == "tpch":
+        frozen = request.getfixturevalue("tpch_tree")[0]
+    else:
+        frozen = setup_case(seed)[0]
+    tree = carry_tree(frozen)
+    got = tplan.pack_nodes(tree)
+    want = pack_nodes_before(tree)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+    internal = tree.cut_id >= 0
+    np.testing.assert_array_equal(
+        got[internal][:, [0, 3]],
+        tplan.pack_cuts(tree.cuts)[tree.cut_id[internal]])
+
+
+def _overflow_cuts(field):
+    if field == "column":  # a range cut on column 4096
+        cols = [tpreds.Column(f"x{j}", "numeric", 10) for j in range(4097)]
+        b = tpreds.CutTableBuilder(tpreds.Schema(tuple(cols)))
+        b.add_range(4096, tpreds.OP_LT, 5)
+    elif field == "bit offset":  # an IN cut 2**18 bits in
+        b = tpreds.CutTableBuilder(tpreds.Schema((
+            tpreds.Column("wide", "categorical", 1 << 18),
+            tpreds.Column("c", "categorical", 3),
+        )))
+        b.add_in(1, [1])
+    else:  # an advanced cut whose col_b is 4096
+        cols = [tpreds.Column(f"x{j}", "numeric", 10) for j in range(4097)]
+        b = tpreds.CutTableBuilder(tpreds.Schema(tuple(cols)))
+        b.add_adv(0, tpreds.OP_LT, 4096)
+    return b.build()
+
+
+@pytest.mark.parametrize("field", ["column", "bit offset", "col_b"])
+def test_pack_cuts_raises_on_field_overflow(field):
+    cuts = _overflow_cuts(field)
+    assert cuts.n_cuts == 1
+    with pytest.raises(ValueError, match="does not fit"):
+        tplan.pack_cuts(cuts)
+    with pytest.raises(ValueError, match="does not fit"):
+        tplan.pack_route_constants(
+            singleton_tree(cuts.schema, cuts, np.arange(1)).freeze())
 
 
 def pallas_route(frozen, records):
