@@ -86,6 +86,34 @@ Then the layout lifecycle, each path counted from 0:
   numpy; a tracker-driven two-replica deploy whose cheapest routing
   equals the numpy backend's.
 
+Then the serving tier and the entry points built on it, each path counted
+from 0:
+
+* ``serve`` (``QueryServer`` over ``LayoutService`` on the whole table's
+  greedy layout, the 150 queries as the templates of a Zipf(1.1) mix, as
+  ``benchmarks/serving.py`` runs it): 40 sync rounds of 64 queries with a
+  greedy rebuild on the 1% sample (the drift scenario's shifted workload)
+  swapped in at round 20; then 4 client threads × 400 queries through the
+  async dispatcher while the main thread swaps in another layout. Every
+  response equals the numpy route on its generation, no response is
+  stale, no plan is built outside the swap, one ``query_intersect``
+  launch an engine dispatch, and the standing workloads' operands stay
+  cached; the hit path's ms against one engine dispatch of the same
+  batch, the closed loop's qps and p50/p99;
+* ``pipeline``: ``QdTreePipeline`` over the prefix's block store, curated
+  by 3 workload queries: the rows behind every batch equal a brute-force
+  filter of the prefix, in the scheduler's block order; records/s;
+* ``coordinator``: a ``FleetCoordinator`` at cadence 4 folding the prefix
+  from 4 worker threads (two partials each) and one worker that leaves
+  mid-stream, then ``LayoutService.ingest`` with
+  ``IngestOptions(shards=4, coordinator=)``: both publish the single
+  stream's and the numpy oracle's descriptions and block sizes; fold ms;
+* ``cli``: ``python -m repro_torch.launch.ingest`` (400,000 rows, 2
+  shards, coordinator, tracker, drift, a store) and ``python -m
+  repro_torch.launch.serve`` (30,000 rows, 4 s, ``--workload auto``) as
+  subprocesses on the card, side by side: both exit 0; serve shows no
+  stale response, no plan built while serving and its swap note.
+
 Then it times: route and query latencies (median and spread of warm
 calls, host clock; route split into its kernel, from a trace, and the
 ids' copy back), whole-table ingests on fresh trees, one ingest under
@@ -94,7 +122,9 @@ accumulator into the tightener (once an ingest), and each kernel against
 its plain version.  It exits non-zero on the first failure, without a
 CUDA device, and when the package is not beside it.  Output, before the
 last line: the card's name and power limit, build seconds, one
-``{"metrics": ...}`` JSON line and one ``{"kernels": [...]}`` JSON line
+``{"metrics": ...}`` JSON line (this slice's keys ``serve``, ``pipeline``,
+``coordinator``, ``cli``, and ``phase_s`` for every phase) and one
+``{"kernels": [...]}`` JSON line
 (launches, median CUDA-event time, bound, plain-version time, max
 difference per kernel).  The last line is ``{"ok": true, "device":
 {...}}``.  ``--rows`` cuts the row count (the only cut allowed; it is
@@ -109,6 +139,7 @@ import multiprocessing
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -156,6 +187,20 @@ ORACLE_RATIO = 1.2  # recovered scanned fraction against a greedy rebuild
 OBSERVE_REPS = 3  # observed and unobserved whole-table ingests, alternated
 CHECK_ROWS = 1 << 16  # rows routed against numpy around each swap
 REPLICA_ROUNDS = 4  # serving rounds of each workload the tracker records
+SERVE_ROUNDS, SERVE_BATCH = 40, 64  # benchmarks/serving.py's phase 1
+SERVE_SWAP_AT = 20  # the sync round a rebuild is swapped in
+SERVE_ZIPF = 1.1  # the mix's skew over the 150 templates
+HIT_REPS = 10  # hit-path and engine-dispatch timings
+SERVE_CLIENTS, SERVE_PER_CLIENT = 4, 400  # its phase 2: the closed loop
+SERVE_SWAP_AFTER = 400  # closed-loop queries served before the hot swap
+PIPELINE_QUERIES = 3  # curation queries over the prefix's block store
+PIPELINE_MIN_ROWS = 4096  # rows a curation query is expected to match
+PIPELINE_BATCH, PIPELINE_SEQ, PIPELINE_VOCAB = 256, 64, 1 << 15
+COORD_WORKERS, COORD_CADENCE = 4, 4  # fleet worker threads, fold cadence
+COORD_BATCH = 1 << 18  # rows a worker routes at a time
+CLI_INGEST_ROWS, CLI_SERVE_ROWS, CLI_SERVE_S = 400_000, 30_000, 4
+CLI_TIMEOUT_S = 300  # each CLI subprocess, at most
+CLI_DEVICE_ARGS: tuple = ()  # the CLIs' default device: the GPU
 
 # H100 SXM (NVIDIA data sheet): HBM rate, and the float32 rate outside the
 # tensor cores, taken as the rate of the kernels' int32 compares/atomics
@@ -836,49 +881,43 @@ def spill_phase(ctx, counted) -> tuple:
     }
 
 
-def store_phase(ctx, counted, buf, tree) -> dict:
-    """``write_store`` into a temporary directory, then ``scan_query`` of
-    STORE_QUERIES workload queries: each scan's rows equal a brute-force
+def store_phase(ctx, counted, buf, tree, root) -> dict:
+    """``write_store`` into ``root`` (a temporary directory, which the
+    pipeline phase reads later), then ``scan_query`` of STORE_QUERIES
+    workload queries: each scan's rows equal a brute-force
     ``Query.evaluate`` over the table, in block order, and no matching
     row lies in a block the query skipped."""
-    import shutil
-    import tempfile
-
     from repro_torch.data.blocks import BlockStore
 
     records, schema = ctx["records"], tree.schema
     oracle_bids = ctx["oracle_bids"]
-    root = Path(tempfile.mkdtemp(prefix="qd-store-"))
-    try:
-        t0 = time.perf_counter()
-        buf.write_store(root, tree)
-        write_s = time.perf_counter() - t0
-        store = BlockStore.open(root)  # as a reader would
-        # one query from each of STORE_QUERIES templates
-        every = ctx["work"].queries
-        queries = every[::max(len(every) // STORE_QUERIES, 1)][:STORE_QUERIES]
-        scans = counted("store", lambda: [store.scan_query(q)
-                                          for q in queries])
-        rows = []
-        for i, (q, scan) in enumerate(zip(queries, scans)):
-            sel = np.flatnonzero(q.evaluate(records, schema))
-            sel = sel[np.argsort(oracle_bids[sel], kind="stable")]
-            routed = set(store.engine.route_query(q).tolist())
-            require(set(np.unique(oracle_bids[sel]).tolist()) <= routed,
-                    f"query {i}: a matching row lies in a skipped block")
-            require(np.array_equal(scan.rows, records[sel]),
-                    f"query {i}: scanned rows differ from the brute-force "
-                    f"filter")
-            rows.append({"rows": int(scan.rows.shape[0]),
-                         "blocks_read": scan.blocks_read,
-                         "bytes_read": scan.bytes_read,
-                         "rows_scanned": scan.rows_scanned,
-                         "wall_ms": scan.wall_s * 1e3})
-        launched = ctx["path_launches"]["store"]
-        require(launched["query_intersect"] == len(queries),
-                f"store scans: {launched}")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    buf.write_store(root, tree)
+    write_s = time.perf_counter() - t0
+    store = BlockStore.open(root)  # as a reader would
+    # one query from each of STORE_QUERIES templates
+    every = ctx["work"].queries
+    queries = every[::max(len(every) // STORE_QUERIES, 1)][:STORE_QUERIES]
+    scans = counted("store", lambda: [store.scan_query(q)
+                                      for q in queries])
+    rows = []
+    for i, (q, scan) in enumerate(zip(queries, scans)):
+        sel = np.flatnonzero(q.evaluate(records, schema))
+        sel = sel[np.argsort(oracle_bids[sel], kind="stable")]
+        routed = set(store.engine.route_query(q).tolist())
+        require(set(np.unique(oracle_bids[sel]).tolist()) <= routed,
+                f"query {i}: a matching row lies in a skipped block")
+        require(np.array_equal(scan.rows, records[sel]),
+                f"query {i}: scanned rows differ from the brute-force "
+                f"filter")
+        rows.append({"rows": int(scan.rows.shape[0]),
+                     "blocks_read": scan.blocks_read,
+                     "bytes_read": scan.bytes_read,
+                     "rows_scanned": scan.rows_scanned,
+                     "wall_ms": scan.wall_s * 1e3})
+    launched = ctx["path_launches"]["store"]
+    require(launched["query_intersect"] == len(queries),
+            f"store scans: {launched}")
     log(f"block store: written in {write_s:.1f}s; scans {rows}")
     return {"write_s": write_s, "scans": rows, "launches": launched,
             "rows": int(buf.n_rows)}
@@ -1692,6 +1731,550 @@ def service_phase(ctx, counted) -> dict:
     return out
 
 
+def workload_keys(plans) -> set:
+    """The plan cache's standing workload operands."""
+    from repro_torch.engine.plan import PlanKey
+
+    with plans._lock:
+        return {k for k in plans._plans
+                if isinstance(k, PlanKey) and k.opts[:1] == ("workload",)}
+
+
+def serve_phase(ctx, counted) -> dict:
+    """The serving tier (``QueryServer`` over ``LayoutService``) on the
+    whole table's tightened greedy layout, the 150-query workload as the
+    templates of a Zipf(s = 1.1) mix, as ``benchmarks/serving.py`` runs it.
+
+    (a) SERVE_ROUNDS sync ``serve_batch`` rounds of SERVE_BATCH queries,
+    a greedy rebuild on the 1% sample under the service phase's shifted
+    workload swapped in at round SERVE_SWAP_AT and warmed: every response
+    equals the numpy route of its query on its generation's tree, no stale
+    response, no plan built outside the swap's window, one
+    ``query_intersect`` launch an engine dispatch; the hit path's ms
+    against one engine dispatch of the same batch.  (b) SERVE_CLIENTS
+    client threads × SERVE_PER_CLIENT queries through the async
+    dispatcher, the main thread swapping in another sample-built layout
+    (its plan warmed first) once SERVE_SWAP_AFTER queries were served: qps
+    and p50/p99, no stale response, every response equal to numpy, no plan
+    built at all.  The standing workloads' operands survive both."""
+    import threading
+
+    import torch
+
+    from repro_torch.core import query as qry
+    from repro_torch.core.qdtree import FrozenQdTree
+    from repro_torch.engine import LayoutEngine
+    from repro_torch.engine import plan as tplan
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import zipf_mix
+    from repro_torch.serve import QueryServer, ServeConfig
+    from repro_torch.service import LayoutService, build_layout
+
+    dev, work, sample = ctx["dev"], ctx["work"], ctx["sample"]
+    schema = work.schema
+    svc = LayoutService(FrozenQdTree.from_arrays(ctx["tree"].to_arrays()),
+                        device=dev)
+    # the standing workloads: the declared one, the drift workloads' probe
+    work_b = range_workload(schema, EXTENDEDPRICE, DRIFT_QUERIES,
+                            DRIFT_FRAC, SEED + 2)
+    work_c = range_workload(schema, EXTENDEDPRICE, DRIFT_QUERIES,
+                            DRIFT_FRAC, SEED + 3)
+    svc.query_hits(work)
+    svc.engine.observation_probe(range_workload(
+        schema, SHIPDATE, DRIFT_QUERIES, DRIFT_FRAC, SEED + 1))
+    torch.cuda.synchronize()
+    index = {id(q): i for i, q in enumerate(work.queries)}
+    numpy_lists = {}
+
+    def expected(gen):
+        """Each template's numpy route on generation ``gen``'s tree; the
+        card's ``route_queries`` of the templates equals it."""
+        if gen not in numpy_lists:
+            v = svc.version(gen)
+            want = LayoutEngine(v.tree, backend="numpy",
+                                device="cpu").route_queries(work)
+            got = v.engine.route_queries(work, transient=True)
+            require(all(np.array_equal(a, b) for a, b in zip(got, want)),
+                    f"generation {gen}: route_queries on the card differs "
+                    f"from numpy")
+            numpy_lists[gen] = want
+        return numpy_lists[gen]
+
+    def same_as_numpy(pairs, what):
+        for q, r in pairs:
+            require(np.array_equal(r.bids,
+                                   expected(r.generation)[index[id(q)]]),
+                    f"{what}: a response differs from the numpy route on "
+                    f"generation {r.generation}")
+
+    standing = workload_keys(svc.plans)
+    require(len(standing) == 2, f"standing workloads {len(standing)}")
+    config = ServeConfig(max_batch=SERVE_BATCH, max_delay_s=0.001,
+                         cache_capacity=4096)
+
+    # -- (a) deterministic rounds -----------------------------------------
+    server = QueryServer(svc, config, tracker=svc.workload_tracker())
+    server.warm(work)
+    mix = zipf_mix(work, SERVE_ROUNDS * SERVE_BATCH, SERVE_ZIPF, SEED + 2)
+    pairs, outside, swap = [], {}, {}
+
+    def rounds():
+        for r in range(SERVE_ROUNDS):
+            if r == SERVE_SWAP_AT:
+                b0 = tplan.build_counts()
+                t = time.perf_counter()
+                rep = svc.rebuild(sample, work_b, swap="always",
+                                  min_block=MIN_BLOCK, seed=SEED)
+                server.warm(work)
+                torch.cuda.synchronize()
+                swap.update(rebuild_s=rep.build_s + rep.score_s,
+                            swap_and_warm_s=time.perf_counter() - t,
+                            generation=rep.new_generation,
+                            leaves=rep.build.n_leaves,
+                            builds=tplan.build_delta(b0, tplan.build_counts()))
+            qs = mix[r * SERVE_BATCH:(r + 1) * SERVE_BATCH]
+            b0 = tplan.build_counts()
+            n0 = _build.launch_counts()["query_intersect"]
+            d0 = server.counters.engine_dispatches
+            res = server.serve_batch(qs)
+            launched = _build.launch_counts()["query_intersect"] - n0
+            require(launched == server.counters.engine_dispatches - d0,
+                    f"round {r}: {launched} query_intersect launches for "
+                    f"{server.counters.engine_dispatches - d0} engine "
+                    f"dispatches")
+            delta = tplan.build_delta(b0, tplan.build_counts())
+            if delta:
+                outside[r] = delta
+            pairs.extend(zip(qs, res))
+
+    counted("serve_rounds", rounds)
+    det = server.stats()
+    require(not outside, f"plans built while serving: {outside}")
+    require(det["counters"]["stale_responses"] == 0,
+            f"{det['counters']['stale_responses']} stale responses")
+    require(swap.get("generation") == svc.generation,
+            "the rebuild at the swap round was not deployed")
+    same_as_numpy(pairs, "sync rounds")
+    # the hit path against one engine dispatch of the same batch
+    hot = mix[:SERVE_BATCH]
+    server.serve_batch(hot)
+    require(all(r.cached for r in server.serve_batch(hot)),
+            "the hot batch is not all cache hits")
+    hit_ms = host_ms(lambda: server.serve_batch(hot), HIT_REPS)
+    live = svc.live_version()
+
+    def engine_dispatch():
+        wl = qry.Workload(schema, tuple(hot))
+        return live.engine.route_queries(wl.tensorize(live.tree.cuts),
+                                         transient=True)
+
+    dispatch_ms = host_ms(engine_dispatch, HIT_REPS)
+    server.stop()
+    out = {
+        "rounds": SERVE_ROUNDS, "batch": SERVE_BATCH,
+        "swap_round": SERVE_SWAP_AT, "swap": swap,
+        "queries_served": det["counters"]["queries_served"],
+        "queries_cached": det["counters"]["queries_cached"],
+        "queries_routed": det["counters"]["queries_routed"],
+        "dispatches": det["counters"]["dispatches"],
+        "engine_dispatches": det["counters"]["engine_dispatches"],
+        "hit_rate": det["cache"]["hit_rate"],
+        "invalidated": det["cache"]["invalidated"],
+        "stale_puts": det["cache"]["stale_puts"],
+        "stale_responses": det["counters"]["stale_responses"],
+        "builds_outside_swap": outside,
+        "launches": ctx["path_launches"]["serve_rounds"],
+        "hit_path_ms": hit_ms, "engine_dispatch_ms": dispatch_ms,
+        "hit_speedup": dispatch_ms["median"] / hit_ms["median"],
+    }
+    log(f"serve rounds: {out['queries_served']} queries, hit rate "
+        f"{out['hit_rate']:.4f}, {out['engine_dispatches']} engine "
+        f"dispatches, swap {swap}; hit path {hit_ms['median']:.4f} ms "
+        f"against an engine dispatch {dispatch_ms['median']:.4f} ms")
+
+    # -- (b) closed loop through the async dispatcher, a hot swap from the
+    # main thread under live traffic ---------------------------------------
+    cand = build_layout(sample, work_c, min_block=MIN_BLOCK, seed=SEED + 3,
+                        device=dev, plan_cache=svc.plans)
+    LayoutEngine(cand.tree, device=dev, plan_cache=svc.plans).query_hits(
+        work, transient=True)  # its query plan: swap cost, paid here
+    torch.cuda.synchronize()
+    server = QueryServer(svc, config, tracker=svc.workload_tracker())
+    server.start()
+    server.warm(work)
+    cl_pairs, errors, lock = [], [], threading.Lock()
+    p = np.arange(1, len(work) + 1, dtype=np.float64) ** -SERVE_ZIPF
+    p /= p.sum()
+
+    def client(tid):
+        rng = np.random.default_rng(SEED + 100 + tid)
+        mine = []
+        try:
+            for _ in range(SERVE_PER_CLIENT):
+                q = work.queries[int(rng.choice(len(work), p=p))]
+                mine.append((q, server.serve(q, tenant=f"t{tid}",
+                                             timeout=60.0)))
+        except BaseException as e:  # raised after the join
+            errors.append(e)
+        with lock:
+            cl_pairs.extend(mine)
+
+    def closed_loop():
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVE_CLIENTS)]
+        b0 = tplan.build_counts()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        while server.counters.queries_served < SERVE_SWAP_AFTER and any(
+                t.is_alive() for t in threads):
+            time.sleep(0.0005)
+        served_at_swap = server.counters.queries_served
+        gen = svc.swap(cand)
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        return (wall, gen, served_at_swap,
+                tplan.build_delta(b0, tplan.build_counts()))
+
+    wall, gen, served_at_swap, builds = counted("serve_closed_loop",
+                                                closed_loop)
+    server.stop()
+    if errors:
+        raise errors[0]
+    cl = server.stats()
+    n = len(cl_pairs)
+    require(n == SERVE_CLIENTS * SERVE_PER_CLIENT, f"{n} queries served")
+    require(cl["counters"]["stale_responses"] == 0,
+            f"closed loop: {cl['counters']['stale_responses']} stale")
+    require(not builds, f"closed loop built plans: {builds}")
+    require(served_at_swap < n, "the swap came after the traffic")
+    same_as_numpy(cl_pairs, "closed loop")
+    require(workload_keys(svc.plans) >= standing,
+            "serving evicted a standing workload's operands")
+    launched = ctx["path_launches"]["serve_closed_loop"]
+    require(launched["query_intersect"] == cl["counters"]["engine_dispatches"]
+            and sum(launched.values()) == launched["query_intersect"],
+            f"closed loop: launches {launched} for "
+            f"{cl['counters']['engine_dispatches']} engine dispatches")
+    out["closed_loop"] = {
+        "clients": SERVE_CLIENTS, "per_client": SERVE_PER_CLIENT,
+        "queries": n, "wall_s": wall, "qps": n / wall,
+        "p50_ms": cl["latency"]["p50_ms"], "p99_ms": cl["latency"]["p99_ms"],
+        "mean_ms": cl["latency"]["mean_ms"],
+        "hit_rate": cl["cache"]["hit_rate"],
+        "dispatches": cl["counters"]["dispatches"],
+        "engine_dispatches": cl["counters"]["engine_dispatches"],
+        "stale_responses": cl["counters"]["stale_responses"],
+        "uncached_dispatches": cl["counters"]["uncached_dispatches"],
+        "swap_generation": gen, "served_at_swap": served_at_swap,
+        "builds": builds, "admission": cl["admission"],
+        "launches": launched,
+    }
+    out["standing_workloads_kept"] = len(standing)
+    log(f"serve closed loop: {n} queries in {wall:.3f} s "
+        f"({n / wall:.1f} qps), p50 {cl['latency']['p50_ms']:.4f} ms, p99 "
+        f"{cl['latency']['p99_ms']:.4f} ms, swap to gen {gen} after "
+        f"{served_at_swap} served; hit rate {cl['cache']['hit_rate']:.4f}")
+    return out
+
+
+def pipeline_phase(ctx, counted, store_root) -> dict:
+    """``QdTreePipeline`` over the prefix's block store, curated by
+    PIPELINE_QUERIES workload queries: each pipeline reads only the blocks
+    its query's route names, and the rows behind every batch, in the
+    scheduler's block order, equal a brute-force ``Query.evaluate`` of the
+    prefix."""
+    from repro_torch.data import pipeline as pl
+    from repro_torch.data.blocks import BlockStore
+
+    records, oracle_bids = ctx["records"], ctx["oracle_bids"]
+    work = ctx["work"]
+    schema = work.schema
+    store = BlockStore.open(store_root)
+    # the most selective templates expected to fill PIPELINE_MIN_ROWS rows
+    # of the prefix (selectivity read off the 1% sample): tokenizing is
+    # host code, a row at a time
+    sample = ctx["sample"]
+    scale = ctx["n_rows"] / sample.shape[0]
+    per_q = [int(q.evaluate(sample, schema).sum()) for q in work.queries]
+    order = sorted((c, i) for i, c in enumerate(per_q)
+                   if c * scale >= PIPELINE_MIN_ROWS)
+    chosen = [work.queries[i] for _, i in order[:PIPELINE_QUERIES]]
+    require(len(chosen) == PIPELINE_QUERIES, "too few curation queries")
+    spied = []  # (rows, tokens) of each block the pipelines tokenized
+    orig = pl.records_to_tokens
+
+    def spy(rows, *a, **k):
+        toks = orig(rows, *a, **k)
+        spied.append((rows, toks))
+        return toks
+
+    def run_all():
+        outs = []
+        for q in chosen:
+            cfg = pl.PipelineConfig(batch_size=PIPELINE_BATCH,
+                                    seq_len=PIPELINE_SEQ, vocab=PIPELINE_VOCAB,
+                                    curation_query=q, seed=SEED)
+            t0 = time.perf_counter()
+            pipe = pl.QdTreePipeline(store, cfg)
+            start = len(spied)
+            batches = list(pipe)
+            outs.append((q, pipe, batches, spied[start:],
+                         time.perf_counter() - t0))
+        return outs
+
+    pl.records_to_tokens = spy
+    try:
+        outs = counted("pipeline", run_all)
+    finally:
+        pl.records_to_tokens = orig
+    rows_out = []
+    for q, pipe, batches, seen, wall in outs:
+        # the brute-force rows, block by block in the scheduler's order
+        idx = np.flatnonzero(q.evaluate(records, schema))
+        idx = idx[np.argsort(oracle_bids[idx], kind="stable")]
+        starts = np.searchsorted(oracle_bids[idx],
+                                 np.arange(store.tree.n_leaves + 1))
+        sched = pl.ElasticBlockScheduler(pipe.block_ids, seed=SEED)
+        blocks = []
+        while (b := sched.next_block(0)) is not None:
+            blocks.append(b)
+        require(sorted(blocks) == sorted(pipe.block_ids)
+                and len(blocks) <= store.tree.n_leaves,
+                "the pipeline's blocks")
+        require(set(np.unique(oracle_bids[idx]).tolist()) <= set(blocks),
+                "a matching row lies in a block the curation skipped")
+        want = records[np.concatenate(
+            [idx[starts[b]:starts[b + 1]] for b in blocks])]
+        got = (np.concatenate([r for r, _ in seen]) if seen
+               else want[:0])
+        require(np.array_equal(got, want),
+                "the pipeline's rows differ from the brute-force filter")
+        n_full = want.shape[0] // PIPELINE_BATCH
+        require(len(batches) == n_full,
+                f"{len(batches)} batches for {want.shape[0]} rows")
+        if n_full:
+            toks = np.concatenate([t for _, t in seen])[
+                :n_full * PIPELINE_BATCH]
+            require(np.array_equal(np.concatenate([x for x, _ in batches]),
+                                   toks[:, :-1])
+                    and np.array_equal(
+                        np.concatenate([y for _, y in batches]),
+                        toks[:, 1:]),
+                    "the batches differ from their rows' tokens")
+        rows_out.append({
+            "rows": int(want.shape[0]), "batches": len(batches),
+            "blocks_read": len(blocks),
+            "blocks_skipped": pipe.blocks_skipped,
+            "wall_s": wall,
+            "records_per_s": want.shape[0] / wall if wall else 0.0,
+        })
+    launched = ctx["path_launches"]["pipeline"]
+    require(launched["query_intersect"] == PIPELINE_QUERIES,
+            f"pipeline: {launched}")
+    log(f"pipeline: {rows_out}")
+    return {"queries": rows_out, "launches": launched,
+            "batch": PIPELINE_BATCH, "seq_len": PIPELINE_SEQ}
+
+
+def coordinator_phase(ctx, counted) -> dict:
+    """A ``FleetCoordinator`` at cadence COORD_CADENCE over the prefix:
+    COORD_WORKERS worker threads route their chunks on private replicas of
+    an untightened tree (``ShardIngestor``, each on its own CUDA stream)
+    and submit two partials each, and one more worker submits one and
+    leaves before the last fold; then ``LayoutService.ingest`` of the
+    prefix in rounds with ``IngestOptions(shards=COORD_WORKERS,
+    coordinator=)``.  Both publish descriptions and block sizes equal to a
+    single-stream ingest's and the numpy oracle's."""
+    import threading
+
+    import torch
+
+    from repro_torch.coordinator import FleetCoordinator
+    from repro_torch.core.qdtree import FrozenQdTree
+    from repro_torch.engine import LayoutEngine, replicate_tree
+    from repro_torch.engine.sharded import ShardIngestor, micro_batches
+    from repro_torch.service import IngestOptions, LayoutService
+
+    dev, rec_dev = ctx["dev"], ctx["rec_dev"]
+    n_pre, oracle = ctx["n_rows"], ctx["oracle_tree"]
+    prefix = rec_dev[:n_pre]
+    single = LayoutEngine(FrozenQdTree.from_arrays(ctx["untightened"]),
+                          device=dev)
+    single.ingest(ctx["slices"])
+    require(leaves_equal(single.tree, oracle), "single stream vs oracle")
+
+    def check(tree, what):
+        require(leaves_equal(tree, oracle)
+                and np.array_equal(tree.block_sizes, oracle.block_sizes),
+                f"{what}: published descriptions differ from the oracle's")
+        require(leaves_equal(tree, single.tree), f"{what}: vs single stream")
+
+    svc = LayoutService(FrozenQdTree.from_arrays(ctx["untightened"]),
+                        device=dev)
+    fold_ms, reports = [], []
+    coord = FleetCoordinator(svc, cadence=COORD_CADENCE,
+                             on_fold=reports.append)
+    chunks = torch.tensor_split(prefix, 2 * COORD_WORKERS + 1)
+    handles = [coord.register(f"ingest-{i}") for i in range(COORD_WORKERS)]
+    leaver = coord.register("leaver")
+    lock = threading.Lock()
+    errors = []
+
+    # private replicas, made before any fold publishes into the live tree
+    engines = [LayoutEngine(replicate_tree(svc.tree), device=dev,
+                            plan_cache=svc.plans)
+               for _ in range(COORD_WORKERS + 1)]
+
+    def submit(i, handle, rows):
+        state = ShardIngestor(engines[i]).run(
+            micro_batches(rows, COORD_BATCH))
+        with lock:  # submissions in turn, so a fold is timed alone
+            t0 = time.perf_counter()
+            rep = coord.submit(handle, state=state,
+                               generation=svc.generation)
+            if rep is not None:
+                fold_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def worker(i):
+        try:
+            for c in (chunks[2 * i], chunks[2 * i + 1]):
+                submit(i, handles[i], c)
+        except BaseException as e:
+            errors.append(e)
+
+    def fleet():
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(COORD_WORKERS)]
+        for t in threads:
+            t.start()
+        # one partial while the others stream, then it leaves: its
+        # partial stays pending and folds with theirs
+        submit(COORD_WORKERS, leaver, chunks[-1])
+        coord.leave(leaver)
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        t0 = time.perf_counter()
+        if coord.stats()["pending"]:
+            coord.fold()
+            fold_ms.append((time.perf_counter() - t0) * 1e3)
+
+    counted("coordinator", fleet)
+    check(svc.tree, "coordinator fold")
+    stats = coord.stats()
+    require(stats["accumulated_records"] == n_pre
+            and stats["stale_dropped"] == 0
+            and [w.name for w in coord.workers()] == [
+                h.name for h in handles],
+            f"coordinator counters {stats}")
+    # the service's own fleet path: thread shards on the card, no local
+    # publish, the coordinator folding every COORD_CADENCE rounds
+    svc2 = LayoutService(FrozenQdTree.from_arrays(ctx["untightened"]),
+                         device=dev)
+    coord2 = FleetCoordinator(svc2, cadence=COORD_CADENCE)
+
+    def rounds():
+        reps = [svc2.ingest(part, IngestOptions(shards=COORD_WORKERS,
+                                                coordinator=coord2))
+                for part in torch.tensor_split(prefix, COORD_CADENCE)]
+        require(not any(r.published for r in reps),
+                "a coordinated round published locally")
+        return reps
+
+    counted("coordinator_service", rounds)
+    check(svc2.tree, "service ingest with a coordinator")
+    out = {
+        "workers": COORD_WORKERS + 1, "cadence": COORD_CADENCE,
+        "fold_ms": fold_ms, "folds": [
+            {k: v for k, v in vars(r).items() if k != "drift"}
+            for r in reports],
+        "stats": stats, "service_stats": coord2.stats(),
+        "launches": ctx["path_launches"]["coordinator"],
+        "service_launches": ctx["path_launches"]["coordinator_service"],
+    }
+    log(f"coordinator: folds {out['folds']} in {fold_ms} ms; {stats}; the "
+        f"service's rounds {coord2.stats()}")
+    return out
+
+
+def cli_phase(ctx) -> dict:
+    """Both command lines once, as subprocesses on the card, side by side:
+    each exits 0 and its summary line shows no stale response, no plan
+    built while serving and a swap note (serve), folds and a store
+    (ingest)."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="qd-cli-"))
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cmds = {
+        "ingest": [sys.executable, "-m", "repro_torch.launch.ingest",
+                   "--rows", str(CLI_INGEST_ROWS), "--shards", "2",
+                   "--coordinator", "--track-workload", "--drift",
+                   "--store", str(tmp / "store"), *CLI_DEVICE_ARGS],
+        "serve": [sys.executable, "-m", "repro_torch.launch.serve",
+                  "--rows", str(CLI_SERVE_ROWS), "--duration",
+                  str(CLI_SERVE_S), "--workload", "auto",
+                  *CLI_DEVICE_ARGS],
+    }
+    out = {}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=ROOT, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+             for k, c in cmds.items()}
+
+    def wait(name):
+        stdout, stderr = procs[name].communicate(timeout=CLI_TIMEOUT_S)
+        return stdout, stderr, time.perf_counter() - t0
+
+    try:
+        with ThreadPoolExecutor(len(procs)) as waiters:
+            done = {k: waiters.submit(wait, k) for k in procs}
+            for name, fut in done.items():
+                stdout, stderr, wall = fut.result()
+                rc = procs[name].returncode
+                require(rc == 0, f"{name} CLI exited {rc}: "
+                                 f"{stderr[-2000:]}")
+                summary = json.loads(stdout.strip().splitlines()[-1])
+                out[name] = {"wall_s": wall, "summary": summary}
+                ctx["worker_launches"].append(summary["launches"])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    s = out["serve"]["summary"]
+    require(s["device"].startswith("cuda") and s["stale_responses"] == 0
+            and s["serve_builds"] == {} and s["swap"] is not None
+            and "swapped" in s["swap"]
+            and s["launches"]["query_intersect"] > 0,
+            f"serve CLI summary: {s}")
+    i = out["ingest"]["summary"]
+    require(i["device"].startswith("cuda") and i["n_records"] ==
+            CLI_INGEST_ROWS and i["coordinator"]["folds"] >= 1
+            and i["launches"]["fused_ingest_shared"] > 0,
+            f"ingest CLI summary: {i}")
+    log(f"CLIs on the card: serve {s['served']} served, hit rate "
+        f"{s['hit_rate']:.4f}, swap {s['swap']}; ingest "
+        f"{i['n_records']} records, {i['coordinator']['folds']} folds")
+    return {
+        "serve": {k: s[k] for k in (
+            "served", "rejected", "qps_achieved", "hit_rate", "p50_ms",
+            "p99_ms", "stale_responses", "serve_builds", "swap_builds",
+            "swap", "generation", "n_blocks", "launches")},
+        "ingest": {k: i[k] for k in (
+            "n_records", "n_batches", "records_per_s", "n_blocks",
+            "ingest_builds", "scanned_fraction", "coordinator", "drift",
+            "workload_tracking", "launches")},
+        "wall_s": {k: v["wall_s"] for k, v in out.items()},
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=FULL_ROWS,
@@ -1704,12 +2287,13 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     # the finer layout and the baselines are built in other processes while
     # the rest runs
-    with multiprocessing.get_context("spawn").Pool(2) as pool:
+    with multiprocessing.get_context("spawn").Pool(2) as pool, \
+            tempfile.TemporaryDirectory(prefix="qd-store-") as store_root:
         fine_job = pool.apply_async(fine_layout, (SEED,))
-        return run(args, dev, torch, pool, fine_job)
+        return run(args, dev, torch, pool, fine_job, Path(store_root))
 
 
-def run(args, dev, torch, pool, fine_job) -> int:
+def run(args, dev, torch, pool, fine_job, store_root) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import rewards
@@ -2038,6 +2622,7 @@ def run(args, dev, torch, pool, fine_job) -> int:
         "oracle_partial": part, "single_partial": single_partial,
         "workers": workers, "path_launches": path_launches,
         "worker_launches": [], "work": work, "wt": wt, "sample": sample,
+        "tree": tree,
     }
     phase_s = {}
     t0 = time.perf_counter()
@@ -2061,7 +2646,7 @@ def run(args, dev, torch, pool, fine_job) -> int:
     spill["rows"] = n_pre
     phase_s["spill"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    store = store_phase(pctx, counted, spill_buf, spill_tree)
+    store = store_phase(pctx, counted, spill_buf, spill_tree, store_root)
     del spill_buf
     phase_s["store"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2083,12 +2668,27 @@ def run(args, dev, torch, pool, fine_job) -> int:
     t0 = time.perf_counter()
     service = service_phase(ctx, counted)
     phase_s["service"] = time.perf_counter() - t0
+    # -- the serving tier, the pipeline, the fleet coordinator and the
+    # CLIs, each path counted from 0 ----------------------------------------
+    t0 = time.perf_counter()
+    serve = serve_phase(ctx, counted)
+    phase_s["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipeline = pipeline_phase(pctx, counted, store_root)
+    phase_s["pipeline"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet = coordinator_phase(pctx, counted)
+    phase_s["coordinator"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli = cli_phase(ctx)
+    phase_s["cli"] = time.perf_counter() - t0
     # every path's launches, the process shards' (made in their workers)
     # included
     launches = {k: sum(c[k] for c in path_launches.values())
                 + sum(w.get(k, 0) for w in ctx["worker_launches"])
                 for k in _build.LAUNCH_NAMES}
-    log(f"launches by path: {path_launches}; in process-shard workers: "
+    log(f"launches by path: {path_launches}; in other processes (process "
+        f"shards, the CLIs): "
         f"{ctx['worker_launches']}")
     # eval_cuts is back on a counted path: WOODBLOCK's env; locate_leaf
     # stays off every path
@@ -2196,7 +2796,8 @@ def run(args, dev, torch, pool, fine_job) -> int:
         "host_threads": workers,
         "sharded_ingest": shards, "spill_ingest": spill,
         "block_store": store, "autotune": tuned, "baselines": baselines,
-        "woodblock": woodblock, "service": service,
+        "woodblock": woodblock, "service": service, "serve": serve,
+        "pipeline": pipeline, "coordinator": fleet, "cli": cli,
         "phase_s": phase_s,
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         "total_s": time.perf_counter() - t_start,
@@ -2248,6 +2849,29 @@ def run(args, dev, torch, pool, fine_job) -> int:
           f"{sv['drift']['recovered_scanned']:.6f} against the oracle's "
           f"{sv['drift']['oracle_scanned']:.6f}; scanned at 1x and 2x "
           f"{sv['replicas']['scanned']}")
+    sr, cl = serve, serve["closed_loop"]
+    print(f"serve: {sr['queries_served']} queries in {SERVE_ROUNDS} sync "
+          f"rounds, hit rate {sr['hit_rate']:.6f}, "
+          f"{sr['engine_dispatches']} engine dispatches, "
+          f"{sr['stale_responses']} stale, plan builds outside the swap "
+          f"{sr['builds_outside_swap'] or 0}; hit path "
+          f"{sr['hit_path_ms']['median']:.6f} ms against an engine dispatch "
+          f"{sr['engine_dispatch_ms']['median']:.6f} ms "
+          f"({sr['hit_speedup']:.3f}x); closed loop {cl['qps']:.1f} qps, "
+          f"p50 {cl['p50_ms']:.6f} ms, p99 {cl['p99_ms']:.6f} ms, "
+          f"{cl['stale_responses']} stale, plan builds {cl['builds'] or 0}")
+    print("pipeline: " + "; ".join(
+        f"{q['rows']} rows in {q['batches']} batches from "
+        f"{q['blocks_read']} blocks, {q['records_per_s']:.1f} records/s"
+        for q in pipeline["queries"]))
+    print(f"coordinator: folds {fleet['fold_ms']} ms; {fleet['stats']}")
+    print(f"cli: serve {cli['serve']['served']} served, "
+          f"{cli['serve']['stale_responses']} stale, builds while serving "
+          f"{cli['serve']['serve_builds'] or 0}, swap {cli['serve']['swap']};"
+          f" ingest {cli['ingest']['n_records']} records, "
+          f"{cli['ingest']['coordinator']['folds']} folds; walls "
+          f"{cli['wall_s']}")
+    print(f"phase seconds: {phase_s}")
     print(json.dumps({"metrics": metrics}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

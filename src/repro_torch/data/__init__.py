@@ -1,4 +1,4 @@
-"""Data substrate: synthetic corpora, workloads, block store."""
+"""Data substrate: synthetic corpora, workloads, block store, pipeline."""
 
 from repro_torch.data.datagen import (  # noqa: F401
     make_errorlog_ext,
@@ -11,3 +11,9 @@ from repro_torch.data.workload import (  # noqa: F401
     make_tpch_workload,
 )
 from repro_torch.data.blocks import BlockStore, ScanResult  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    ElasticBlockScheduler,
+    PipelineConfig,
+    QdTreePipeline,
+    records_to_tokens,
+)

@@ -11,8 +11,10 @@ operations against a ``FrozenQdTree``:
     stored (``engine/autotune.py``), else planned by shape
   * ``fused_ingest(tree, cache, records, device)`` — BIDs + TightenPartial
     of one batch (a fresh accumulator)
-  * ``query_intersect(tree, cache, wt, device)``   — (n_leaves, n_queries)
-    hits and the per-conjunct Eq. 1 scan counts
+  * ``query_intersect(tree, cache, wt, device, transient=False)`` —
+    (n_leaves, n_queries) hits and the per-conjunct Eq. 1 scan counts;
+    ``transient`` packs and uploads the workload for that call only
+    (an ephemeral miss batch or ad-hoc query: no plan built, none evicted)
 
 Two backends, bit-identical:
 
@@ -123,16 +125,20 @@ class Backend:
         return bids, acc.partial()
 
     def query_intersect(self, tree: FrozenQdTree, cache: PlanCache,
-                        wt: qry.WorkloadTensors, device: torch.device):
+                        wt: qry.WorkloadTensors, device: torch.device,
+                        transient: bool = False):
         """``(hits (n_leaves, n_queries) bool, scanned (n_conj,) int64)``.
 
         ``scanned[c]`` sums the tree's block sizes (its last tightening's
-        counts) over the blocks conjunct c hits.
+        counts) over the blocks conjunct c hits.  ``transient`` keeps the
+        workload's operands out of the plan cache: they serve this call
+        only.
         """
         raise NotImplementedError
 
-    def query_hits(self, tree, cache, wt, device) -> np.ndarray:
-        return self.query_intersect(tree, cache, wt, device)[0]
+    def query_hits(self, tree, cache, wt, device,
+                   transient: bool = False) -> np.ndarray:
+        return self.query_intersect(tree, cache, wt, device, transient)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +170,7 @@ class NumpyBackend(Backend):
     def accumulator(self, tree, cache, device, launch=None):
         return HostAccumulator(tree)
 
-    def query_intersect(self, tree, cache, wt, device):
+    def query_intersect(self, tree, cache, wt, device, transient=False):
         conj = qry.conjuncts_intersect(
             tree.leaf_lo, tree.leaf_hi, tree.leaf_cat, tree.leaf_adv, wt,
             tree.schema,
@@ -308,10 +314,18 @@ class TorchBackend(Backend):
 
         return cache.get(key, build)
 
-    def query_intersect(self, tree, cache, wt, device):
+    def query_intersect(self, tree, cache, wt, device, transient=False):
         ops = self._query_plan(tree, cache, device).operands
-        conj = self._workload_plan(tree, wt, ops["host_layout"], cache,
-                                   device).operands
+        if transient:
+            # an ephemeral workload (a serving miss batch, an ad-hoc
+            # query): a few KB uploaded for this launch, no plan built, no
+            # standing workload's operands evicted
+            conj = planlib.to_device(
+                kops.pack_workload(wt, ops["host_layout"]), device
+            )
+        else:
+            conj = self._workload_plan(tree, wt, ops["host_layout"], cache,
+                                       device).operands
         hits, scanned = qk.query_intersect(ops["leaf"], conj, ops["layout"])
         conj_hits = hits.cpu().numpy().astype(bool)
         return qry.queries_intersect(conj_hits, wt), scanned.cpu().numpy()

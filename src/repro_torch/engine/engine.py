@@ -210,10 +210,17 @@ class LayoutEngine:
         self,
         workload: qry.Workload | qry.WorkloadTensors,
         backend: Optional[str] = None,
+        transient: bool = False,
     ) -> np.ndarray:
-        """(n_leaves, n_queries) bool — blocks each query must scan."""
+        """(n_leaves, n_queries) bool — blocks each query must scan.
+
+        ``transient=True`` uploads the workload's conjuncts for this call
+        only: an ephemeral workload (a serving miss batch) builds no plan
+        and evicts no standing workload's operands from the plan cache.
+        """
         return self._backend(backend).query_hits(
-            self.tree, self.plans, self._tensorize(workload), self.device
+            self.tree, self.plans, self._tensorize(workload), self.device,
+            transient,
         )
 
     def route_queries(  # qdlint: hot-path
@@ -221,6 +228,7 @@ class LayoutEngine:
         workload: qry.Workload | qry.WorkloadTensors,
         backend: Optional[str] = None,
         track=None,  # service.tracker.WorkloadTracker | None
+        transient: bool = False,
     ) -> list[np.ndarray]:
         """Per-query BID IN (...) lists for a whole workload (Sec 3.3).
 
@@ -228,12 +236,13 @@ class LayoutEngine:
         query.  ``track`` records each served query's canonical predicate
         signature into the given
         :class:`~repro_torch.service.tracker.WorkloadTracker` (host numpy:
-        no dispatch, no plan-cache traffic).
+        no dispatch, no plan-cache traffic).  ``transient`` as in
+        :meth:`query_hits`.
         """
         wt = self._tensorize(workload)
         if track is not None:
             track.record(workload, cuts=self.tree.cuts)
-        hits = self.query_hits(wt, backend=backend)
+        hits = self.query_hits(wt, backend=backend, transient=transient)
         return [
             np.nonzero(hits[:, q])[0].astype(np.int32)
             for q in range(wt.n_queries)
@@ -246,14 +255,15 @@ class LayoutEngine:
 
         Dispatches like every other entry point (on the GPU: one
         ``query_intersect`` launch) and tensorizes directly, bypassing the
-        workload LRU.  ``track`` records the query as ``route_queries``
-        does.
+        workload LRU; the query's operands are transient (no plan built,
+        no standing workload evicted).  ``track`` records the query as
+        ``route_queries`` does.
         """
         wl = qry.Workload(self.tree.schema, (query,))
         if track is not None:
             track.record(wl, cuts=self.tree.cuts)
         return self.route_queries(
-            wl.tensorize(self.tree.cuts), backend=backend
+            wl.tensorize(self.tree.cuts), backend=backend, transient=True
         )[0]
 
     def skip_stats(

@@ -6,6 +6,8 @@ point ingests everything:
 
     svc.ingest(batches)                                   # streaming
     svc.ingest(records, IngestOptions(shards=4))          # sharded
+    svc.ingest(records, IngestOptions(shards=4,
+                                      coordinator=fleet)) # fleet-folded
     svc.auto_rebuilder(RebuildPolicy(workload="auto", tracker=t))
 """
 
@@ -45,6 +47,10 @@ class IngestOptions:
     batch        micro-batch rows when ``ingest`` is handed a record
                  array (sharded or not); None takes :data:`CUDA_BATCH`
                  on the card and :data:`CPU_BATCH` on the CPU.
+    coordinator  a :class:`~repro_torch.coordinator.FleetCoordinator`: the
+                 run routes and aggregates but does NOT publish locally —
+                 the merged ShardState is submitted to the coordinator,
+                 which folds partials fleet-wide and owns every publish.
     """
 
     observe: object = None
@@ -53,6 +59,7 @@ class IngestOptions:
     executor: object = None
     shards: Optional[int] = None
     batch: Optional[int] = None
+    coordinator: object = None
 
     def __post_init__(self):
         if self.shards is not None and self.shards < 1:

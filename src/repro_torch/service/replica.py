@@ -357,7 +357,8 @@ class ReplicaSet:
 
     # -- cheapest-replica routing -------------------------------------------
     def route_queries(
-        self, workload: qry.Workload, backend: Optional[str] = None
+        self, workload: qry.Workload, backend: Optional[str] = None,
+        transient: bool = False,
     ) -> list[ReplicaRoute]:
         """Route every query on every replica (one batched
         ``route_queries`` dispatch per replica, through the shared plan
@@ -368,11 +369,13 @@ class ReplicaSet:
         sizes, so costs stay comparable).  Ties break on
         ``(cost, n_blocks, block-id bytes)`` — intrinsic to the routed
         content, so the chosen answer is invariant under replica order
-        permutation.
+        permutation.  ``transient`` keeps the workload out of the plan
+        cache (``LayoutEngine.route_queries``).
         """
         per_replica = [
             v.engine.route_queries(
-                workload.tensorize(v.tree.cuts), backend=backend
+                workload.tensorize(v.tree.cuts), backend=backend,
+                transient=transient,
             )
             for v in self.versions
         ]

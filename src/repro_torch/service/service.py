@@ -136,6 +136,9 @@ class LayoutService:
         # (generation, shards, batch, fused, backend): the tree replica
         # ships to the spawn workers once per generation, not per call
         self._sessions: dict[tuple, object] = {}  # guarded by: self._lock
+        # fleet-coordinator registrations: id(coordinator) -> (coordinator,
+        # WorkerHandle); the coordinator object is pinned so ids stay unique
+        self._coordinators: dict[int, tuple] = {}  # guarded by: self._lock
         self._live = self._new_version(layout)  # swap-guarded by: self._lock
         self._rset = ReplicaSet(  # swap-guarded by: self._lock
             (self._live,),
@@ -290,8 +293,11 @@ class LayoutService:
         each worker its own tracker and folds the states
         (``tracker.merge_state`` / ``repro_torch.service.tracker.merge_states``)
         — bit-identical to single-stream tracking, same algebra as
-        ``ShardState``.
+        ``ShardState``.  A served batch is an ephemeral workload: its
+        operands are transient (``LayoutEngine.route_queries``), so serving
+        builds no plan and evicts no standing workload's operands.
         """
+        kw.setdefault("transient", True)
         lists = self._live.engine.route_queries(
             workload, track=tracker, **kw
         )
@@ -333,6 +339,11 @@ class LayoutService:
           same records.  The per-generation worker sessions are cached
           on the service, so the tree replica ships to the pool once per
           generation, not once per call.
+        * ``coordinator`` (a
+          :class:`~repro_torch.coordinator.FleetCoordinator`) turns the run
+          into a fleet worker: route and aggregate here, publish THERE —
+          the merged ShardState is submitted for the coordinator's cadence
+          fold instead of being applied locally.
         * ``monitor`` (an :class:`~repro_torch.service.drift.AutoRebuilder`)
           tees batches into the monitor's reservoir and scores them
           against its standing workload (Eq. 1 per-batch accounting
@@ -359,7 +370,7 @@ class LayoutService:
         options = dataclasses.replace(options,
                                       batch=self.ingest_batch(options))
         shards = options.shards or 1
-        sharded = shards >= 2
+        sharded = shards >= 2 or options.coordinator is not None
         if isinstance(records, (np.ndarray, torch.Tensor)):
             if sharded:
                 return self._ingest_sharded(records, shards, options, kw)
@@ -368,8 +379,8 @@ class LayoutService:
             batches = micro_batches(records, options.batch)
         elif sharded:
             raise TypeError(
-                "IngestOptions(shards=) needs a record array, not a batch "
-                "iterable"
+                "IngestOptions(shards=/coordinator=) needs a record "
+                "array, not a batch iterable"
             )
         else:
             batches = records
@@ -405,11 +416,13 @@ class LayoutService:
         return CUDA_BATCH if self.device.type == "cuda" else CPU_BATCH
 
     def _ingest_sharded(self, records, n_shards, options, kw):
-        """The sharded arm of :meth:`ingest` (record array, shards >= 2)."""
+        """The sharded arm of :meth:`ingest` (record array, shards >= 2
+        and/or a fleet coordinator)."""
         from repro_torch.engine.sharded import sharded_ingest
 
         live = self._live  # consistent engine/tree view for the whole run
         monitor = options.monitor
+        coordinator = options.coordinator
         if options.observe is not None:
             kw["observe"] = options.observe
         kw.setdefault("fused", options.fused)
@@ -426,12 +439,30 @@ class LayoutService:
             and live.engine.device.type != "cuda"
         ):
             session = self._shard_session(live, n_shards, options, kw)
+        if coordinator is not None:
+            # route-and-aggregate only: the coordinator owns every
+            # publish, so local tightening is off and the merged partial
+            # ships to its cadence fold instead
+            kw.setdefault("tighten", False)
+            kw["keep_state"] = True
         report = sharded_ingest(
             live.engine, records, n_shards, batch=options.batch,
             executor=options.executor, lock=self._lock,
             publish_check=lambda: self._live is live,
             session=session, **kw,
         )
+        if coordinator is not None and report.state is not None:
+            state = report.state
+            if state.chunks:
+                # the fleet protocol ships aggregates, never rows: any
+                # spill chunks were already drained into the caller's
+                # local buffers by sharded_ingest
+                state = dataclasses.replace(state, chunks={})
+            coordinator.submit(
+                self._coordinator_handle(coordinator),
+                state=state,
+                generation=live.generation,
+            )
         if monitor is not None:
             monitor.add_records(records)
             if report.observation is not None:
@@ -478,12 +509,25 @@ class LayoutService:
         for s in sessions:
             s.close()
 
+    def _coordinator_handle(self, coordinator):
+        """This service's :class:`~repro_torch.coordinator.WorkerHandle`
+        with ``coordinator`` (registered once per coordinator object)."""
+        with self._lock:
+            entry = self._coordinators.get(id(coordinator))
+            if entry is None:
+                entry = (
+                    coordinator,
+                    coordinator.register(f"svc-{id(self):x}"),
+                )
+                self._coordinators[id(coordinator)] = entry
+        return entry[1]
+
     def apply_partial(self, state, expected=None) -> bool:
         """Publish a merged :class:`~repro_torch.engine.sharded.ShardState`
         tightening into the live tree; returns True iff it landed.
 
-        The publish seam for partials folded elsewhere: fold worker
-        partials anywhere — other processes, other hosts — and
+        The fleet-coordinator publish seam (``repro_torch.coordinator``):
+        fold worker partials anywhere — other processes, other hosts — and
         apply the merged aggregate here under the service lock, with the
         same ``IncrementalTightener.apply`` + description-version bump a
         local ``ingest`` run performs.  ``expected`` (a

@@ -932,3 +932,153 @@ def test_ppo_update_on_card_matches_cpu():
     a, lp, v = ppo.policy_step(card, batch["states"], batch["legal"],
                                torch.Generator(device=dev).manual_seed(3))
     assert a.device == dev and batch["legal"][torch.arange(n), a].all()
+
+
+def _serve_pair(seed):
+    """The same tightened tree served on the card and on the CPU, and a
+    second tree to hot-swap to."""
+    from repro_torch.service import LayoutService
+
+    frozen, records, work = random_case(seed, m=20_000)
+    frozen.tighten(records, frozen.route(records))
+    other, other_records, _ = random_case(seed + 10, m=20_000)
+    other.tighten(other_records, other.route(other_records))
+    return (LayoutService(_fresh(frozen)),
+            LayoutService(_fresh(frozen), device="cpu"), other, work)
+
+
+def _adopt(tree):
+    from repro_torch.service.service import _adopt_tree
+
+    return _adopt_tree(_fresh(tree))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_serve_on_card_matches_serve_on_cpu(seed):
+    """Sync rounds of a repeated mix with a hot swap in the middle: every
+    response and every counter on the card equals the CPU's; each engine
+    dispatch is one ``query_intersect`` launch; after ``warm`` the card
+    builds no plan outside the swap."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import QueryServer, ServeConfig
+
+    _cuda()
+    gpu, cpu, other, work = _serve_pair(seed)
+    rng = np.random.default_rng(seed)
+    mix = [work.queries[int(i)] for i in rng.integers(0, len(work), 200)]
+    servers = [QueryServer(s, ServeConfig(max_batch=16)) for s in (gpu, cpu)]
+    servers[0].warm(work)
+    got, want = [], []
+    builds = {}
+    launched = 0
+    for r in range(0, len(mix), 16):
+        if r == 96:
+            gpu.swap(_adopt(other))
+            cpu.swap(_adopt(other))
+            servers[0].warm(work)
+        before = tplan.build_counts()
+        n0 = _build.launch_counts()["query_intersect"]
+        d0 = servers[0].counters.engine_dispatches
+        got += servers[0].serve_batch(mix[r:r + 16])
+        launched += _build.launch_counts()["query_intersect"] - n0
+        assert (_build.launch_counts()["query_intersect"] - n0
+                == servers[0].counters.engine_dispatches - d0)
+        for k, n in tplan.build_delta(before, tplan.build_counts()).items():
+            builds[k] = builds.get(k, 0) + n
+        want += servers[1].serve_batch(mix[r:r + 16])
+    assert builds == {}
+    assert launched > 0
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.bids, b.bids)
+        assert (a.generation, a.desc_version, a.cached) == (
+            b.generation, b.desc_version, b.cached)
+    sa, sb = (s.stats() for s in servers)
+    sa.pop("latency"), sb.pop("latency")
+    assert sa == sb and sa["counters"]["stale_responses"] == 0
+    for s in servers:
+        s.stop()
+
+
+def test_async_serve_on_card_under_concurrent_swaps():
+    """Three client threads through the dispatcher on the card while the
+    main thread hot-swaps: no stale response, each equal to its
+    generation's numpy route, and a kernel error fails the tickets."""
+    import threading
+    import time
+
+    from repro_torch.engine import backends as be
+    from repro_torch.serve import QueryServer, ServeConfig
+
+    _cuda()
+    gpu, _, other, work = _serve_pair(3)
+    builds = [_adopt(other), _adopt(gpu.tree)]
+    server = QueryServer(gpu, ServeConfig(max_batch=8)).start()
+    server.warm(work)
+    pairs, errors = [], []
+
+    def client(tid):
+        rng = np.random.default_rng(tid)
+        try:
+            for _ in range(60):
+                q = work.queries[int(rng.integers(0, len(work)))]
+                pairs.append((q, server.serve(q, timeout=60.0)))
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for i in range(4):
+        time.sleep(0.01)
+        gpu.swap(builds[i % 2])
+    for t in threads:
+        t.join()
+    assert not errors, errors[0]
+    assert server.counters.stale_responses == 0 and len(pairs) == 180
+    for q, res in pairs:
+        tree = gpu.version(res.generation).tree
+        oracle = LayoutEngine(tree, backend="numpy", device="cpu")
+        np.testing.assert_array_equal(res.bids, oracle.route_query(q))
+    real = be.get_backend("torch").query_intersect
+
+    def boom(*a, **k):
+        raise RuntimeError("kernel failed")
+
+    be.get_backend("torch").query_intersect = boom
+    try:
+        fresh = [q for q in work.queries][:2]
+        gpu.swap(builds[0])  # a new epoch: both queries miss
+        tickets = [server.submit(q) for q in fresh]
+        for t in tickets:
+            with pytest.raises(RuntimeError, match="kernel failed"):
+                t.result(timeout=60.0)
+    finally:
+        be.get_backend("torch").query_intersect = real
+        server.stop()
+
+
+def test_coordinator_folds_thread_shards_on_card():
+    """``IngestOptions(coordinator=)`` with thread shards on the card
+    publishes what one CPU stream tightens."""
+    import warnings
+
+    from repro_torch.coordinator import FleetCoordinator
+    from repro_torch.engine import sharded
+    from repro_torch.service import IngestOptions, LayoutService
+
+    dev = _cuda()
+    frozen, records, _ = random_case(5, m=30_000)
+    svc = LayoutService(_fresh(frozen))
+    coord = FleetCoordinator(svc, cadence=2)
+    rec = torch.from_numpy(records).to(dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", sharded.PerformanceWarning)
+        for half in torch.tensor_split(rec, 2):
+            svc.ingest(half, IngestOptions(shards=4, batch=4001,
+                                           coordinator=coord))
+    assert coord.stats()["folds"] == 1
+    want = _fresh(frozen)
+    LayoutEngine(want, device="cpu").ingest([records])
+    for f in ("leaf_lo", "leaf_hi", "leaf_cat", "leaf_adv"):
+        np.testing.assert_array_equal(getattr(svc.tree, f),
+                                      getattr(want, f), f)
