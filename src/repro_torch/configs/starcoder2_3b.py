@@ -1,0 +1,18 @@
+"""starcoder2-3b [dense] — 30L d_model=3072 24H (GQA kv=2) d_ff=12288
+vocab=49152, GQA + RoPE, non-gated (GELU) MLP.  [arXiv:2402.19173; hf]"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-3b",
+    family="dense",
+    n_layers=30,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=2,
+    d_ff=12288,
+    vocab=49152,
+    mlp_gated=False,
+    norm_type="layernorm",
+    microbatches=2,
+)

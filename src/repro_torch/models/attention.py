@@ -1,0 +1,235 @@
+"""GQA attention: full, KV-chunked (online-softmax), and decode-with-cache.
+
+Anything longer than twice ``cfg.attn_chunk`` runs the chunked path: a
+double loop over (query-chunks × kv-chunks) carrying an f32 running max,
+denominator and accumulator, the reference's ``lax.scan`` form in plain
+torch ops, so the summation order and the masking follow it.  Score
+products take their operands in f32 (the reference's
+``preferred_element_type=float32``); ``torch.backends.cuda.matmul.
+allow_tf32`` stays False, so they are full f32 on the card too.
+
+Decode writes the new K/V into the fixed-capacity cache in place at
+``pos`` (the reference's masked update of a donated buffer) and attends
+over the whole cache with positions > ``pos`` masked.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common
+from repro_torch.models.common import dense_init, split_tree
+
+NEG_INF = -1e30
+SENTINEL = 2**30  # position of padded KV rows: masked causal or not
+
+
+def init_attention(gen, cfg: ModelConfig):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = common.pdtype(cfg)
+    pairs = {
+        "wq": dense_init(gen, (d, h, hd), dt, ("fsdp", "heads", None)),
+        "wk": dense_init(gen, (d, kv, hd), dt, ("fsdp", "kv_heads", None)),
+        "wv": dense_init(gen, (d, kv, hd), dt, ("fsdp", "kv_heads", None)),
+        "wo": dense_init(
+            gen, (h, hd, d), dt, ("heads", None, "fsdp"),
+            scale=1.0 / math.sqrt(h * hd),
+        ),
+    }
+    if cfg.qkv_bias:
+        z = lambda *shape: torch.zeros(shape, dtype=dt, device=gen.device)
+        pairs["bq"] = (z(h, hd), ("heads", None))
+        pairs["bk"] = (z(kv, hd), ("kv_heads", None))
+        pairs["bv"] = (z(kv, hd), ("kv_heads", None))
+    return split_tree(pairs)
+
+
+def _proj_heads(x, w, ct):
+    """einsum("bsd,dhk->bshk") as one matmul."""
+    d, h, k = w.shape
+    y = x @ w.to(ct).reshape(d, h * k)
+    return y.reshape(x.shape[:-1] + (h, k))
+
+
+def _out_proj(out, wo, ct):
+    """einsum("bshk,hkd->bsd") as one matmul."""
+    h, k, d = wo.shape
+    return out.to(ct).reshape(out.shape[:2] + (h * k,)) @ wo.to(ct).reshape(
+        h * k, d)
+
+
+def _project_qkv(params, x, kv_x, positions, kv_positions, cfg: ModelConfig):
+    ct = common.cdtype(cfg)
+    xq = x.to(ct)
+    xkv = (kv_x if kv_x is not None else x).to(ct)
+    q = _proj_heads(xq, params["wq"], ct)
+    k = _proj_heads(xkv, params["wk"], ct)
+    v = _proj_heads(xkv, params["wv"], ct)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(ct)
+        k = k + params["bk"].to(ct)
+        v = v + params["bv"].to(ct)
+    if cfg.pos_embed == "rope":
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, kv_positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _group_q(q, n_kv: int):
+    """(B,S,H,hd) → (B,S,KV,rep,hd) for GQA."""
+    b, s, h, hd = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, hd)
+
+
+def full_attention(q, k, v, q_pos, k_pos, causal: bool):
+    """Reference path for short sequences; fp32 softmax."""
+    hd = q.shape[-1]
+    scores = torch.einsum(
+        "bsgrh,btgh->bgrst", q.float(), k.float()
+    ) / math.sqrt(hd)
+    if causal:
+        mask = q_pos[:, None, None, :, None] >= k_pos[:, None, None, None, :]
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bgrst,btgh->bsgrh", probs.to(q.dtype), v)
+
+
+def chunked_attention(q, k, v, q_pos, k_pos, causal: bool, q_chunk: int,
+                      kv_chunk: int):
+    """Online-softmax attention: O(S·chunk) live memory.
+
+    q: (B,S,KV,rep,hd); k/v: (B,T,KV,hd); q_pos (B,S); k_pos (B,T).
+    """
+    b, s, g, r, hd = q.shape
+    t = k.shape[1]
+    q_chunk = min(q_chunk, s)
+    kv_chunk = min(kv_chunk, t)
+    # pad both sequence sides to chunk multiples; padded KV positions get
+    # a sentinel so they are masked under causal AND non-causal attention
+    s_pad = (-s) % q_chunk
+    t_pad = (-t) % kv_chunk
+    if s_pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, s_pad))
+        q_pos = torch.nn.functional.pad(q_pos, (0, s_pad))
+    if t_pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, t_pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, t_pad))
+        k_pos = torch.nn.functional.pad(k_pos, (0, t_pad), value=SENTINEL)
+    nq, nk = (s + s_pad) // q_chunk, (t + t_pad) // kv_chunk
+    scale = 1.0 / math.sqrt(hd)
+
+    outs = []
+    for i in range(nq):
+        qc = q[:, i * q_chunk:(i + 1) * q_chunk].float()
+        qpc = q_pos[:, i * q_chunk:(i + 1) * q_chunk]
+        m = torch.full((b, g, r, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l_sum = torch.zeros((b, g, r, q_chunk), dtype=torch.float32,
+                            device=q.device)
+        acc = torch.zeros((b, g, r, q_chunk, hd), dtype=torch.float32,
+                          device=q.device)
+        for j in range(nk):
+            kc = k[:, j * kv_chunk:(j + 1) * kv_chunk]
+            vc = v[:, j * kv_chunk:(j + 1) * kv_chunk]
+            kpc = k_pos[:, j * kv_chunk:(j + 1) * kv_chunk]
+            s_blk = torch.einsum("bsgrh,btgh->bgrst", qc, kc.float()) * scale
+            valid = (kpc < SENTINEL)[:, None, None, None, :]
+            if causal:
+                valid = valid & (qpc[:, None, None, :, None]
+                                 >= kpc[:, None, None, None, :])
+            s_blk = torch.where(valid, s_blk, NEG_INF)
+            m_new = torch.maximum(m, s_blk.amax(dim=-1))
+            p = torch.exp(s_blk - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l_sum = l_sum * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bgrst,btgh->bgrsh", p.to(vc.dtype).float(), vc.float())
+            m = m_new
+        out = acc / torch.clamp(l_sum[..., None], min=1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4))  # (b, qc, g, r, hd)
+    out = torch.cat(outs, dim=1)[:, :s]
+    return out.to(q.dtype)
+
+
+def attn_forward(params, x, positions, cfg: ModelConfig, causal: bool = True,
+                 kv_x=None, kv_positions=None, return_kv: bool = False):
+    """Train/prefill attention.  x: (B,S,D) → (B,S,D).
+
+    ``return_kv=True`` additionally returns (k, v) as (B, KV, S, hd) — the
+    cache layout — so prefill populates decode caches for free.
+    """
+    if kv_positions is None:
+        kv_positions = positions
+    q, k, v = _project_qkv(params, x, kv_x, positions, kv_positions, cfg)
+    qg = _group_q(q, cfg.n_kv_heads)
+    s, t = x.shape[1], k.shape[1]
+    if max(s, t) > 2 * cfg.attn_chunk:
+        out = chunked_attention(
+            qg, k, v, positions, kv_positions, causal,
+            q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk,
+        )
+    else:
+        out = full_attention(qg, k, v, positions, kv_positions, causal)
+    b = x.shape[0]
+    out = out.reshape(b, s, cfg.n_heads, cfg.hd)
+    y = _out_proj(out, params["wo"], common.cdtype(cfg))
+    if return_kv:
+        return y, (k.transpose(1, 2), v.transpose(1, 2))
+    return y
+
+
+def _cached_attention(qg, k_cache, v_cache, cfg: ModelConfig, mask=None):
+    """(B,1,KV,rep,hd) queries against (B,KV,T,hd) caches → (B,1,H,hd)."""
+    scores = torch.einsum(
+        "bsgrh,bgth->bgrst", qg.float(), k_cache.float()
+    ) / math.sqrt(cfg.hd)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrst,bgth->bsgrh", probs.to(v_cache.dtype), v_cache)
+    return out.reshape(qg.shape[0], 1, cfg.n_heads, cfg.hd)
+
+
+def cross_attn_cached(params, x, k_cache, v_cache, cfg: ModelConfig):
+    """Decode-time cross-attention against precomputed (B,KV,F,hd) K/V."""
+    ct = common.cdtype(cfg)
+    q = _proj_heads(x.to(ct), params["wq"], ct)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(ct)
+    out = _cached_attention(_group_q(q, cfg.n_kv_heads), k_cache, v_cache,
+                            cfg)
+    return _out_proj(out, params["wo"], ct)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, n_layers: int,
+                  device=None):
+    """Stacked KV cache (n_layers leading dim) + logical specs."""
+    shape = (n_layers, batch, cfg.n_kv_heads, max_seq, cfg.hd)
+    axes = ("layers", "batch", "kv_heads", "cache_seq", None)
+    dev = common.resolve_device(device)
+    cache = {
+        "k": torch.zeros(shape, dtype=common.cdtype(cfg), device=dev),
+        "v": torch.zeros(shape, dtype=common.cdtype(cfg), device=dev),
+    }
+    return cache, {"k": axes, "v": axes}
+
+
+def attn_decode(params, x, k_cache, v_cache, pos: int, cfg: ModelConfig):
+    """One-token decode.  x: (B,1,D); k/v_cache: (B,KV,S,hd); pos: int.
+
+    Writes the new entries into the caches at ``pos`` in place and returns
+    (y (B,1,D), k_cache, v_cache).
+    """
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(params, x, None, positions, positions, cfg)
+    k_cache[:, :, pos] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, :, pos] = v[:, 0].to(v_cache.dtype)
+    t_idx = torch.arange(k_cache.shape[2], device=x.device)
+    mask = t_idx[None, None, None, None, :] <= pos
+    out = _cached_attention(_group_q(q, cfg.n_kv_heads), k_cache, v_cache,
+                            cfg, mask)
+    return _out_proj(out, params["wo"], common.cdtype(cfg)), k_cache, v_cache

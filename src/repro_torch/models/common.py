@@ -1,0 +1,116 @@
+"""Shared model components: norms, RoPE, param init with logical-axis specs.
+
+Every ``init_*`` returns ``(params, specs)`` where ``specs`` mirrors the
+param tree with tuples of logical axis names, as the reference's do.
+Params are plain dicts of tensors; mixed precision policy: params live in
+``cfg.param_dtype``, matmuls run in ``cfg.compute_dtype``, normalizations,
+softmax and losses in float32.  Weights are drawn from an explicit
+``torch.Generator`` on the device the params live on.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.engine.plan import resolve_device
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def cdtype(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.compute_dtype]
+
+
+def pdtype(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.param_dtype]
+
+
+def make_generator(seed: int, device=None) -> torch.Generator:
+    """A generator seeded with ``seed`` on ``device`` (None: the GPU,
+    raising without one); weights drawn from it are made on that device."""
+    return torch.Generator(device=resolve_device(device)).manual_seed(seed)
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, shape, dtype, axes, scale=None):
+    """Truncated-normal (±2σ) init with fan-in scaling + logical axes."""
+    fan_in = shape[0] if len(shape) > 1 else shape[-1]
+    s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return w.mul_(s).to(dtype), axes
+
+
+def split_tree(pairs: dict):
+    """{'name': (param, axes)} → (params dict, specs dict)."""
+    params = {k: v[0] for k, v in pairs.items()}
+    specs = {k: v[1] for k, v in pairs.items()}
+    return params, specs
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def rmsnorm(x, scale, eps: float):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def layernorm(x, scale, bias, eps: float):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (B, S, H, hd); positions: (B, S) int.  Half-split pairs: the
+    first half of each head rotates against its second half."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)  # (hd/2,)
+    angles = positions[..., None].float() * freqs  # (B, S, hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# cross-entropy (fp32, label smoothing-free, z-loss optional)
+# ---------------------------------------------------------------------------
+def softmax_cross_entropy(logits, labels, weights=None,
+                          z_loss_coef: float = 1e-4):
+    """logits (..., V) any dtype → fp32 loss; returns (loss, mean_nll).
+
+    ``weights`` (same shape as labels) masks positions (e.g. VLM image
+    slots); the mean is over the weighted token count.
+    """
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    z = z_loss_coef * (lse ** 2)
+    if weights is None:
+        return nll.mean() + z.mean(), nll.mean()
+    w = weights.float()
+    denom = torch.clamp(w.sum(), min=1.0)
+    mean_nll = (nll * w).sum() / denom
+    return mean_nll + (z * w).sum() / denom, mean_nll

@@ -1,0 +1,301 @@
+"""Unified decoder stack for all decoder-only architectures: dense GQA
+(qwen/starcoder), VLM (llava — patch-embedding stub frontend), MoE
+(qwen3-moe/grok), SSM (mamba2), and hybrid (jamba).
+
+Layer heterogeneity (jamba's 1-attention-per-8 interleave, MoE on alternate
+layers) is expressed as a *layer program*: the smallest repeating period of
+slot specs, repeated ``n_groups`` times.  The reference stacks each slot's
+leaves on a leading ``n_groups`` axis for one ``lax.scan``; the port keeps
+one dict a group, ``params["layers"][g]["slot{j}"]``, and loops over the
+groups.  Decode caches keep the reference's stacked layout (a leading
+``n_groups`` axis a slot), and decode writes them in place.
+
+``cfg.remat`` and ``cfg.scan_unroll`` are the reference's training and
+lowering switches; serving ignores them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention, common, mlp, ssm
+from repro_torch.models.common import dense_init, split_tree
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotSpec:
+    mixer: str  # "attn" | "mamba"
+    mlp: str  # "dense" | "moe" | "none"
+
+
+def layer_program(cfg: ModelConfig) -> tuple[SlotSpec, ...]:
+    """The smallest repeating period of layer kinds."""
+    period = 1
+    if cfg.attn_every:
+        period = cfg.attn_every
+    if cfg.n_experts:
+        period = period * cfg.moe_every // math.gcd(period, cfg.moe_every)
+    slots = []
+    for i in range(period):
+        mixer = "attn" if cfg.is_attn_layer(i) else "mamba"
+        if cfg.family == "ssm":
+            m = "none"  # mamba2 blocks are mixer-only
+        elif cfg.is_moe_layer(i):
+            m = "moe"
+        else:
+            m = "dense"
+        slots.append(SlotSpec(mixer, m))
+    return tuple(slots)
+
+
+def n_groups(cfg: ModelConfig) -> int:
+    period = len(layer_program(cfg))
+    if cfg.n_layers % period:
+        raise ValueError(
+            f"{cfg.name}: n_layers={cfg.n_layers} not divisible by "
+            f"layer-program period {period}"
+        )
+    return cfg.n_layers // period
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def init_norm(cfg: ModelConfig, device=None):
+    dt = common.pdtype(cfg)
+    ones = torch.ones((cfg.d_model,), dtype=dt, device=device)
+    if cfg.norm_type == "layernorm":
+        p = {"scale": ones,
+             "bias": torch.zeros((cfg.d_model,), dtype=dt, device=device)}
+        s = {"scale": ("embed",), "bias": ("embed",)}
+    else:
+        p = {"scale": ones}
+        s = {"scale": ("embed",)}
+    return p, s
+
+
+def apply_norm(p, x, cfg: ModelConfig):
+    if cfg.norm_type == "layernorm":
+        return common.layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
+    return common.rmsnorm(x, p["scale"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# slot init / forward
+# ---------------------------------------------------------------------------
+def init_slot(gen, spec: SlotSpec, cfg: ModelConfig):
+    p, s = {}, {}
+    p["ln1"], s["ln1"] = init_norm(cfg, gen.device)
+    if spec.mixer == "attn":
+        p["mix"], s["mix"] = attention.init_attention(gen, cfg)
+    else:
+        p["mix"], s["mix"] = ssm.init_mamba(gen, cfg)
+    if spec.mlp != "none":
+        p["ln2"], s["ln2"] = init_norm(cfg, gen.device)
+        if spec.mlp == "moe":
+            p["mlp"], s["mlp"] = mlp.init_moe(gen, cfg)
+        else:
+            p["mlp"], s["mlp"] = mlp.init_mlp(gen, cfg)
+    return p, s
+
+
+def init_layer_stack(gen, cfg: ModelConfig):
+    """All layers: a list of ``n_groups`` dicts ``{"slot{j}": params}``,
+    and the specs, one dict a group as well."""
+    program = layer_program(cfg)
+    params, specs = [], []
+    for _ in range(n_groups(cfg)):
+        group, gspec = {}, {}
+        for j, spec in enumerate(program):
+            group[f"slot{j}"], gspec[f"slot{j}"] = init_slot(gen, spec, cfg)
+        params.append(group)
+        specs.append(gspec)
+    return params, specs
+
+
+def apply_slot(p, spec: SlotSpec, x, positions, cfg: ModelConfig,
+               collect_cache: bool = False):
+    """One residual block.  Returns (x, aux_loss, cache_or_None)."""
+    h = apply_norm(p["ln1"], x, cfg)
+    cache = None
+    if spec.mixer == "attn":
+        if collect_cache:
+            y, (k, v) = attention.attn_forward(
+                p["mix"], h, positions, cfg, causal=True, return_kv=True
+            )
+            cache = {"k": k, "v": v}
+        else:
+            y = attention.attn_forward(
+                p["mix"], h, positions, cfg, causal=True
+            )
+    else:
+        y, final_state, conv_tail = ssm.mamba_forward(p["mix"], h, cfg)
+        if collect_cache:
+            cache = {"state": final_state, "conv": conv_tail}
+    x = x + y
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.mlp != "none":
+        h = apply_norm(p["ln2"], x, cfg)
+        if spec.mlp == "moe":
+            y, aux = mlp.moe_forward(p["mlp"], h, cfg)
+        else:
+            y = mlp.mlp_forward(p["mlp"], h, cfg)
+        x = x + y
+    return x, aux, cache
+
+
+def _stack_caches(per_group: list):
+    """[{slot: {name: t}}] a group → {slot: {name: (n_groups, ...)}}."""
+    return {slot: {name: torch.stack([g[slot][name] for g in per_group])
+                   for name in c}
+            for slot, c in per_group[0].items()}
+
+
+def stack_forward(layers, x, positions, cfg: ModelConfig,
+                  collect_cache: bool = False):
+    """The layer groups in turn.  Returns (x, aux_sum, caches|None).
+
+    ``caches`` (when collected) is {slotJ: tree with leading n_groups}.
+    """
+    program = layer_program(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    per_group = []
+    for lp in layers:
+        caches = {}
+        for j, spec in enumerate(program):
+            x, a, cache = apply_slot(
+                lp[f"slot{j}"], spec, x, positions, cfg, collect_cache
+            )
+            aux = aux + a
+            caches[f"slot{j}"] = cache
+        per_group.append(caches)
+    return x, aux, (_stack_caches(per_group) if collect_cache else None)
+
+
+# ---------------------------------------------------------------------------
+# full decoder model
+# ---------------------------------------------------------------------------
+def init_decoder(gen, cfg: ModelConfig):
+    dt = common.pdtype(cfg)
+    pairs = {
+        "tok_embed": dense_init(
+            gen, (cfg.vocab, cfg.d_model), dt, ("vocab", "embed"), scale=1.0
+        ),
+        "head": dense_init(
+            gen, (cfg.d_model, cfg.vocab), dt, ("embed", "vocab")
+        ),
+    }
+    if cfg.pos_embed == "learned":
+        maxp = cfg.max_positions or 4096
+        pairs["pos_embed"] = dense_init(
+            gen, (maxp, cfg.d_model), dt, (None, "embed"), scale=0.02
+        )
+    if cfg.n_image_patches:
+        # VLM adapter: the anyres frontend is a stub (the batch supplies
+        # projected patch embeddings); mm_proj is the trainable projector.
+        pairs["mm_proj"] = dense_init(
+            gen, (cfg.d_model, cfg.d_model), dt, ("fsdp", None)
+        )
+    params, specs = split_tree(pairs)
+    params["final_ln"], specs["final_ln"] = init_norm(cfg, gen.device)
+    params["layers"], specs["layers"] = init_layer_stack(gen, cfg)
+    return params, specs
+
+
+def embed_tokens(params, tokens, positions, cfg: ModelConfig):
+    ct = common.cdtype(cfg)
+    x = F.embedding(tokens.long(), params["tok_embed"]).to(ct)
+    if cfg.pos_embed == "learned":
+        x = x + F.embedding(positions.long(), params["pos_embed"]).to(ct)
+    return x
+
+
+def merge_patches(params, x, patches, cfg: ModelConfig):
+    """VLM: image patch embeddings occupy the first n_patches positions."""
+    ct = common.cdtype(cfg)
+    proj = patches.to(ct) @ params["mm_proj"].to(ct)
+    npat = cfg.n_image_patches
+    s = x.shape[1]
+    if npat >= s:
+        raise ValueError("sequence shorter than patch count")
+    pad = F.pad(proj, (0, 0, 0, s - npat))
+    is_img = (torch.arange(s, device=x.device) < npat)[None, :, None]
+    return torch.where(is_img, pad, x)
+
+
+def head_logits(params, x, cfg: ModelConfig, norm: str = "final_ln"):
+    """Final norm, then the vocab projection in the compute dtype."""
+    x = apply_norm(params[norm], x, cfg)
+    ct = common.cdtype(cfg)
+    return x.to(ct) @ params["head"].to(ct)
+
+
+def decoder_forward(params, tokens, cfg: ModelConfig, patches=None,
+                    collect_cache: bool = False):
+    """tokens (B,S) → (logits (B,S,V), aux_loss, caches|None)."""
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    x = embed_tokens(params, tokens, positions, cfg)
+    if cfg.n_image_patches and patches is not None:
+        x = merge_patches(params, x, patches, cfg)
+    x, aux, caches = stack_forward(
+        params["layers"], x, positions, cfg, collect_cache
+    )
+    return head_logits(params, x, cfg), aux, caches
+
+
+# ---------------------------------------------------------------------------
+# decode (one token against caches)
+# ---------------------------------------------------------------------------
+def init_decode_caches(cfg: ModelConfig, batch: int, max_seq: int,
+                       device=None):
+    """Stacked per-slot caches + logical specs (leading n_groups axis)."""
+    program = layer_program(cfg)
+    ng = n_groups(cfg)
+    dev = common.resolve_device(device)
+    caches, specs = {}, {}
+    for j, spec in enumerate(program):
+        if spec.mixer == "attn":
+            caches[f"slot{j}"], specs[f"slot{j}"] = attention.init_kv_cache(
+                cfg, batch, max_seq, ng, dev)
+        else:
+            caches[f"slot{j}"], specs[f"slot{j}"] = ssm.init_mamba_cache(
+                cfg, batch, ng, dev)
+    return caches, specs
+
+
+def decoder_decode(params, caches, token, pos: int, cfg: ModelConfig):
+    """One decode step.  token (B,1) int, pos int (current index).
+
+    Updates ``caches`` in place; returns (logits (B,V), caches).
+    """
+    program = layer_program(cfg)
+    b = token.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32,
+                           device=token.device)
+    x = embed_tokens(params, token, positions, cfg)
+    for g, lp in enumerate(params["layers"]):
+        for j, spec in enumerate(program):
+            p, c = lp[f"slot{j}"], caches[f"slot{j}"]
+            h = apply_norm(p["ln1"], x, cfg)
+            if spec.mixer == "attn":
+                y, _, _ = attention.attn_decode(
+                    p["mix"], h, c["k"][g], c["v"][g], pos, cfg)
+            else:
+                y, _, _ = ssm.mamba_decode(
+                    p["mix"], h, c["state"][g], c["conv"][g], cfg)
+            x = x + y
+            if spec.mlp != "none":
+                h = apply_norm(p["ln2"], x, cfg)
+                if spec.mlp == "moe":
+                    y, _ = mlp.moe_forward(p["mlp"], h, cfg)
+                else:
+                    y = mlp.mlp_forward(p["mlp"], h, cfg)
+                x = x + y
+    return head_logits(params, x, cfg)[:, 0], caches

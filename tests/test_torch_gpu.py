@@ -13,11 +13,15 @@ grown from a numpy seed; batch sizes are ragged.  Every comparison is
 exact.
 """
 
+import dataclasses
+import json
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.core import predicates as preds  # noqa: E402
 from repro_torch.core import query as qry  # noqa: E402
 from repro_torch.core.qdtree import singleton_tree  # noqa: E402
@@ -28,6 +32,9 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import query_intersect as tqk  # noqa: E402
 from repro_torch.kernels import route_records as trk  # noqa: E402
 from repro_torch.kernels.ref import fused_ingest_ref  # noqa: E402
+from repro_torch.launch import serve_lm  # noqa: E402
+from repro_torch.models import common as lm_common  # noqa: E402
+from repro_torch.models import model as lm_model  # noqa: E402
 
 SEEDS = [0, 1, 7]
 pytestmark = pytest.mark.gpu
@@ -1082,3 +1089,73 @@ def test_coordinator_folds_thread_shards_on_card():
     for f in ("leaf_lo", "leaf_hi", "leaf_cat", "leaf_adv"):
         np.testing.assert_array_equal(getattr(svc.tree, f),
                                       getattr(want, f), f)
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path: plain torch ops on the card (no kernel of its own)
+# ---------------------------------------------------------------------------
+# float32 on the card (TF32 off) against the CPU: sums in another order
+LM_RTOL, LM_ATOL = 1e-4, 1e-4
+LM_GAP_TOL = 2 * LM_ATOL  # a greedy pick may differ below this top-2 gap
+
+
+def _lm_forced(params, cfg, batch, tokens, max_seq):
+    """Prefill logits, then each decode step's with ``tokens`` fed in."""
+    b, plen = batch["tokens"].shape
+    last, pre = lm_model.prefill(params, batch, cfg)
+    caches, _ = lm_model.init_caches(cfg, b, max_seq, tokens.device)
+    caches = serve_lm._splice(cfg, caches, pre, plen)
+    steps = []
+    for i in range(tokens.shape[1] - 1):
+        lg, caches = lm_model.decode_step(params, caches, tokens[:, i:i + 1],
+                                          plen + i, cfg)
+        steps.append(lg)
+    return torch.cat([last[:, None], torch.stack(steps, dim=1)], dim=1)
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_lm_reduced_arch_on_card_matches_cpu(arch):
+    """Greedy generation on the card from CPU-drawn weights: the prefill
+    and every step's logits equal the CPU port's fed the same tokens, and
+    each token is the CPU's argmax unless its top-2 gap is a near tie."""
+    dev = _cuda()
+    cfg = get_config(arch).reduced(max_positions=64)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    cpu = torch.device("cpu")
+    params, _ = lm_model.init_model(lm_common.make_generator(0, cpu), cfg)
+    batch = serve_lm.make_batch(cfg, 2, 24, 0, cpu)
+    res = serve_lm.generate(lm_model.to_device(params, dev), cfg,
+                            lm_model.to_device(batch, dev), 8, 64)
+    toks = res["tokens"].cpu()
+    want = _lm_forced(params, cfg, batch, toks, 64)
+    got = torch.cat([res["prefill_logits"][:, None], res["logits"]],
+                    dim=1).cpu()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=LM_RTOL,
+                               atol=LM_ATOL)
+    top2 = want.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) < LM_GAP_TOL
+    assert not ((want.argmax(-1).to(toks.dtype) != toks) & ~near).any()
+
+
+def test_lm_bf16_forward_keeps_tf32_off():
+    """The LM path takes its speed from the configs' bf16, never from
+    TF32: after a bf16 prefill on the card both switches are as set."""
+    dev = _cuda()
+    cfg = get_config("starcoder2-3b").reduced(compute_dtype="bfloat16",
+                                              param_dtype="bfloat16")
+    params, _ = lm_model.init_model(lm_common.make_generator(0, dev), cfg)
+    logits, _ = lm_model.prefill(
+        params, serve_lm.make_batch(cfg, 2, 16, 0, dev), cfg)
+    assert logits.dtype == torch.bfloat16
+    assert bool(torch.isfinite(logits.float()).all())
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_serve_lm_main_on_the_card(capsys):
+    _cuda()
+    gen = serve_lm.main(["--device", "cuda"])
+    assert gen.shape == (4, 32) and ((gen >= 0) & (gen < 256)).all()
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["device"].startswith("cuda")

@@ -35,7 +35,9 @@ def test_port_imports_neither_jax_nor_repro():
         text=True, check=True, timeout=120,
     ).stdout.split(maxsplit=1)
     n_modules, leaked = int(out[0]), out[1].strip()
-    assert n_modules >= 20  # every module of the package was imported
+    # every module of the package was imported: 52 of the layout system,
+    # 23 of the LM stack (configs, models, train, launch.serve_lm)
+    assert n_modules >= 75
     assert leaked == "[]"
 
 
