@@ -68,7 +68,7 @@ Then the layout lifecycle, each path counted from 0:
 * WOODBLOCK on the greedy tree's 1% sample: ``TreeEnv``'s cut matrix is
   one ``eval_cuts`` launch, equal to ``preds.eval_cuts`` (the kernel timed
   at that shape against its plain version and its bound);
-  ``build_layout(strategy="woodblock")`` within a 60 s budget (block ids
+  ``build_layout(strategy="woodblock")`` within a 30 s budget (block ids
   and Eq. 1 hits equal numpy's); one ``ppo_update`` on the card against
   the CPU's at a stated tolerance; episodes, policy steps (one a tree
   level) and updates timed;
@@ -131,6 +131,29 @@ kernel):
   -m repro_torch.launch.serve_lm`` at its defaults as a subprocess on the
   card (exit 0).
 
+Then the LM training path (the JAX training stack has no Pallas kernel
+either; its data tier launches ``fused_ingest`` and ``query_intersect``):
+
+* ``lm_train``: ``python -m repro_torch.launch.train --arch <a>
+  --full-arch --steps 8`` for starcoder2-3b (2 microbatches) and
+  mamba2-780m as subprocesses on the card, at the CLI's defaults (batch
+  8, sequence 128, a 50,000-row errorlog table laid out by a greedy
+  qd-tree into a block store, curation on), remat, float32 params, bf16
+  compute, fp32 AdamW: exit 0, 8 finite losses, the data tier's kernels
+  launched; step ms (median of steps 2-8), tokens/s, MFU against
+  989.4 TFLOP/s, peak GB, the step's bound; one starcoder2-3b step
+  traced in this process (busy share, device ops, split into forward,
+  backward and optimizer); float32 at full width, the gradients in m
+  after step 1 with 2 microbatches against 1, and remat on against off
+  at ``reduced()``; the ten reduced archs, 3 steps on the card against
+  the CPU (the CPU halves in the pool); and the CLI at reduced size
+  crashed at step 12 with checkpoints every 5 steps, resumed from step 10
+  to 16, its losses against an uninterrupted run's.  The CLI's five runs
+  go one after another on a thread from the kernel build on, while the
+  host makes the table and the layouts and the card is otherwise idle
+  (the full-width ones timed there, beside that host work); the main
+  path waits for them.
+
 Then it times: route and query latencies (median and spread of warm
 calls, host clock; route split into its kernel, from a trace, and the
 ids' copy back), whole-table ingests on fresh trees, one ingest under
@@ -140,7 +163,8 @@ its plain version.  It exits non-zero on the first failure, without a
 CUDA device, and when the package is not beside it.  Output, before the
 last line: the card's name and power limit, build seconds, one
 ``{"metrics": ...}`` JSON line (keys ``serve``, ``pipeline``,
-``coordinator``, ``cli``, ``lm_serve``, and ``phase_s`` for every phase)
+``coordinator``, ``cli``, ``lm_serve``, ``lm_train``, and ``phase_s`` for
+every phase)
 and one ``{"kernels": [...]}`` JSON line (launches, median CUDA-event
 time, bound, plain-version time, max difference per kernel).  The last line is ``{"ok": true, "device":
 {...}}``.  ``--rows`` cuts the row count (the only cut allowed; it is
@@ -192,7 +216,7 @@ TUNED_REPS = 3  # whole-table ingests with each geometry, alternated
 RANGE_COLUMN = 0  # l_shipdate: the range baseline's partitioning column
 BASELINE_ROUTE_ROWS = 1 << 16  # sample rows routed through each baseline
 BASELINE_TIMEOUT_S = 600  # the baselines' build, at most
-WOODBLOCK_BUDGET_S = 60  # build_layout(strategy="woodblock", time_budget_s)
+WOODBLOCK_BUDGET_S = 30  # build_layout(strategy="woodblock", time_budget_s)
 COPY_REPS = 3  # copies back of the env's matrix in each form, alternated
 # one PPO update on the card against the CPU: float32 sums in another
 # order, then one Adam step of at most lr = 3e-4 a parameter
@@ -236,11 +260,46 @@ LM_CLI_TIMEOUT_S = 300
 LM_TRACE_STEPS = 4  # decode steps under torch.profiler, a full model
 LM_TRACE_TOP = 5  # ops listed by device time and by host time
 LM_OP_NAME = 64  # characters of an op's name kept in the listing
+# the LM training path: the two full models through the train CLI at its
+# defaults (batch 8, sequence 128, a 50,000-row table, curation on)
+LM_TRAIN_STEPS = 8
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 128
+LM_TRAIN_TOKENS = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+LM_TRAIN_TIMEOUT_S = 300
+LM_CLI_WAIT_S = 900  # the train CLI's five runs, at most
+# weights an embedding gathers from, or read in float32: never cast whole
+LM_UNCAST = ("tok_embed", "pos_embed", "enc_pos", "dec_pos", "conv_w",
+             "router")
+# float32 at full width, 2 microbatches against 1: m after the first step
+# on these leaves (the sums of g run in another order), each against its
+# own max |m|
+LM_F32_LEAVES = (("tok_embed",), ("layers", 0, "slot0", "mix", "wq"),
+                 ("layers", 0, "slot0", "mlp", "w_up"),
+                 ("layers", 29, "slot0", "mix", "wo"),
+                 ("layers", 29, "slot0", "mlp", "w_down"), ("head",))
+LM_MB_RTOL = 1e-4
+LM_REMAT_RTOL = 1e-6  # recomputing a group's forward: the same kernels
+# the ten reduced archs, float32 on the card against the CPU after
+# LM_TRAIN_CARD_STEPS steps: leaves against their own max |x|, plus an
+# absolute floor for a leaf whose gradient is noise (a key bias), which
+# Adam turns into a step of ~lr either way
+LM_TRAIN_CARD_STEPS = 3
+# the fp32 archs' peak lr (warmup 1).  The int8 archs train at lr 0: the
+# reference's int8 moments round v to 0 where m is not, and an entry whose
+# next gradient is 0 (an expert no token reached, an embedding row of no
+# token in the batch) then steps by m̂/eps, so by step 3 the card and the
+# CPU part by far more than rounding (grok at lr 1e-3 on an H100)
+LM_TRAIN_CARD_LR = 1e-3
+LM_TRAIN_CARD_RTOL, LM_TRAIN_CARD_ATOL = 1e-4, 1e-6
+# crash and resume through the CLI at reduced size
+LM_RESUME_STEPS, LM_CKPT_EVERY, LM_FAIL_AT = 16, 5, 12
+LM_RESUME_RTOL = 1e-5  # the loss is a float32 mean; atomics may reorder
 
 # H100 SXM (NVIDIA data sheet): HBM rate, and the float32 rate outside the
 # tensor cores, taken as the rate of the kernels' int32 compares/atomics
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989.4e12  # dense bf16 on the tensor cores
 
 FUSED = "src/repro_torch/kernels/csrc/fused_ingest.cu"
 FUSED_REF = "src/repro/kernels/fused_ingest.py:213"
@@ -2558,6 +2617,437 @@ def lm_serve_phase(ctx, counted) -> dict:
     return out
 
 
+def lm_cli(args: list, children: list):
+    """``python -m repro_torch.launch.train`` with ``args`` on the card
+    (``CLI_DEVICE_ARGS``), started and added to ``children`` (which
+    ``main`` kills, if still running, on its way out)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *args,
+         *CLI_DEVICE_ARGS], cwd=ROOT, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    children.append(proc)
+    return proc
+
+
+def lm_cli_result(proc, timeout: float, what: str, expect_rc: int = 0):
+    """Wait for an ``lm_cli`` run: (its summary or None, stderr, wall)."""
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    require(proc.returncode == expect_rc,
+            f"{what}: exit {proc.returncode}, expected {expect_rc}: "
+            f"{err[-2000:]}")
+    summary = (json.loads(out.strip().splitlines()[-1]) if expect_rc == 0
+               else None)
+    return summary, err, time.perf_counter() - t0
+
+
+def lm_train_bound(cfg) -> dict:
+    """A train step's least time on the card: the bytes of the AdamW pass
+    (read p, g, m, v; write p, m, v, fp32) and of each microbatch's casts
+    of the float32 weights that meet a matmul to bf16 (read 4 B, write
+    2 B), at 3.35 TB/s; and the model flops of the step's tokens at the
+    dense bf16 peak.  Counted from the code and the config."""
+    from repro_torch.models import model
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import steps
+
+    shapes, _ = steps.abstract_state(cfg, opt_lib.AdamWConfig())
+    cast = 0
+
+    def walk(t, name=""):
+        nonlocal cast
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, k)
+        elif isinstance(t, list):
+            for v in t:
+                walk(v, name)
+        elif t.dim() >= 2 and name not in LM_UNCAST:
+            cast += t.numel()
+
+    walk(shapes["params"])
+    n = model.param_count(shapes["params"])
+    nbytes = 4 * 7 * n + max(cfg.microbatches, 1) * 6 * cast
+    flops = model.model_flops_per_token(cfg) * LM_TRAIN_TOKENS
+    ms, by = bound(nbytes, 0)
+    flop_ms = flops / BF16_FLOPS_PER_S * 1e3
+    if flop_ms > ms:
+        ms, by = flop_ms, "operations"
+    return {"bytes": nbytes, "cast_params": cast, "model_flops": flops,
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "flops_ms": flop_ms,
+            "bound_ms": ms, "bound_by": by}
+
+
+def lm_train_full(arch: str, children: list) -> dict:
+    """``python -m repro_torch.launch.train --arch <arch> --full-arch
+    --steps LM_TRAIN_STEPS`` on the card at the CLI's defaults: exit 0,
+    every loss finite, the data tier's kernels launched; step ms (median
+    of steps 2.., the first being the warm one), tokens/s, MFU, peak GB
+    and the step's bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+
+    summary, _, wall = lm_cli_result(
+        lm_cli(["--arch", arch, "--full-arch", "--steps",
+                str(LM_TRAIN_STEPS)], children),
+        LM_TRAIN_TIMEOUT_S, f"train CLI {arch}")
+    cfg = get_config(arch)
+    losses = summary["losses"]
+    require(summary["device"].startswith("cuda") and summary["full_arch"]
+            and summary["steps"] == list(range(LM_TRAIN_STEPS))
+            and all(np.isfinite(losses))
+            and summary["batch"] * summary["seq"] == LM_TRAIN_TOKENS,
+            f"train CLI {arch}: {summary}")
+    launches = summary["launches"]
+    require(launches["fused_ingest_shared"] + launches["fused_ingest_global"]
+            > 0 and launches["query_intersect"] > 0,
+            f"train CLI {arch}: the data tier launched {launches}")
+    step_s = summary["step_ms_median"] / 1e3
+    flops = model.model_flops_per_token(cfg) * LM_TRAIN_TOKENS
+    return {
+        "wall_s": wall, "params": summary["params"],
+        "microbatches": summary["microbatches"], "remat": summary["remat"],
+        "losses": losses, "grad_norms": summary["grad_norms"],
+        "step_ms": summary["step_ms"], "step_ms_median": step_s * 1e3,
+        "step_ms_spread": spread(summary["step_ms"][1:]),
+        "tokens_per_s": LM_TRAIN_TOKENS / step_s,
+        "mfu": flops / step_s / BF16_FLOPS_PER_S,
+        "peak_gb": summary["peak_gb"], "bound": lm_train_bound(cfg),
+        "blocks": summary["blocks"],
+        "blocks_skipped": summary["blocks_skipped"], "launches": launches,
+    }
+
+
+def lm_train_batch(cfg, dev, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, cfg.vocab, (LM_TRAIN_BATCH, LM_TRAIN_SEQ + 1))
+    import torch
+
+    t = torch.from_numpy(t.astype(np.int32)).to(dev)
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+def lm_train_trace(dev) -> dict:
+    """One starcoder2-3b step at full width in its own dtypes, in this
+    process, after a warm one: the whole step under ``torch.profiler``
+    (busy share, device ops), then the same step's parts traced apart —
+    each microbatch's forward, its backward with the accumulation, and
+    the AdamW update — by the functions ``train_step`` is made of."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, model
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import schedule as sched
+    from repro_torch.train import steps
+
+    cfg = get_config(LM_FULL[0])
+    ocfg, scfg = opt_lib.AdamWConfig(), sched.ScheduleConfig(
+        peak_lr=3e-4, warmup_steps=2, total_steps=LM_TRAIN_STEPS)
+    state = steps.init_train_state(common.make_generator(SEED, dev), cfg,
+                                   ocfg)
+    batch = lm_train_batch(cfg, dev, SEED)
+    box = {"state": state}
+
+    def step():
+        box["state"], box["m"] = steps.train_step(box["state"], batch, cfg,
+                                                  ocfg, scfg)
+        float(box["m"]["loss"])
+
+    step()  # warm
+    whole = lm_traced(step, 1)
+    k = cfg.microbatches
+    micro = steps.split_microbatches(batch, k)
+    params = box["state"]["params"]
+
+    def forward():
+        box["fw"] = [steps.microbatch_loss(params, mb, cfg) for mb in micro]
+
+    def backward():
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in model.leaves(params)]
+        for loss, _, live in box.pop("fw"):
+            for a, g in zip(acc, steps.microbatch_grads(loss, live)):
+                a.add_(g.to(torch.float32) / k)
+        it = iter(acc)
+        box["grads"] = model.tree_map(lambda _: next(it), params)
+
+    def optimizer():
+        opt_lib.adamw_update(params, box.pop("grads"), box["state"]["opt"],
+                             sched.warmup_cosine(box["state"]["step"], scfg),
+                             ocfg)
+
+    parts = {"forward": lm_traced(forward, 1),
+             "backward": lm_traced(backward, 1),
+             "optimizer": lm_traced(optimizer, 1)}
+    del box, state, params, micro
+    torch.cuda.empty_cache()
+    return {"step": whole, "parts": parts}
+
+
+def lm_leaf(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def lm_train_f32(dev) -> dict:
+    """Float32 (TF32 off) checks.  starcoder2-3b at full width: the
+    gradients the first step puts in m (m = 0.1·clip·g at count 1) with
+    its 2 microbatches against 1, on named leaves, through the step's
+    own gradient path (``_grads_and_metrics``; the moments are not
+    allocated: a float32 state with the accumulator, 76 GB, does not fit
+    beside this process's own).  Then remat on against off on its
+    reduced config."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, model
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import steps
+
+    ocfg = opt_lib.AdamWConfig()
+    cfg = dataclasses.replace(get_config(LM_FULL[0]),
+                              compute_dtype="float32")
+    params, _ = model.init_model(common.make_generator(SEED, dev), cfg)
+    batch = lm_train_batch(cfg, dev, SEED + 1)
+    ms, losses = {}, {}
+    for k in (cfg.microbatches, 1):
+        grads, metrics = steps._grads_and_metrics(
+            params, batch, dataclasses.replace(cfg, microbatches=k))
+        gnorm = opt_lib.global_norm(grads)
+        clip = torch.clamp(ocfg.max_grad_norm / (gnorm + 1e-12), max=1.0)
+        ms[k] = {"/".join(map(str, p)): ((1.0 - ocfg.b1) * clip
+                                          * lm_leaf(grads, p)).cpu()
+                 for p in LM_F32_LEAVES}
+        losses[k] = float(metrics["loss"])
+        del grads
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    mb = {}
+    for name, want in ms[1].items():
+        got = ms[cfg.microbatches][name]
+        mb[name] = float((got - want).abs().max()
+                         / want.abs().max().clamp_min(1e-30))
+    require(max(mb.values()) <= LM_MB_RTOL,
+            f"float32 starcoder2-3b, m after step 1 with "
+            f"{cfg.microbatches} microbatches against 1: {mb} (rtol "
+            f"{LM_MB_RTOL})")
+
+    small = get_config(LM_FULL[0]).reduced()
+    sp, _ = model.init_model(common.make_generator(SEED, dev), small)
+    sb = lm_train_batch(small, dev, SEED + 2)
+    on, m_on = steps.loss_and_grads(sp, sb, small)
+    off, m_off = steps.loss_and_grads(
+        sp, sb, dataclasses.replace(small, remat=False))
+    remat_err = max(float((a - b).abs().max()
+                          / b.abs().max().clamp_min(1e-30))
+                    for a, b in zip(on, off))
+    require(remat_err <= LM_REMAT_RTOL
+            and float(m_on["loss"]) == float(m_off["loss"]),
+            f"remat on against off: grads {remat_err} apart (rtol "
+            f"{LM_REMAT_RTOL}), loss {float(m_on['loss'])} vs "
+            f"{float(m_off['loss'])}")
+    return {"microbatch_m_max_rel_err": mb, "losses": losses,
+            "remat_grads_max_rel_err": remat_err,
+            "remat_bitwise": all(torch.equal(a, b) for a, b in zip(on, off))}
+
+
+def lm_train_case(arch: str):
+    """(cfg, AdamW config, schedule, the initial state drawn on the CPU,
+    the batches) of one reduced arch's card-against-CPU check.  An arch
+    with int8 moments trains at lr 0 (``LM_TRAIN_CARD_LR`` says why)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import common
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import schedule as sched
+    from repro_torch.train import steps
+
+    cfg = get_config(arch).reduced()
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    ocfg = opt_lib.AdamWConfig(eight_bit=cfg.opt_8bit)
+    scfg = sched.ScheduleConfig(
+        peak_lr=0.0 if cfg.opt_8bit else LM_TRAIN_CARD_LR, warmup_steps=1,
+        total_steps=10)
+    cpu = torch.device("cpu")
+    state = steps.init_train_state(common.make_generator(SEED, cpu), cfg,
+                                   ocfg)
+    batches = []
+    for i in range(LM_TRAIN_CARD_STEPS):
+        batch = serve_lm.make_batch(cfg, 4, 32, SEED + i, cpu)
+        batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+        batches.append(batch)
+    return cfg, ocfg, scfg, state, batches
+
+
+def lm_train_host(arch: str) -> dict:
+    """The CPU half of ``lm_train_reduced``, run in a pool worker: the
+    metrics of each step and the state's leaves after the last."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.models import model
+    from repro_torch.train import steps
+
+    cfg, ocfg, scfg, state, batches = lm_train_case(arch)
+    metrics = []
+    for batch in batches:
+        state, m = steps.train_step(state, batch, cfg, ocfg, scfg)
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+    return {"metrics": metrics,
+            "leaves": [t.numpy() for t in model.leaves(state)]}
+
+
+def lm_train_reduced(arch: str, dev, host: dict) -> dict:
+    """One reduced arch on the card against the CPU (``host``, from
+    ``lm_train_host``): the same state and batches, LM_TRAIN_CARD_STEPS
+    train steps; loss, grad norm and lr each step, then params, m and v,
+    within LM_TRAIN_CARD_* (each float leaf against its own max |x|; int8
+    codes within 1, a rounding tie)."""
+    import torch
+
+    from repro_torch.models import model
+    from repro_torch.train import steps
+
+    cfg, ocfg, scfg, state, batches = lm_train_case(arch)
+    card = model.to_device(state, dev)
+    metric_err = 0.0
+    for batch, mh in zip(batches, host["metrics"]):
+        card, mc = steps.train_step(card, model.to_device(batch, dev), cfg,
+                                    ocfg, scfg)
+        for key, want in mh.items():
+            metric_err = max(metric_err, abs(float(mc[key]) - want)
+                             / max(abs(want), 1e-30))
+    leaf_err, codes = 0.0, 0
+    got = list(model.leaves(card))
+    require(len(got) == len(host["leaves"]),
+            f"{arch}: card state differs in layout")
+    for a, b in zip(host["leaves"], got):
+        a, b = torch.from_numpy(a), b.cpu()
+        require(a.dtype == b.dtype and a.shape == b.shape,
+                f"{arch}: card state differs in layout")
+        if a.dtype == torch.int8:
+            d = int((a.int() - b.int()).abs().max())
+            require(d <= 1, f"{arch}: int8 codes {d} apart")
+            codes += int((a != b).sum())
+        elif a.is_floating_point():
+            err = float((a - b).abs().max())
+            scale = float(a.abs().max())
+            require(err <= LM_TRAIN_CARD_RTOL * scale + LM_TRAIN_CARD_ATOL,
+                    f"{arch}: a state leaf {err} apart (max {scale})")
+            leaf_err = max(leaf_err, err / max(scale, 1e-30))
+        else:
+            require(torch.equal(a, b), f"{arch}: step counters differ")
+    require(metric_err <= LM_TRAIN_CARD_RTOL,
+            f"{arch}: loss/grad norm {metric_err} apart on the card")
+    return {"metrics_max_rel_err": metric_err,
+            "state_max_rel_err": leaf_err, "int8_codes_differ": codes,
+            "opt_8bit": cfg.opt_8bit, "loss": float(mc["loss"])}
+
+
+def lm_train_cli_runs(ck: Path, children: list) -> dict:
+    """The train CLI's runs of the ``lm_train`` path, one after another on
+    a thread while the main path's host work (data, greedy, the finer
+    layout's wait) leaves the card idle: at reduced size a run that fails
+    at step LM_FAIL_AT (checkpoints every LM_CKPT_EVERY) beside an
+    uninterrupted run, then the resume from the crash's checkpoints
+    (untimed); then LM_FULL at full width, one at a time
+    (``lm_train_full``)."""
+    resume_args = ["--steps", str(LM_RESUME_STEPS), "--ckpt-every",
+                   str(LM_CKPT_EVERY), "--ckpt-dir", str(ck)]
+    crash = lm_cli(resume_args + ["--fail-at", str(LM_FAIL_AT)], children)
+    whole = lm_cli(["--steps", str(LM_RESUME_STEPS)], children)
+    _, err, _ = lm_cli_result(crash, LM_TRAIN_TIMEOUT_S, "crash run",
+                              expect_rc=1)
+    require(f"injected failure at step {LM_FAIL_AT}" in err,
+            f"crash run: {err[-2000:]}")
+    resumed, _, wall = lm_cli_result(lm_cli(resume_args, children),
+                                     LM_TRAIN_TIMEOUT_S, "resumed run")
+    ref, _, _ = lm_cli_result(whole, LM_TRAIN_TIMEOUT_S, "uninterrupted run")
+    out = {"resumed": resumed, "uninterrupted": ref, "resume_wall_s": wall,
+           "full": {}}
+    for arch in LM_FULL[::-1]:  # the smaller first
+        out["full"][arch] = r = lm_train_full(arch, children)
+        log(f"lm train {arch}: step {r['step_ms_median']:.3f} ms, "
+            f"{r['tokens_per_s']:.1f} tok/s, MFU {r['mfu']:.4f}, peak "
+            f"{r['peak_gb']:.3f} GB, losses {r['losses']}")
+    return out
+
+
+def lm_train_phase(ctx, counted) -> dict:
+    """The LM training path: the train CLI's runs (``ctx["lm_cli"]``,
+    from ``lm_train_cli_runs`` before the main path: LM_FULL at full width,
+    and the crash at step LM_FAIL_AT and its resume at reduced size against
+    an uninterrupted run), one starcoder2-3b step traced in this process
+    (``lm_train_trace``), the float32 microbatch and remat checks
+    (``lm_train_f32``), and the ten reduced archs on the card against the
+    CPU (``lm_train_reduced``; the CPU halves ran in the pool,
+    ``ctx["lm_host_jobs"]``).  The data tier's kernels run in the CLIs
+    (their summaries count them); the in-process work launches none."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+
+    dev = ctx["dev"]
+    out = {"full": {}, "reduced": {}}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["allocated_at_start_gb"] = torch.cuda.memory_allocated() / 1e9
+    runs = ctx["lm_cli"]
+    for arch in LM_FULL:
+        out["full"][arch] = runs["full"][arch]
+        ctx["worker_launches"].append(runs["full"][arch]["launches"])
+
+    def path():
+        out["trace"] = lm_train_trace(dev)
+        out["f32"] = lm_train_f32(dev)
+        for arch in sorted(ARCHS):
+            host = ctx["lm_host_jobs"][arch].get(timeout=LM_TRAIN_TIMEOUT_S)
+            out["reduced"][arch] = lm_train_reduced(arch, dev, host)
+
+    counted("lm_train", path)
+    require(not any(ctx["path_launches"]["lm_train"].values()),
+            f"the in-process LM training launched a kernel: "
+            f"{ctx['path_launches']['lm_train']}")
+    resumed, ref = runs["resumed"], runs["uninterrupted"]
+    start = LM_FAIL_AT // LM_CKPT_EVERY * LM_CKPT_EVERY
+    require(resumed["start"] == start and resumed["steps"] == list(
+        range(start, LM_RESUME_STEPS)),
+        f"resume: started at {resumed['start']}, steps {resumed['steps']}")
+    want = np.asarray(ref["losses"][start:])
+    got = np.asarray(resumed["losses"])
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    require(rel <= LM_RESUME_RTOL,
+            f"resumed losses {got.tolist()} against {want.tolist()}")
+    for s in (ref, resumed):
+        require(s["launches"]["fused_ingest_shared"]
+                + s["launches"]["fused_ingest_global"] > 0
+                and s["launches"]["query_intersect"] > 0,
+                f"a reduced train CLI's data tier launched {s['launches']}")
+        ctx["worker_launches"].append(s["launches"])
+    out["resume"] = {"start": resumed["start"], "steps": resumed["steps"],
+                     "losses": resumed["losses"],
+                     "uninterrupted": ref["losses"][start:],
+                     "max_rel_err": rel,
+                     "bitwise": bool(np.array_equal(got, want)),
+                     "wall_s": runs["resume_wall_s"]}
+    log(f"lm train resume: from {start}, losses {rel:.3g} apart "
+        f"(bitwise {out['resume']['bitwise']})")
+    return out
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=FULL_ROWS,
@@ -2570,13 +3060,21 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     # the finer layout and the baselines are built in other processes while
     # the rest runs
-    with multiprocessing.get_context("spawn").Pool(2) as pool, \
-            tempfile.TemporaryDirectory(prefix="qd-store-") as store_root:
-        fine_job = pool.apply_async(fine_layout, (SEED,))
-        return run(args, dev, torch, pool, fine_job, Path(store_root))
+    children: list = []  # the train CLIs started in the background
+    try:
+        with multiprocessing.get_context("spawn").Pool(2) as pool, \
+                tempfile.TemporaryDirectory(prefix="qd-store-") as store_root:
+            fine_job = pool.apply_async(fine_layout, (SEED,))
+            return run(args, dev, torch, pool, fine_job, Path(store_root),
+                       children)
+    finally:
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
-def run(args, dev, torch, pool, fine_job, store_root) -> int:
+def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import rewards
@@ -2610,6 +3108,13 @@ def run(args, dev, torch, pool, fine_job, store_root) -> int:
     per_kernel = _build.build_all()
     build_s = time.perf_counter() - t0
     log(f"kernels built and loaded in {build_s:.1f}s")
+    # the LM training path's CLI runs (lm_train_cli_runs) use the card
+    # while the host work below leaves it idle; the main path waits for
+    # them after the finer layout, and lm_train_phase reads them
+    lm_pool = ThreadPoolExecutor(1)
+    lm_job = lm_pool.submit(lm_train_cli_runs, Path(store_root) / "lm-ckpt",
+                            children)
+    lm_pool.shutdown(wait=False)
 
     # -- small random trees: every kernel (both fused kernels) vs plain, and
     # the running fold over uneven batches --------------------------------
@@ -2649,6 +3154,10 @@ def run(args, dev, torch, pool, fine_job, store_root) -> int:
     t0 = time.perf_counter()
     fine_arrays = fine_job.get(timeout=FINE_TIMEOUT_S)
     fine_wait_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm_cli_runs = lm_job.result(timeout=LM_CLI_WAIT_S)
+    lm_cli_wait_s = time.perf_counter() - t0
+    log(f"the train CLI's runs done (waited {lm_cli_wait_s:.1f}s for them)")
     fine = FrozenQdTree.from_arrays(fine_arrays)
     log(f"finer layout: {fine.n_leaves} leaves, depth {fine.depth} (waited "
         f"{fine_wait_s:.1f}s for it)")
@@ -2905,7 +3414,7 @@ def run(args, dev, torch, pool, fine_job, store_root) -> int:
         "oracle_partial": part, "single_partial": single_partial,
         "workers": workers, "path_launches": path_launches,
         "worker_launches": [], "work": work, "wt": wt, "sample": sample,
-        "tree": tree,
+        "tree": tree, "children": children, "lm_cli": lm_cli_runs,
     }
     phase_s = {}
     t0 = time.perf_counter()
@@ -2937,6 +3446,12 @@ def run(args, dev, torch, pool, fine_job, store_root) -> int:
     phase_s["autotune"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     layouts = base_job.get(timeout=BASELINE_TIMEOUT_S)
+    # the CPU halves of the LM training path's reduced-arch checks, in the
+    # pool (now idle) while the phases below run
+    from repro_torch.configs import ARCHS as lm_archs
+
+    ctx["lm_host_jobs"] = {a: pool.apply_async(lm_train_host, (a,))
+                           for a in sorted(lm_archs)}
     phase_s["baseline_wait"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     baselines = baseline_phase(ctx, counted, layouts)
@@ -2969,6 +3484,10 @@ def run(args, dev, torch, pool, fine_job, store_root) -> int:
     t0 = time.perf_counter()
     lm = lm_serve_phase(ctx, counted)
     phase_s["lm_serve"] = time.perf_counter() - t0
+    # -- the LM training path, counted from 0 --------------------------------
+    t0 = time.perf_counter()
+    lm_train = lm_train_phase(ctx, counted)
+    phase_s["lm_train"] = time.perf_counter() - t0
     # every path's launches, the process shards' (made in their workers)
     # included
     launches = {k: sum(c[k] for c in path_launches.values())
@@ -3079,13 +3598,14 @@ def run(args, dev, torch, pool, fine_job, store_root) -> int:
         "selectivity_lower_bound_sample": lower,
         "build_s": build_s, "build_s_per_kernel": per_kernel,
         "datagen_s": datagen_s, "greedy_s": greedy_s,
-        "fine_wait_s": fine_wait_s, "oracle_s": oracle_s,
+        "fine_wait_s": fine_wait_s, "lm_cli_wait_s": lm_cli_wait_s,
+        "oracle_s": oracle_s,
         "host_threads": workers,
         "sharded_ingest": shards, "spill_ingest": spill,
         "block_store": store, "autotune": tuned, "baselines": baselines,
         "woodblock": woodblock, "service": service, "serve": serve,
         "pipeline": pipeline, "coordinator": fleet, "cli": cli,
-        "lm_serve": lm, "phase_s": phase_s,
+        "lm_serve": lm, "lm_train": lm_train, "phase_s": phase_s,
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         "total_s": time.perf_counter() - t_start,
     }
@@ -3177,6 +3697,36 @@ def run(args, dev, torch, pool, fine_job, store_root) -> int:
         f"{a} {r['max_abs_err']:.3g} ({r['tokens_differ']} tokens differ, "
         f"{r['near_ties']} near ties)" for a, r in lm["reduced"].items()))
     print(f"lm_serve cli: {lm['cli']['summary']}")
+    for arch, r in lm_train["full"].items():
+        b = r["bound"]
+        print(f"lm_train {arch} (full width, {r['params']} params, "
+              f"{r['microbatches']} microbatches, remat {r['remat']}): step "
+              f"{r['step_ms_median']:.3f} ms (median of steps 2-"
+              f"{LM_TRAIN_STEPS}; spread {r['step_ms_spread']}), "
+              f"{r['tokens_per_s']:.1f} tok/s, MFU {r['mfu']:.6f}, peak "
+              f"{r['peak_gb']:.3f} GB; bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']} (bytes {b['bytes_ms']:.4f} ms, flops "
+              f"{b['flops_ms']:.4f} ms); losses {r['losses']}; data tier "
+              f"{r['blocks']} blocks, {r['blocks_skipped']} skipped, "
+              f"launches {r['launches']}")
+    tr = lm_train["trace"]
+    print(f"lm_train {LM_FULL[0]} traced step: busy share "
+          f"{tr['step']['device_busy_share']:.4f}, device ops "
+          f"{tr['step']['device_ops_per_call']}, wall "
+          f"{tr['step']['wall_ms']:.3f} ms; parts " + ", ".join(
+              f"{k} {v['device_ops_per_call']} ops, {v['wall_ms']:.3f} ms, "
+              f"busy {v['device_busy_share']:.4f}"
+              for k, v in tr["parts"].items()))
+    f32 = lm_train["f32"]
+    print(f"lm_train float32: m after step 1, 2 microbatches vs 1, max rel "
+          f"err {f32['microbatch_m_max_rel_err']}; remat on vs off "
+          f"{f32['remat_grads_max_rel_err']:.3g} (bitwise "
+          f"{f32['remat_bitwise']})")
+    print("lm_train reduced archs, card vs CPU after "
+          f"{LM_TRAIN_CARD_STEPS} steps, max rel err: " + ", ".join(
+              f"{a} {r['state_max_rel_err']:.3g} ({r['int8_codes_differ']} "
+              f"int8 codes differ)" for a, r in lm_train["reduced"].items()))
+    print(f"lm_train resume: {lm_train['resume']}")
     print(f"phase seconds: {phase_s}")
     print(json.dumps({"metrics": metrics}))
     print(json.dumps({"kernels": kernels}))

@@ -6,12 +6,16 @@ runs bidirectional self-attention layers.  The decoder is a causal stack
 with cross-attention to the encoder output.  Each stack is a list of
 per-layer dicts (the reference stacks them for ``lax.scan``); the decode
 caches keep the reference's stacked layout and are written in place.
+With ``cfg.remat`` set and grad mode on, each layer runs under
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of its
+scan bodies.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, mlp
@@ -79,6 +83,10 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
+def _remat(cfg: ModelConfig) -> bool:
+    return cfg.remat and torch.is_grad_enabled()
+
+
 # ---------------------------------------------------------------------------
 # encoder
 # ---------------------------------------------------------------------------
@@ -88,13 +96,18 @@ def encode(params, frames, cfg: ModelConfig):
     b, f, _ = frames.shape
     positions = _positions(b, f, frames.device)
     x = frames.to(ct) + params["enc_pos"][None, :f].to(ct)
-    for lp in params["encoder"]:
+
+    def body(lp, x):
         h = apply_norm(lp["ln1"], x, cfg)
         x = x + attention.attn_forward(
             lp["attn"], h, positions, cfg, causal=False
         )
         h = apply_norm(lp["ln2"], x, cfg)
-        x = x + mlp.mlp_forward(lp["mlp"], h, cfg)
+        return x + mlp.mlp_forward(lp["mlp"], h, cfg)
+
+    for lp in params["encoder"]:
+        x = (checkpoint(body, lp, x, use_reentrant=False) if _remat(cfg)
+             else body(lp, x))
     return apply_norm(params["enc_ln"], x, cfg)
 
 
@@ -117,8 +130,8 @@ def decode_train(params, enc_out, tokens, cfg: ModelConfig,
     positions = _positions(b, s, tokens.device)
     enc_positions = _positions(b, f, tokens.device)
     x = _embed(params, tokens, positions, cfg)
-    per_layer = []
-    for lp in params["decoder"]:
+
+    def body(lp, x):
         h = apply_norm(lp["ln1"], x, cfg)
         y, (k, v) = attention.attn_forward(
             lp["self"], h, positions, cfg, causal=True, return_kv=True
@@ -132,8 +145,18 @@ def decode_train(params, enc_out, tokens, cfg: ModelConfig,
         x = x + y
         h = apply_norm(lp["ln2"], x, cfg)
         x = x + mlp.mlp_forward(lp["mlp"], h, cfg)
-        if collect_cache:
-            per_layer.append({"k": k, "v": v, "cross_k": ck, "cross_v": cv})
+        return x, {"k": k, "v": v, "cross_k": ck, "cross_v": cv}
+
+    remat = _remat(cfg) and not collect_cache
+    per_layer = []
+    for lp in params["decoder"]:
+        if remat:
+            x = checkpoint(lambda *a: body(*a)[0], lp, x,
+                           use_reentrant=False)
+        else:
+            x, cache = body(lp, x)
+            if collect_cache:
+                per_layer.append(cache)
     caches = None
     if collect_cache:
         caches = {name: torch.stack([c[name] for c in per_layer])

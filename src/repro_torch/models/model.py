@@ -11,7 +11,10 @@ architectures.  Batches are plain dicts of tensors:
 
 Params are nested dicts (lists for the layer stacks) of tensors on the
 device their generator lives on.  Serving runs under ``torch.no_grad``;
-``train_loss`` is the forward half of training, whose step comes later.
+``train_loss`` is differentiated by autograd (``train/steps.py``).
+``params_from_jax`` / ``state_from_jax`` carry the reference's params or
+train state across, and ``state_to_jax`` gives a state back in the
+reference's stacked layout (what ``train/checkpoint.py`` writes).
 """
 
 from __future__ import annotations
@@ -153,6 +156,27 @@ def _unstack(tree, n: int) -> list:
     return [tree_map(lambda a, g=g: a[g], tree) for g in range(n)]
 
 
+def tensor_from_numpy(a, dev) -> torch.Tensor:
+    """A numpy leaf as a tensor on ``dev``: bfloat16 (``ml_dtypes``, or
+    the raw 2-byte ``V2`` words that ``np.save`` writes for it) becomes
+    torch's bfloat16; every other dtype keeps its own."""
+    a = np.asarray(a)
+    if str(a.dtype) == "bfloat16":
+        a = a.astype(np.float32)
+        return torch.from_numpy(a).to(device=dev, dtype=torch.bfloat16)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        bits = torch.from_numpy(np.array(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)  # a writable copy
+
+
+def _stacks(cfg: ModelConfig) -> dict:
+    """The reference's group-stacked subtrees and their leading axis."""
+    if cfg.is_encdec:
+        return {"encoder": cfg.encoder_layers, "decoder": cfg.n_layers}
+    return {"layers": transformer.n_groups(cfg)}
+
+
 @torch.no_grad()
 def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
     """The port's params from ``repro.models.model.init_model``'s, given as
@@ -161,19 +185,13 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
     Group-stacked leaves (``layers``, ``encoder``, ``decoder``) are
     unstacked into the port's one-dict-a-layer lists.  Each leaf keeps the
     dtype the reference gave it: ``cfg.param_dtype``, and float32 for the
-    router and the SSM's ``A_log``, ``D`` and ``dt_bias``.
+    router and the SSM's ``A_log``, ``D`` and ``dt_bias``.  Any tree with
+    the params' top-level names works (an optimizer moment, whose int8
+    leaves are ``{"q", "scale"}``, too).
     """
     dev = common.resolve_device(device)
-
-    def leaf(a):
-        a = np.asarray(a)
-        t = torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
-        return t.to(device=dev, dtype=common.DTYPES[str(a.dtype)])
-
-    if cfg.is_encdec:
-        stacks = {"encoder": cfg.encoder_layers, "decoder": cfg.n_layers}
-    else:
-        stacks = {"layers": transformer.n_groups(cfg)}
+    stacks = _stacks(cfg)
+    leaf = lambda a: tensor_from_numpy(a, dev)
     out = {}
     for name, sub in np_params.items():
         if name in stacks:
@@ -181,3 +199,57 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
         else:
             out[name] = tree_map(leaf, sub)
     return out
+
+
+def _has_quantized(tree) -> bool:
+    if isinstance(tree, dict):
+        return "q" in tree or any(_has_quantized(v) for v in tree.values())
+    return isinstance(tree, list) and any(_has_quantized(v) for v in tree)
+
+
+@torch.no_grad()
+def state_from_jax(np_state: dict, cfg: ModelConfig, ocfg,
+                   device=None) -> dict:
+    """The port's train state from ``repro.train.steps``' one, given as a
+    tree of numpy arrays: ``{"params", "opt": {"m", "v", "count"},
+    "step"}``, fp32 or int8 (``{"q", "scale"}``) moments as ``ocfg``
+    says, each tree unstacked as ``params_from_jax`` does."""
+    dev = common.resolve_device(device)
+    opt = np_state["opt"]
+    if _has_quantized(opt["m"]) != ocfg.eight_bit:
+        raise ValueError(f"moments do not match eight_bit={ocfg.eight_bit}")
+    scalar = lambda a: torch.tensor(int(np.asarray(a)), dtype=torch.int32,
+                                    device=dev)
+    return {
+        "params": params_from_jax(np_state["params"], cfg, dev),
+        "opt": {"m": params_from_jax(opt["m"], cfg, dev),
+                "v": params_from_jax(opt["v"], cfg, dev),
+                "count": scalar(opt["count"])},
+        "step": scalar(np_state["step"]),
+    }
+
+
+def _numpy_of(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().to("cpu", copy=True)  # never a view of a live leaf
+    if t.dtype == torch.bfloat16:  # numpy has no bfloat16: its raw words
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def _stack_groups(groups: list):
+    first = groups[0]
+    if isinstance(first, dict):
+        return {k: _stack_groups([g[k] for g in groups]) for k in first}
+    return torch.stack([g.detach().to("cpu") for g in groups])
+
+
+def state_to_jax(tree) -> dict:
+    """A params or train-state tree as numpy arrays in the reference's
+    layout: each list (a layer stack) stacked on a leading axis, on the
+    host.  bfloat16 leaves come back as their raw ``V2`` words, as the
+    reference's ``np.save`` writes them."""
+    if isinstance(tree, dict):
+        return {k: state_to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return state_to_jax(_stack_groups(tree))
+    return _numpy_of(tree)

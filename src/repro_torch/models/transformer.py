@@ -10,8 +10,11 @@ one dict a group, ``params["layers"][g]["slot{j}"]``, and loops over the
 groups.  Decode caches keep the reference's stacked layout (a leading
 ``n_groups`` axis a slot), and decode writes them in place.
 
-``cfg.remat`` and ``cfg.scan_unroll`` are the reference's training and
-lowering switches; serving ignores them.
+With ``cfg.remat`` set and grad mode on, each layer group's body runs
+under ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
+reference's ``jax.checkpoint`` of its scan body: the backward recomputes a
+group's activations (and its weights' compute-dtype casts) instead of
+keeping them.  ``cfg.scan_unroll``, a lowering switch, is ignored.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, mlp, ssm
@@ -163,9 +167,8 @@ def stack_forward(layers, x, positions, cfg: ModelConfig,
     ``caches`` (when collected) is {slotJ: tree with leading n_groups}.
     """
     program = layer_program(cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    per_group = []
-    for lp in layers:
+
+    def body(lp, x, aux):
         caches = {}
         for j, spec in enumerate(program):
             x, a, cache = apply_slot(
@@ -173,7 +176,18 @@ def stack_forward(layers, x, positions, cfg: ModelConfig,
             )
             aux = aux + a
             caches[f"slot{j}"] = cache
-        per_group.append(caches)
+        return x, aux, caches
+
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    per_group = []
+    for lp in layers:
+        if remat:
+            x, aux = checkpoint(lambda *a: body(*a)[:2], lp, x, aux,
+                                use_reentrant=False)
+        else:
+            x, aux, caches = body(lp, x, aux)
+            per_group.append(caches)
     return x, aux, (_stack_caches(per_group) if collect_cache else None)
 
 

@@ -1,1 +1,2 @@
-"""Serving steps of the LM stack; training comes in a later slice."""
+"""LM training (schedule, AdamW with int8 moments, train step with
+microbatches and remat, checkpoint, loop) and the serving steps."""

@@ -1159,3 +1159,56 @@ def test_serve_lm_main_on_the_card(capsys):
     assert gen.shape == (4, 32) and ((gen >= 0) & (gen < 256)).all()
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["device"].startswith("cuda")
+
+
+# ---------------------------------------------------------------------------
+# LM training: plain torch ops and autograd on the card
+# ---------------------------------------------------------------------------
+# three train steps, float32 on the card against the CPU from one state:
+# each float leaf within LM_RTOL of its own max |x| plus LM_TRAIN_ATOL (a
+# leaf whose gradient is noise, such as a key bias, steps by ~lr either
+# way); int8 moment codes within 1 (a rounding tie)
+LM_TRAIN_ATOL = 1e-6
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-32b", "grok-1-314b",
+                                  "mamba2-780m", "whisper-small"])
+def test_lm_train_steps_on_card_match_cpu(arch):
+    from repro_torch.train import optimizer as lm_opt
+    from repro_torch.train import schedule as lm_sched
+    from repro_torch.train import steps as lm_steps
+
+    dev = _cuda()
+    cfg = get_config(arch).reduced()
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    ocfg = lm_opt.AdamWConfig(eight_bit=cfg.opt_8bit)
+    # int8 moments at lr 0: a moved run is chaotic (chip_smoke.py's
+    # LM_TRAIN_CARD_LR says why); the moments still go through int8
+    scfg = lm_sched.ScheduleConfig(peak_lr=0.0 if cfg.opt_8bit else 1e-3,
+                                   warmup_steps=1, total_steps=10)
+    cpu = torch.device("cpu")
+    host = lm_steps.init_train_state(lm_common.make_generator(0, cpu), cfg,
+                                     ocfg)
+    card = lm_model.to_device(host, dev)
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        batch = serve_lm.make_batch(cfg, 4, 32, int(rng.integers(1 << 30)),
+                                    cpu)
+        batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+        host, mh = lm_steps.train_step(host, batch, cfg, ocfg, scfg)
+        card, mc = lm_steps.train_step(card, lm_model.to_device(batch, dev),
+                                       cfg, ocfg, scfg)
+        for k in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(mc[k]), float(mh[k]),
+                                       rtol=LM_RTOL)
+    for a, b in zip(lm_model.leaves(host), lm_model.leaves(card)):
+        b = b.cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype == torch.int8:
+            assert int((a.int() - b.int()).abs().max()) <= 1
+        elif a.is_floating_point():
+            err = float((a - b).abs().max())
+            assert err <= LM_RTOL * float(a.abs().max()) + LM_TRAIN_ATOL
+        else:
+            assert torch.equal(a, b)
