@@ -68,7 +68,7 @@ Then the layout lifecycle, each path counted from 0:
 * WOODBLOCK on the greedy tree's 1% sample: ``TreeEnv``'s cut matrix is
   one ``eval_cuts`` launch, equal to ``preds.eval_cuts`` (the kernel timed
   at that shape against its plain version and its bound);
-  ``build_layout(strategy="woodblock")`` within a 30 s budget (block ids
+  ``build_layout(strategy="woodblock")`` within a 20 s budget (block ids
   and Eq. 1 hits equal numpy's); one ``ppo_update`` on the card against
   the CPU's at a stated tolerance; episodes, policy steps (one a tree
   level) and updates timed;
@@ -148,11 +148,30 @@ either; its data tier launches ``fused_ingest`` and ``query_intersect``):
   at ``reduced()``; the ten reduced archs, 3 steps on the card against
   the CPU (the CPU halves in the pool); and the CLI at reduced size
   crashed at step 12 with checkpoints every 5 steps, resumed from step 10
-  to 16, its losses against an uninterrupted run's.  The CLI's five runs
+  to 16, its losses against an uninterrupted run's.  Every CLI run goes
+  through the CLI's one-rank (data 1, model 1) mesh; starcoder2-3b runs
+  once more with ``--dtensor-leaves`` (its state's leaves DTensors, not
+  the plain tensors that stand in for them on one rank) for 4 steps, its
+  losses against the plain run's and its step ms beside it.  The CLI's six runs
   go one after another on a thread from the kernel build on, while the
   host makes the table and the layouts and the card is otherwise idle
   (the full-width ones timed there, beside that host work); the main
   path waits for them.
+
+Then the sharding path (the JAX sharding has no Pallas kernel), counted
+from 0, over a one-rank NCCL process group on the card:
+
+* ``lm_shard``: one MoE layer at published widths in bf16 (qwen3-moe-
+  235b-a22b's, 128 experts, top-8, expert d_ff 1536: the expert-parallel
+  body; grok-1-314b's, 8 experts, top-2, d_ff 32768: the ff-sharded
+  body) on 8 × 128 tokens, forward and backward through ``moe_forward``
+  under a (data 1, model 1) mesh — its all-to-all, all-gather and psum
+  real NCCL calls, seen in a trace — equal to ``_moe_local`` bit for bit
+  (y, aux, every gradient; both with deterministic algorithms); and
+  mamba2-780m at full width through ``jit_train_step`` on (pod 1, data
+  1, model 1), 8 plain and 8 compressed steps (the int8 payload through
+  NCCL), the last losses within 0.15, step ms side by side, the sync's
+  wire bytes against float32.
 
 Then it times: route and query latencies (median and spread of warm
 calls, host clock; route split into its kernel, from a trace, and the
@@ -163,8 +182,8 @@ its plain version.  It exits non-zero on the first failure, without a
 CUDA device, and when the package is not beside it.  Output, before the
 last line: the card's name and power limit, build seconds, one
 ``{"metrics": ...}`` JSON line (keys ``serve``, ``pipeline``,
-``coordinator``, ``cli``, ``lm_serve``, ``lm_train``, and ``phase_s`` for
-every phase)
+``coordinator``, ``cli``, ``lm_serve``, ``lm_train``, ``lm_shard``, and
+``phase_s`` for every phase)
 and one ``{"kernels": [...]}`` JSON line (launches, median CUDA-event
 time, bound, plain-version time, max difference per kernel).  The last line is ``{"ok": true, "device":
 {...}}``.  ``--rows`` cuts the row count (the only cut allowed; it is
@@ -216,7 +235,7 @@ TUNED_REPS = 3  # whole-table ingests with each geometry, alternated
 RANGE_COLUMN = 0  # l_shipdate: the range baseline's partitioning column
 BASELINE_ROUTE_ROWS = 1 << 16  # sample rows routed through each baseline
 BASELINE_TIMEOUT_S = 600  # the baselines' build, at most
-WOODBLOCK_BUDGET_S = 30  # build_layout(strategy="woodblock", time_budget_s)
+WOODBLOCK_BUDGET_S = 20  # build_layout(strategy="woodblock", time_budget_s)
 COPY_REPS = 3  # copies back of the env's matrix in each form, alternated
 # one PPO update on the card against the CPU: float32 sums in another
 # order, then one Adam step of at most lr = 3e-4 a parameter
@@ -263,10 +282,11 @@ LM_OP_NAME = 64  # characters of an op's name kept in the listing
 # the LM training path: the two full models through the train CLI at its
 # defaults (batch 8, sequence 128, a 50,000-row table, curation on)
 LM_TRAIN_STEPS = 8
+LM_DTENSOR_STEPS = 4  # the DTensor-leaves run: its step is ~3x the plain one
 LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 128
 LM_TRAIN_TOKENS = LM_TRAIN_BATCH * LM_TRAIN_SEQ
 LM_TRAIN_TIMEOUT_S = 300
-LM_CLI_WAIT_S = 900  # the train CLI's five runs, at most
+LM_CLI_WAIT_S = 900  # the train CLI's six runs, at most
 # weights an embedding gathers from, or read in float32: never cast whole
 LM_UNCAST = ("tok_embed", "pos_embed", "enc_pos", "dec_pos", "conv_w",
              "router")
@@ -297,6 +317,14 @@ LM_RESUME_RTOL = 1e-5  # the loss is a float32 mean; atomics may reorder
 
 # H100 SXM (NVIDIA data sheet): HBM rate, and the float32 rate outside the
 # tensor cores, taken as the rate of the kernels' int32 compares/atomics
+# the sharding path (lm_shard): one rank, an NCCL group on the card
+LM_SHARD_EP = "qwen3-moe-235b-a22b"  # 128 experts, top-8: the EP path
+LM_SHARD_FF = "grok-1-314b"  # 8 experts, top-2: the ff-sharded path
+LM_SHARD_TOKENS = (8, 128)  # the MoE layers' batch × sequence
+LM_SHARD_REPS = 2  # timed forward + backward calls a path, after a warm one
+LM_SHARD_COMPRESS = "mamba2-780m"  # the compressed step, at full width
+LM_SHARD_STEPS = 8
+LM_SHARD_LOSS_TOL = 0.15  # the reference's bound (tests/test_sharding.py)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989.4e12  # dense bf16 on the tensor cores
@@ -462,10 +490,16 @@ def traced_kernel_sample(fn, name: str, reps: int) -> dict:
     """Device times of the kernel ``name`` over ``reps`` calls of ``fn``
     under ``torch.profiler``, where the trace may drop some of its
     events (it dropped seven of ten 0.1 ms ``eval_cuts`` kernels at the
-    env's shape on the H100): the median of those it kept and their
-    count.  The launches themselves are counted by the wrappers.  Fails
-    if it kept none, or shows another kernel of the repo."""
-    spans = traced_kernels(fn, reps)
+    env's shape on the H100, and all ten of them at 2**20 rows once): the
+    median of those it kept and their count.  The launches themselves are
+    counted by the wrappers.  A trace that kept none is taken again, at
+    most TRACE_TRIES traces in all; fails if the last kept none, or shows
+    another kernel of the repo."""
+    for attempt in range(TRACE_TRIES):
+        spans = traced_kernels(fn, reps)
+        if spans:
+            break
+        log(f"trace {attempt + 1} of {name} kept none of {reps} kernels")
     require(set(spans) == {name} and 0 < len(spans[name]) <= reps,
             f"the trace shows {({k: len(v) for k, v in spans.items()})} "
             f"kernels for {reps} calls of {name}")
@@ -2684,25 +2718,29 @@ def lm_train_bound(cfg) -> dict:
             "bound_ms": ms, "bound_by": by}
 
 
-def lm_train_full(arch: str, children: list) -> dict:
+def lm_train_full(arch: str, children: list, extra: tuple = (),
+                  steps: int = LM_TRAIN_STEPS) -> dict:
     """``python -m repro_torch.launch.train --arch <arch> --full-arch
-    --steps LM_TRAIN_STEPS`` on the card at the CLI's defaults: exit 0,
-    every loss finite, the data tier's kernels launched; step ms (median
-    of steps 2.., the first being the warm one), tokens/s, MFU, peak GB
-    and the step's bound."""
+    --steps <steps>`` (and ``extra``) on the card at the CLI's defaults,
+    through its one-rank (data 1, model 1) mesh: exit 0, every loss
+    finite, the data tier's kernels launched; step ms (median of steps
+    2.., the first being the warm one), tokens/s, MFU, peak GB and the
+    step's bound."""
     from repro_torch.configs import get_config
     from repro_torch.models import model
 
     summary, _, wall = lm_cli_result(
-        lm_cli(["--arch", arch, "--full-arch", "--steps",
-                str(LM_TRAIN_STEPS)], children),
-        LM_TRAIN_TIMEOUT_S, f"train CLI {arch}")
+        lm_cli(["--arch", arch, "--full-arch", "--steps", str(steps),
+                *extra], children),
+        LM_TRAIN_TIMEOUT_S, f"train CLI {arch} {extra}")
     cfg = get_config(arch)
     losses = summary["losses"]
     require(summary["device"].startswith("cuda") and summary["full_arch"]
-            and summary["steps"] == list(range(LM_TRAIN_STEPS))
+            and summary["steps"] == list(range(steps))
             and all(np.isfinite(losses))
-            and summary["batch"] * summary["seq"] == LM_TRAIN_TOKENS,
+            and summary["batch"] * summary["seq"] == LM_TRAIN_TOKENS
+            and summary["mesh"] == {"data": 1, "model": 1}
+            and summary["dtensor_leaves"] == ("--dtensor-leaves" in extra),
             f"train CLI {arch}: {summary}")
     launches = summary["launches"]
     require(launches["fused_ingest_shared"] + launches["fused_ingest_global"]
@@ -2719,6 +2757,7 @@ def lm_train_full(arch: str, children: list) -> dict:
         "tokens_per_s": LM_TRAIN_TOKENS / step_s,
         "mfu": flops / step_s / BF16_FLOPS_PER_S,
         "peak_gb": summary["peak_gb"], "bound": lm_train_bound(cfg),
+        "dtensor_leaves": summary["dtensor_leaves"],
         "blocks": summary["blocks"],
         "blocks_skipped": summary["blocks_skipped"], "launches": launches,
     }
@@ -2984,6 +3023,13 @@ def lm_train_cli_runs(ck: Path, children: list) -> dict:
         log(f"lm train {arch}: step {r['step_ms_median']:.3f} ms, "
             f"{r['tokens_per_s']:.1f} tok/s, MFU {r['mfu']:.4f}, peak "
             f"{r['peak_gb']:.3f} GB, losses {r['losses']}")
+    # the same mesh with the state's leaves as DTensors: their dispatch
+    # against the plain tensors that stand in for them on one rank
+    out["dtensor"] = r = lm_train_full(LM_FULL[0], children,
+                                       ("--dtensor-leaves",),
+                                       LM_DTENSOR_STEPS)
+    log(f"lm train {LM_FULL[0]} with DTensor leaves: step "
+        f"{r['step_ms_median']:.3f} ms, peak {r['peak_gb']:.3f} GB")
     return out
 
 
@@ -3010,6 +3056,17 @@ def lm_train_phase(ctx, counted) -> dict:
     for arch in LM_FULL:
         out["full"][arch] = runs["full"][arch]
         ctx["worker_launches"].append(runs["full"][arch]["launches"])
+    dt, plain = runs["dtensor"], runs["full"][LM_FULL[0]]
+    ctx["worker_launches"].append(dt["launches"])
+    # the two schedules (4 and 8 steps) agree on the lr of steps 0-2, so
+    # on the first 4 losses
+    got = np.asarray(dt["losses"])
+    want = np.asarray(plain["losses"][:LM_DTENSOR_STEPS])
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    require(rel <= LM_RESUME_RTOL, f"{LM_FULL[0]} with DTensor leaves: "
+            f"losses {got.tolist()} against {want.tolist()}")
+    out["dtensor"] = dict(dt, losses_max_rel_err=rel,
+                          losses_bitwise=bool(np.array_equal(got, want)))
 
     def path():
         out["trace"] = lm_train_trace(dev)
@@ -3047,6 +3104,189 @@ def lm_train_phase(ctx, counted) -> dict:
     log(f"lm train resume: from {start}, losses {rel:.3g} apart "
         f"(bitwise {out['resume']['bitwise']})")
     return out
+
+def lm_shard_nccl(prof) -> dict:
+    """NCCL kernels in a profiler trace: {kernel name: count}."""
+    import torch
+
+    out: dict = {}
+    for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and "nccl" in ev.name.lower()):
+            out[ev.name[:LM_OP_NAME]] = out.get(ev.name[:LM_OP_NAME], 0) + 1
+    return out
+
+
+def lm_shard_moe(arch: str, dev, mesh) -> dict:
+    """One MoE layer of ``arch`` at its published widths in its dtypes,
+    drawn on the card: forward and backward through the sharded body under
+    the one-rank mesh (``moe_forward`` under ``use_mesh``: real NCCL
+    all-to-all, all-gather and all-reduce calls) against ``_moe_local``
+    on the same weights and input.  y, aux and every gradient must be
+    equal, bitwise, and finite, both run under
+    ``torch.use_deterministic_algorithms``: the combine's index_add (and
+    the gathers' backward) accumulate with atomics otherwise, in which
+    ``_moe_local`` does not repeat itself bit for bit.  CUDA-event ms of
+    each (median of LM_SHARD_REPS after a warm call, default algorithms)
+    and the NCCL kernels of one traced sharded call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, mlp
+    from repro_torch.sharding import specs as sh
+
+    cfg = get_config(arch)
+    params, _ = mlp.init_moe(common.make_generator(SEED, dev), cfg)
+    b, s = LM_SHARD_TOKENS
+    gen = common.make_generator(SEED + 1, dev)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev).to(
+        common.cdtype(cfg))
+    names = list(params)
+
+    def run(sharded):
+        ps = {k: params[k].detach().requires_grad_() for k in names}
+        xx = x.detach().requires_grad_()
+        if sharded:
+            with sh.use_mesh(mesh, sh.Rules.make()):
+                y, aux = mlp.moe_forward(ps, xx, cfg)
+        else:
+            y, aux = mlp._moe_local(ps, xx.reshape(b * s, -1), cfg)
+            y = y.reshape(b, s, -1)
+        loss = (y.float() ** 2).mean() + aux
+        grads = torch.autograd.grad(loss, [ps[k] for k in names] + [xx])
+        return y.detach(), aux.detach(), grads
+
+    ms = {"sharded": time_ms(lambda: run(True), LM_SHARD_REPS),
+          "local": time_ms(lambda: run(False), LM_SHARD_REPS)}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(True)
+        torch.cuda.synchronize()
+    nccl = lm_shard_nccl(prof)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (y1, a1, g1), (y0, a0, g0) = run(True), run(False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    require(bool(torch.isfinite(y1.float()).all()) and all(
+        bool(torch.isfinite(g.float()).all()) for g in g1),
+        f"{arch}: a non-finite output or gradient")
+    equal = {"y": torch.equal(y0, y1), "aux": torch.equal(a0, a1)}
+    equal.update({n: torch.equal(a, c)
+                  for n, a, c in zip(names + ["x"], g0, g1)})
+    require(all(equal.values()), f"{arch}: the sharded body differs from "
+            f"_moe_local: {equal}")
+    require(nccl, f"{arch}: the traced sharded call ran no NCCL kernel")
+    n = sum(int(p.numel()) for p in params.values())
+    out = {"params": n, "param_gb": sum(int(p.numel()) * p.element_size()
+                                        for p in params.values()) / 1e9,
+           "moe_shard": cfg.moe_shard, "tokens": b * s, "equal": equal,
+           "ms": ms, "nccl_kernels": nccl}
+    del params, x, g0, g1
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_shard_compress(dev, mesh) -> dict:
+    """``jit_train_step`` for LM_SHARD_COMPRESS at full width on the
+    one-rank (pod, data, model) mesh, plain and then compressed
+    (``make_compressed_train_step``: int8 payload and row scales
+    all-gathered over pod through NCCL), LM_SHARD_STEPS steps each from
+    one seeded state on the same batches: every loss finite, the last
+    compressed loss within LM_SHARD_LOSS_TOL of the plain one; step ms
+    (host clock until the loss is on the host, median of steps 2..) and
+    the sync's wire bytes against float32."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, model
+    from repro_torch.sharding import specs as sh
+    from repro_torch.train import compress as compress_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import schedule as sched
+    from repro_torch.train import steps
+
+    cfg = get_config(LM_SHARD_COMPRESS)
+    ocfg = opt_lib.AdamWConfig(eight_bit=cfg.opt_8bit)
+    scfg = sched.ScheduleConfig(peak_lr=3e-4, warmup_steps=2,
+                                total_steps=LM_SHARD_STEPS)
+    shapes = {n: torch.empty((LM_TRAIN_BATCH, LM_TRAIN_SEQ),
+                             dtype=torch.int32, device="meta")
+              for n in ("tokens", "labels")}
+    bspec = {"tokens": ("batch", None), "labels": ("batch", None)}
+    out = {}
+    for compress in (False, True):
+        step, _, ssh, bsh = steps.jit_train_step(
+            cfg, ocfg, scfg, mesh, sh.Rules.make(), shapes, bspec,
+            compress=compress)
+        state = sh.place(steps.init_train_state(
+            common.make_generator(SEED, dev), cfg, ocfg, compress=compress),
+            ssh)
+        if compress:
+            out["wire_bytes"] = compress_lib.compressed_wire_bytes(
+                state["params"])
+            out["f32_bytes"] = 4 * sum(
+                int(p.numel()) for p in model.leaves(state["params"]))
+        losses, walls = [], []
+        for i in range(LM_SHARD_STEPS):
+            batch = sh.place(lm_train_batch(cfg, dev, SEED + i), bsh)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        require(all(np.isfinite(losses)),
+                f"compress={compress}: losses {losses}")
+        out["compressed" if compress else "plain"] = {
+            "losses": losses, "step_ms": walls,
+            "step_ms_median": float(np.median(walls[1:]))}
+        del state
+        torch.cuda.empty_cache()
+    gap = abs(out["compressed"]["losses"][-1] - out["plain"]["losses"][-1])
+    require(gap < LM_SHARD_LOSS_TOL, f"compressed against plain: the last "
+            f"losses {gap:.4f} apart")
+    out["last_loss_gap"] = gap
+    return out
+
+
+def lm_shard_phase(ctx, counted) -> dict:
+    """The sharding path on the card, in this process, over a one-rank
+    NCCL process group made here (and destroyed at the end): the EP MoE
+    layer of LM_SHARD_EP and the ff-sharded one of LM_SHARD_FF at their
+    published widths against ``_moe_local`` (``lm_shard_moe``) on a
+    (data 1, model 1) mesh, and the compressed train step of
+    LM_SHARD_COMPRESS against the plain mesh step on (pod 1, data 1,
+    model 1) (``lm_shard_compress``).  It launches none of the repo's
+    kernels."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group, make_smoke_mesh
+
+    dev = ctx["dev"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    require(not dist.is_initialized(), "a process group exists already")
+    init_process_group(dev)
+    require(dist.get_backend() == "nccl",
+            f"the group's backend is {dist.get_backend()}, not nccl")
+    out = {}
+    try:
+        def path():
+            mesh = make_smoke_mesh(1, 1, device=dev)
+            for key, arch in (("ep", LM_SHARD_EP), ("ff", LM_SHARD_FF)):
+                out[key] = lm_shard_moe(arch, dev, mesh)
+            out["compress"] = lm_shard_compress(
+                dev, make_smoke_mesh(1, 1, pod=1, device=dev))
+
+        counted("lm_shard", path)
+    finally:
+        dist.destroy_process_group()
+    require(not any(ctx["path_launches"]["lm_shard"].values()),
+            f"the sharding path launched a kernel: "
+            f"{ctx['path_launches']['lm_shard']}")
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3488,6 +3728,10 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     t0 = time.perf_counter()
     lm_train = lm_train_phase(ctx, counted)
     phase_s["lm_train"] = time.perf_counter() - t0
+    # -- the sharding path, counted from 0 -------------------------------------
+    t0 = time.perf_counter()
+    lm_shard = lm_shard_phase(ctx, counted)
+    phase_s["lm_shard"] = time.perf_counter() - t0
     # every path's launches, the process shards' (made in their workers)
     # included
     launches = {k: sum(c[k] for c in path_launches.values())
@@ -3605,7 +3849,8 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
         "block_store": store, "autotune": tuned, "baselines": baselines,
         "woodblock": woodblock, "service": service, "serve": serve,
         "pipeline": pipeline, "coordinator": fleet, "cli": cli,
-        "lm_serve": lm, "lm_train": lm_train, "phase_s": phase_s,
+        "lm_serve": lm, "lm_train": lm_train, "lm_shard": lm_shard,
+        "phase_s": phase_s,
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         "total_s": time.perf_counter() - t_start,
     }
@@ -3727,6 +3972,29 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
               f"{a} {r['state_max_rel_err']:.3g} ({r['int8_codes_differ']} "
               f"int8 codes differ)" for a, r in lm_train["reduced"].items()))
     print(f"lm_train resume: {lm_train['resume']}")
+    dt = lm_train["dtensor"]
+    print(f"lm_train {LM_FULL[0]} with DTensor leaves on the one-rank mesh: "
+          f"step {dt['step_ms_median']:.3f} ms against "
+          f"{lm_train['full'][LM_FULL[0]]['step_ms_median']:.3f} ms with "
+          f"plain tensors, {dt['tokens_per_s']:.1f} tok/s, peak "
+          f"{dt['peak_gb']:.3f} GB; losses {dt['losses_max_rel_err']:.3g} "
+          f"apart (bitwise {dt['losses_bitwise']})")
+    for key in ("ep", "ff"):
+        r = lm_shard[key]
+        print(f"lm_shard {key} ({r['params']} params, {r['param_gb']:.3f} "
+              f"GB, {r['tokens']} tokens): forward + backward "
+              f"{r['ms']['sharded']:.3f} ms through the one-rank NCCL body "
+              f"against {r['ms']['local']:.3f} ms for _moe_local; bitwise "
+              f"equal {all(r['equal'].values())}; NCCL kernels "
+              f"{r['nccl_kernels']}")
+    c = lm_shard["compress"]
+    print(f"lm_shard compressed {LM_SHARD_COMPRESS} step "
+          f"{c['compressed']['step_ms_median']:.3f} ms against plain "
+          f"{c['plain']['step_ms_median']:.3f} ms (median of steps 2-"
+          f"{LM_SHARD_STEPS}); last losses {c['last_loss_gap']:.6f} apart "
+          f"(plain {c['plain']['losses']}, compressed "
+          f"{c['compressed']['losses']}); wire {c['wire_bytes']} B against "
+          f"{c['f32_bytes']} B in float32")
     print(f"phase seconds: {phase_s}")
     print(json.dumps({"metrics": metrics}))
     print(json.dumps({"kernels": kernels}))

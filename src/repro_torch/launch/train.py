@@ -10,23 +10,34 @@ The driver trains the arch's ``reduced()`` config unless ``--full-arch``
 is given.  ``--device`` defaults to the GPU and raises without one.  With
 ``--ckpt-dir`` it resumes from the latest checkpoint there, skipping the
 batches the restored steps consumed (the data cursor), so a resumed run's
-losses continue an uninterrupted one's.  ``--data``/``--model-par`` above
-1 are refused: the port has no mesh yet.  The last line printed is a JSON
+losses continue an uninterrupted one's.
+
+The step runs under a ``(data, model)`` mesh, as the reference's: one
+rank by default (a one-rank process group, where the state's leaves are
+plain tensors unless ``--dtensor-leaves``), or ``--data`` × ``--model-par``
+ranks under ``torchrun --nproc-per-node N`` (``nccl`` on the GPUs,
+``gloo`` with ``--device cpu``); a world size other than data × model is
+refused.  Every rank builds the same data tier and draws the same
+batches; each keeps its shards.  Rank 0 prints the log and, last, a JSON
 summary.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-32b \
       --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --data 2 --model-par 2 --device cpu --rows 20000 --steps 4
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core import greedy
@@ -36,7 +47,9 @@ from repro_torch.data.blocks import BlockStore
 from repro_torch.data.pipeline import PipelineConfig, QdTreePipeline
 from repro_torch.engine.plan import resolve_device
 from repro_torch.kernels import _build
+from repro_torch.launch.mesh import init_process_group, make_smoke_mesh
 from repro_torch.models import common, model
+from repro_torch.sharding import specs as sh
 from repro_torch.train import steps
 from repro_torch.train.loop import (FailureInjector, LoopConfig,
                                     maybe_restore, train_loop)
@@ -61,7 +74,7 @@ def build_data_tier(tmp: str, n_rows: int, block: int, seed: int = 0,
 
 
 def _pipeline(store, schema, batch: int, seq: int, vocab: int,
-              curated: bool, epochs: int) -> QdTreePipeline:
+              curated: bool, epochs: int, log=print) -> QdTreePipeline:
     curation = None
     if curated:
         # the mixture filter: only valid events of the two dominant types
@@ -73,7 +86,7 @@ def _pipeline(store, schema, batch: int, seq: int, vocab: int,
         batch_size=batch, seq_len=seq, vocab=vocab,
         curation_query=curation, epochs=epochs,
     ))
-    print(
+    log(
         f"pipeline: {store.tree.n_leaves} blocks, "
         f"{pipe.blocks_skipped} skipped by the curation query"
     )
@@ -124,12 +137,22 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; raises without "
                          "one)")
+    ap.add_argument("--dtensor-leaves", action="store_true",
+                    help="DTensor state leaves on a one-rank mesh too")
     args = ap.parse_args(argv)
-    if args.data > 1 or args.model_par > 1:
-        ap.error("--data/--model-par above 1 need a device mesh, which "
-                 "the port does not have yet")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if dist.is_initialized():
+        world = dist.get_world_size()
+    if world != args.data * args.model_par:
+        ap.error(f"--data {args.data} × --model-par {args.model_par} is not "
+                 f"the world size {world}: run under torchrun "
+                 f"--nproc-per-node {args.data * args.model_par}")
 
-    dev = resolve_device(args.device)
+    owns_group = not dist.is_initialized()
+    dev = init_process_group(args.device)
+    rank = dist.get_rank()
+    log = print if rank == 0 else (lambda *a, **k: None)
+    mesh = make_smoke_mesh(data=args.data, model=args.model_par, device=dev)
     cfg = get_config(args.arch)
     if not args.full_arch:
         over = {}
@@ -139,7 +162,8 @@ def main(argv=None):
             over["d_model"] = args.d_model
             over["head_dim"] = max(args.d_model // max(cfg.n_heads, 1), 8)
         cfg = cfg.reduced(**over)
-    print(f"arch {cfg.name}: {cfg.n_layers}L d={cfg.d_model}")
+    log(f"arch {cfg.name}: {cfg.n_layers}L d={cfg.d_model}, "
+        f"mesh data={args.data} model={args.model_par}")
 
     ocfg = AdamWConfig(eight_bit=cfg.opt_8bit)
     scfg = ScheduleConfig(
@@ -152,19 +176,29 @@ def main(argv=None):
             tmp, n_rows=args.rows, block=2_000, seed=args.seed, device=dev
         )
         pipe = _pipeline(store, schema, args.batch, args.seq, cfg.vocab,
-                         curated=not args.no_curation, epochs=1_000_000)
-        batches = _batches(pipe, dev)
+                         curated=not args.no_curation, epochs=1_000_000,
+                         log=log)
+        batch_shapes = {
+            n: torch.empty((args.batch, args.seq), dtype=torch.int32,
+                           device="meta") for n in ("tokens", "labels")}
+        step_fn, shapes, state_sh, batch_sh = steps.jit_train_step(
+            cfg, ocfg, scfg, mesh, sh.Rules.make(), batch_shapes,
+            {"tokens": ("batch", None), "labels": ("batch", None)})
+        leaves_dt = True if args.dtensor_leaves else None
+        batches = (sh.place(b, batch_sh, leaves_dt)
+                   for b in _batches(pipe, dev))
 
-        shapes, _ = steps.abstract_state(cfg, ocfg)
         state, start = maybe_restore(args.ckpt_dir, shapes, dev)
         if state is None:
+            # every rank draws the same full state and keeps its shards
             state = steps.init_train_state(
                 common.make_generator(args.seed, dev), cfg, ocfg)
-            print("cold start")
+            log("cold start")
         else:
             for _ in range(start):  # the data cursor: the batches consumed
                 next(batches)
-            print(f"resumed from step {start}")
+            log(f"resumed from step {start}")
+        state = sh.place(state, state_sh, leaves_dt)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
 
@@ -175,18 +209,21 @@ def main(argv=None):
             log_every=5,
         )
         state, history = train_loop(
-            lambda s, b: steps.train_step(s, b, cfg, ocfg, scfg),
-            state, batches, lcfg, FailureInjector(args.fail_at),
+            step_fn, state, batches, lcfg, FailureInjector(args.fail_at),
+            log=log,
         )
-    print(
+    log(
         f"done: step={int(state['step'])} "
         f"final loss={history[-1]['loss']:.4f}"
     )
     walls = [h["wall_s"] for h in history]
     warm = walls[1:] or walls  # the first step is the warm one
     step_ms = float(np.median(warm)) * 1e3
-    print(json.dumps({
+    log(json.dumps({
         "arch": cfg.name, "device": str(dev), "full_arch": args.full_arch,
+        "mesh": {"data": args.data, "model": args.model_par},
+        "dtensor_leaves": any(isinstance(x, sh.DTensor)
+                              for x in model.leaves(state["params"])),
         "params": model.param_count(state["params"]),
         "batch": args.batch, "seq": args.seq,
         "microbatches": cfg.microbatches, "remat": cfg.remat,
@@ -204,6 +241,8 @@ def main(argv=None):
         # CPU the plain versions run and count nothing)
         "launches": _build.launch_counts(),
     }))
+    if owns_group:
+        dist.destroy_process_group()
     return history
 
 

@@ -22,6 +22,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.common import dense_init, split_tree
+from repro_torch.sharding.specs import logical_constraint as wsc
+from repro_torch.sharding.specs import shard_local
 
 NEG_INF = -1e30
 SENTINEL = 2**30  # position of padded KV rows: masked causal or not
@@ -75,6 +77,9 @@ def _project_qkv(params, x, kv_x, positions, kv_positions, cfg: ModelConfig):
     if cfg.pos_embed == "rope":
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, kv_positions, cfg.rope_theta)
+    q = wsc(q, ("batch", "seq", "heads", None))
+    k = wsc(k, ("batch", "seq", "kv_heads", None))
+    v = wsc(v, ("batch", "seq", "kv_heads", None))
     return q, k, v
 
 
@@ -167,14 +172,18 @@ def attn_forward(params, x, positions, cfg: ModelConfig, causal: bool = True,
     qg = _group_q(q, cfg.n_kv_heads)
     s, t = x.shape[1], k.shape[1]
     if max(s, t) > 2 * cfg.attn_chunk:
-        out = chunked_attention(
-            qg, k, v, positions, kv_positions, causal,
-            q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk,
-        )
+        core = lambda *a: chunked_attention(
+            *a, causal, q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
     else:
-        out = full_attention(qg, k, v, positions, kv_positions, causal)
+        core = lambda *a: full_attention(*a, causal)
+    # under a mesh, on each rank's batch rows and KV heads (no DTensor
+    # einsum rules for these layouts)
+    grouped, pos = ("batch", None, "kv_heads", None, None), ("batch", None)
+    out = shard_local(core, (qg, k, v, positions, kv_positions),
+                      (grouped, grouped[:4], grouped[:4], pos, pos), grouped)
     b = x.shape[0]
     out = out.reshape(b, s, cfg.n_heads, cfg.hd)
+    out = wsc(out, ("batch", "seq", "heads", None))
     y = _out_proj(out, params["wo"], common.cdtype(cfg))
     if return_kv:
         return y, (k.transpose(1, 2), v.transpose(1, 2))

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.plan import resolve_device
+from repro_torch.sharding.specs import batch_only
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -103,7 +104,9 @@ def softmax_cross_entropy(logits, labels, weights=None,
     ``weights`` (same shape as labels) masks positions (e.g. VLM image
     slots); the mean is over the weighted token count.
     """
-    lg = logits.float()
+    # under a mesh: the label gather has no DTensor rule over a vocab
+    # split or a partial sum
+    lg = batch_only(logits).float()
     lse = torch.logsumexp(lg, dim=-1)
     ll = torch.gather(lg, -1, labels[..., None].long())[..., 0]
     nll = lse - ll

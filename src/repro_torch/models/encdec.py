@@ -20,7 +20,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, mlp
 from repro_torch.models.common import dense_init, split_tree
-from repro_torch.models.transformer import apply_norm, head_logits, init_norm
+from repro_torch.models.transformer import (apply_norm, head_logits,
+                                            init_norm, whole_seq)
+from repro_torch.sharding.specs import logical_constraint as wsc
+from repro_torch.sharding.specs import replicate
 
 N_FRAMES = 1500  # whisper's 30 s @ 50 Hz after the conv frontend
 
@@ -96,14 +99,16 @@ def encode(params, frames, cfg: ModelConfig):
     b, f, _ = frames.shape
     positions = _positions(b, f, frames.device)
     x = frames.to(ct) + params["enc_pos"][None, :f].to(ct)
+    x = wsc(x, ("batch", "seq_sp", "embed"))
 
     def body(lp, x):
-        h = apply_norm(lp["ln1"], x, cfg)
-        x = x + attention.attn_forward(
+        h = whole_seq(apply_norm(lp["ln1"], x, cfg))
+        x = x + whole_seq(attention.attn_forward(
             lp["attn"], h, positions, cfg, causal=False
-        )
-        h = apply_norm(lp["ln2"], x, cfg)
-        return x + mlp.mlp_forward(lp["mlp"], h, cfg)
+        ))
+        h = whole_seq(apply_norm(lp["ln2"], x, cfg))
+        x = x + whole_seq(mlp.mlp_forward(lp["mlp"], h, cfg))
+        return wsc(x, ("batch", "seq_sp", "embed"))
 
     for lp in params["encoder"]:
         x = (checkpoint(body, lp, x, use_reentrant=False) if _remat(cfg)
@@ -116,8 +121,10 @@ def encode(params, frames, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 def _embed(params, tokens, positions, cfg: ModelConfig):
     ct = common.cdtype(cfg)
-    x = F.embedding(tokens.long(), params["tok_embed"]).to(ct)
-    return x + F.embedding(positions.long(), params["dec_pos"]).to(ct)
+    # a vocab-sharded table has no DTensor rule here: gathered first
+    x = F.embedding(tokens.long(), replicate(params["tok_embed"])).to(ct)
+    return x + F.embedding(positions.long(),
+                           replicate(params["dec_pos"])).to(ct)
 
 
 def decode_train(params, enc_out, tokens, cfg: ModelConfig,
@@ -130,21 +137,23 @@ def decode_train(params, enc_out, tokens, cfg: ModelConfig,
     positions = _positions(b, s, tokens.device)
     enc_positions = _positions(b, f, tokens.device)
     x = _embed(params, tokens, positions, cfg)
+    x = wsc(x, ("batch", "seq_sp", "embed"))
 
     def body(lp, x):
-        h = apply_norm(lp["ln1"], x, cfg)
+        h = whole_seq(apply_norm(lp["ln1"], x, cfg))
         y, (k, v) = attention.attn_forward(
             lp["self"], h, positions, cfg, causal=True, return_kv=True
         )
-        x = x + y
-        h = apply_norm(lp["ln_x"], x, cfg)
+        x = x + whole_seq(y)
+        h = whole_seq(apply_norm(lp["ln_x"], x, cfg))
         y, (ck, cv) = attention.attn_forward(
             lp["cross"], h, positions, cfg, causal=False,
             kv_x=enc_out, kv_positions=enc_positions, return_kv=True,
         )
-        x = x + y
-        h = apply_norm(lp["ln2"], x, cfg)
-        x = x + mlp.mlp_forward(lp["mlp"], h, cfg)
+        x = x + whole_seq(y)
+        h = whole_seq(apply_norm(lp["ln2"], x, cfg))
+        x = x + whole_seq(mlp.mlp_forward(lp["mlp"], h, cfg))
+        x = wsc(x, ("batch", "seq_sp", "embed"))
         return x, {"k": k, "v": v, "cross_k": ck, "cross_v": cv}
 
     remat = _remat(cfg) and not collect_cache
@@ -161,7 +170,9 @@ def decode_train(params, enc_out, tokens, cfg: ModelConfig,
     if collect_cache:
         caches = {name: torch.stack([c[name] for c in per_layer])
                   for name in per_layer[0]}
-    return head_logits(params, x, cfg, norm="dec_ln"), caches
+    logits = wsc(head_logits(params, x, cfg, norm="dec_ln"),
+                 ("batch", None, "vocab"))
+    return logits, caches
 
 
 # ---------------------------------------------------------------------------
@@ -208,4 +219,6 @@ def encdec_decode(params, caches, token, pos: int, cfg: ModelConfig):
         )
         h = apply_norm(lp["ln2"], x, cfg)
         x = x + mlp.mlp_forward(lp["mlp"], h, cfg)
-    return head_logits(params, x, cfg, norm="dec_ln")[:, 0], caches
+    logits = wsc(head_logits(params, x, cfg, norm="dec_ln")[:, 0],
+                 ("batch", "vocab"))
+    return logits, caches

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common, encdec, transformer
+from repro_torch.sharding.specs import as_dtensor, replicate
 
 
 def init_model(gen: torch.Generator, cfg: ModelConfig):
@@ -60,7 +61,10 @@ def train_loss(params, batch, cfg: ModelConfig):
         weights = (torch.arange(s, device=labels.device)
                    >= cfg.n_image_patches).float().expand(labels.shape)
     loss, nll = common.softmax_cross_entropy(logits, labels, weights)
-    total = loss + aux
+    # under a mesh the batch means are partial over its shards: reduced
+    # here, and a plain aux joins them as a replicated DTensor
+    loss, nll = replicate(loss), replicate(nll)
+    total = loss + as_dtensor(aux, getattr(loss, "device_mesh", None))
     return total, {"loss": total, "nll": nll, "aux": aux}
 
 

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.common import dense_init, split_tree
+from repro_torch.sharding.specs import logical_constraint as wsc
 
 SSD_CHUNK = 256
 
@@ -163,6 +164,7 @@ def mamba_forward(params, x, cfg: ModelConfig, init_state=None):
     b_mat = xbc[..., d_in:d_in + g * n].reshape(bsz, s, g, n)
     c_mat = xbc[..., d_in + g * n:].reshape(bsz, s, g, n)
     dt = F.softplus(dt.float() + params["dt_bias"])
+    xs = wsc(xs, ("batch", "seq", "ssm_heads", None))
     y, final = ssd_chunked(
         xs.float(), dt, params["A_log"], b_mat.float(), c_mat.float(),
         init_state=init_state, chunk=cfg.ssd_chunk,

@@ -29,6 +29,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, mlp, ssm
 from repro_torch.models.common import dense_init, split_tree
+from repro_torch.sharding.specs import logical_constraint as wsc
+from repro_torch.sharding.specs import replicate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,10 +124,23 @@ def init_layer_stack(gen, cfg: ModelConfig):
     return params, specs
 
 
+def whole_seq(h):
+    """A block's normed input or its output, whole over the sequence: on
+    a mesh the sequence-parallel residual's all-gather before a block and
+    the reduction of its partial sums after it, so that no matmul (nor
+    its backward) sees a sequence split beside a batch split, for which
+    DTensor has no cheap plan."""
+    return wsc(h, ("batch", "seq", "embed"))
+
+
 def apply_slot(p, spec: SlotSpec, x, positions, cfg: ModelConfig,
                collect_cache: bool = False):
-    """One residual block.  Returns (x, aux_loss, cache_or_None)."""
-    h = apply_norm(p["ln1"], x, cfg)
+    """One residual block.  Returns (x, aux_loss, cache_or_None).
+
+    Under a mesh the residual stream is sequence-sharded (``seq_sp``);
+    each block's input and output are whole over the sequence
+    (``whole_seq``), as the reference's partitioner makes them."""
+    h = whole_seq(apply_norm(p["ln1"], x, cfg))
     cache = None
     if spec.mixer == "attn":
         if collect_cache:
@@ -141,15 +156,17 @@ def apply_slot(p, spec: SlotSpec, x, positions, cfg: ModelConfig,
         y, final_state, conv_tail = ssm.mamba_forward(p["mix"], h, cfg)
         if collect_cache:
             cache = {"state": final_state, "conv": conv_tail}
-    x = x + y
+    x = x + whole_seq(y)
+    x = wsc(x, ("batch", "seq_sp", "embed"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.mlp != "none":
-        h = apply_norm(p["ln2"], x, cfg)
+        h = whole_seq(apply_norm(p["ln2"], x, cfg))
         if spec.mlp == "moe":
             y, aux = mlp.moe_forward(p["mlp"], h, cfg)
         else:
             y = mlp.mlp_forward(p["mlp"], h, cfg)
-        x = x + y
+        x = x + whole_seq(y)
+        x = wsc(x, ("batch", "seq_sp", "embed"))
     return x, aux, cache
 
 
@@ -223,9 +240,11 @@ def init_decoder(gen, cfg: ModelConfig):
 
 def embed_tokens(params, tokens, positions, cfg: ModelConfig):
     ct = common.cdtype(cfg)
-    x = F.embedding(tokens.long(), params["tok_embed"]).to(ct)
+    # a vocab-sharded table has no DTensor rule here: gathered first
+    x = F.embedding(tokens.long(), replicate(params["tok_embed"])).to(ct)
     if cfg.pos_embed == "learned":
-        x = x + F.embedding(positions.long(), params["pos_embed"]).to(ct)
+        x = x + F.embedding(positions.long(),
+                            replicate(params["pos_embed"])).to(ct)
     return x
 
 
@@ -244,7 +263,7 @@ def merge_patches(params, x, patches, cfg: ModelConfig):
 
 def head_logits(params, x, cfg: ModelConfig, norm: str = "final_ln"):
     """Final norm, then the vocab projection in the compute dtype."""
-    x = apply_norm(params[norm], x, cfg)
+    x = whole_seq(apply_norm(params[norm], x, cfg))
     ct = common.cdtype(cfg)
     return x.to(ct) @ params["head"].to(ct)
 
@@ -258,10 +277,12 @@ def decoder_forward(params, tokens, cfg: ModelConfig, patches=None,
     x = embed_tokens(params, tokens, positions, cfg)
     if cfg.n_image_patches and patches is not None:
         x = merge_patches(params, x, patches, cfg)
+    x = wsc(x, ("batch", "seq_sp", "embed"))
     x, aux, caches = stack_forward(
         params["layers"], x, positions, cfg, collect_cache
     )
-    return head_logits(params, x, cfg), aux, caches
+    logits = wsc(head_logits(params, x, cfg), ("batch", None, "vocab"))
+    return logits, aux, caches
 
 
 # ---------------------------------------------------------------------------
@@ -312,4 +333,5 @@ def decoder_decode(params, caches, token, pos: int, cfg: ModelConfig):
                 else:
                     y = mlp.mlp_forward(p["mlp"], h, cfg)
                 x = x + y
-    return head_logits(params, x, cfg)[:, 0], caches
+    logits = wsc(head_logits(params, x, cfg)[:, 0], ("batch", "vocab"))
+    return logits, caches

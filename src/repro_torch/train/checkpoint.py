@@ -9,6 +9,13 @@ stacks its per-group lists on save (``model.state_to_jax``) and slices them
 again on restore.  bfloat16 leaves are written as the reference's
 ``np.save`` writes them, raw 2-byte words under ``'<V2'``.
 
+A sharded state (DTensor leaves) is saved whole: each leaf is gathered
+over its mesh and one rank (rank 0) writes, as the reference writes
+logical (unsharded) arrays.  ``restore_checkpoint`` reads the whole
+leaves and, given placements, lays them out on the current mesh, so a
+checkpoint taken on one mesh restores onto another or onto one device
+(elastic resharding).
+
 Safety: writes go to ``step_<n>.tmp`` and are renamed only when complete,
 so a crash mid-save never corrupts the latest checkpoint; ``keep`` bounds
 disk use; ``async_save`` moves the writing off the training thread (the
@@ -26,9 +33,11 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.engine.plan import resolve_device
 from repro_torch.models import model
+from repro_torch.sharding import specs as sh
 
 
 def _flatten(tree, prefix: str = ""):
@@ -55,10 +64,20 @@ def _save_npy(path: pathlib.Path, arr: np.ndarray) -> None:
 def save_checkpoint(ckpt_dir, step: int, state, keep: int = 3,
                     async_save: bool = False):
     """Atomically persist ``state`` at ``step``.  Returns the final path
-    (or a join()-able thread when ``async_save``)."""
+    (or a join()-able thread when ``async_save``).  Under a process group
+    every rank calls it (the gather is collective) and rank 0 writes; a
+    synchronous save returns on every rank once the files are in place."""
     root = pathlib.Path(ckpt_dir)
+    host = list(_flatten(model.state_to_jax(model.tree_map(sh.full, state))))
+    distributed = dist.is_initialized() and dist.get_world_size() > 1
+    if distributed and dist.get_rank() != 0:
+        if async_save:
+            t = threading.Thread(target=lambda: None, daemon=True)
+            t.start()
+            return t
+        dist.barrier()
+        return root / f"step_{step}"
     root.mkdir(parents=True, exist_ok=True)
-    host = list(_flatten(model.state_to_jax(state)))
 
     def _write():
         tmp = root / f"step_{step}.tmp"
@@ -81,7 +100,10 @@ def save_checkpoint(ckpt_dir, step: int, state, keep: int = 3,
         t = threading.Thread(target=_write, daemon=True)
         t.start()
         return t
-    return _write()
+    final = _write()
+    if distributed:
+        dist.barrier()
+    return final
 
 
 def _gc(root: pathlib.Path, keep: int) -> None:
@@ -106,11 +128,15 @@ def latest_step(ckpt_dir) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(ckpt_dir, step: int, like, device=None):
+def restore_checkpoint(ckpt_dir, step: int, like, device=None,
+                       placements=None):
     """Restore into the structure, shapes and dtypes of ``like`` (a state,
     or ``steps.abstract_state``'s ``meta`` one), on ``device`` (None: the
     GPU, raising without one).  Each list of ``like`` (a layer stack) is
-    read as one stacked file a leaf and sliced into its groups."""
+    read as one stacked file a leaf and sliced into its groups.  With
+    ``placements`` (NamedShardings shaped as ``like``, e.g.
+    ``steps.jit_train_step``'s) each rank reads the whole leaves and keeps
+    its shards (``specs.place``)."""
     root = pathlib.Path(ckpt_dir) / f"step_{step}"
     manifest = json.loads((root / "manifest.json").read_text())
     if manifest["step"] != step:
@@ -135,4 +161,5 @@ def restore_checkpoint(ckpt_dir, step: int, like, device=None):
                     for g in range(len(t))]
         return load(key or "root", t, lead)
 
-    return walk(like, "")
+    state = walk(like, "")
+    return state if placements is None else sh.place(state, placements)

@@ -111,13 +111,14 @@ def train_loop(step_fn, state, batches: Iterator, cfg: LoopConfig,
     return state, history
 
 
-def maybe_restore(ckpt_dir, abstract_state, device=None):
-    """→ (state or None, step).  None ⇒ cold start."""
+def maybe_restore(ckpt_dir, abstract_state, device=None, placements=None):
+    """→ (state or None, step).  None ⇒ cold start.  ``placements`` lays
+    the restored state out on a mesh (``restore_checkpoint``)."""
     if ckpt_dir is None:
         return None, 0
     step = ckpt_lib.latest_step(ckpt_dir)
     if step is None:
         return None, 0
     state = ckpt_lib.restore_checkpoint(ckpt_dir, step, abstract_state,
-                                        device)
+                                        device, placements)
     return state, step

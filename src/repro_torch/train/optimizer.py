@@ -16,7 +16,11 @@ arithmetic as the reference's on its stacked leaf.
 
 ``adamw_update`` updates the params and the moments in place, the
 counterpart of the reference's donated state: at full width a second copy
-of the state would not fit the card.
+of the state would not fit the card.  On DTensor leaves (a sharded
+state) each rank updates its own shards as plain tensors: the update is
+elementwise but for the clip's global norm (reduced over the mesh) and an
+int8 moment's row absmax, which is all-reduced over the mesh dims that
+split the row, so a sharded update equals the unsharded one.
 """
 
 from __future__ import annotations
@@ -24,8 +28,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models.model import leaves
+from repro_torch.sharding import specs as sh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,9 +48,13 @@ class AdamWConfig:
 # ---------------------------------------------------------------------------
 # int8 moment quantization
 # ---------------------------------------------------------------------------
-def quantize(x: torch.Tensor) -> dict:
-    """Per-row (last-axis) absmax int8 quantization."""
+def quantize(x: torch.Tensor, row_groups: tuple = ()) -> dict:
+    """Per-row (last-axis) absmax int8 quantization.  ``x`` may be a shard
+    whose rows continue on the ranks of ``row_groups``: the absmax is then
+    the whole row's."""
     absmax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    for group in row_groups:
+        dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
     scale = torch.clamp(absmax, min=1e-20) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return {"q": q, "scale": scale.to(torch.float32)}
@@ -57,11 +68,11 @@ def _moment_get(s) -> torch.Tensor:
     return dequantize(s) if isinstance(s, dict) else s
 
 
-def _moment_set(old, new: torch.Tensor) -> None:
+def _moment_set(old, new: torch.Tensor, row_groups: tuple = ()) -> None:
     """Store ``new`` into an int8 moment; an fp32 one was updated where it
     lies (``_moment_get`` returned the state's own tensor)."""
     if isinstance(old, dict):
-        qs = quantize(new)
+        qs = quantize(new, row_groups)
         old["q"].copy_(qs["q"])
         old["scale"].copy_(qs["scale"])
 
@@ -112,6 +123,29 @@ def opt_state_specs(param_specs, cfg: AdamWConfig) -> dict:
     return {"m": mspec, "v": mspec, "count": ()}
 
 
+def _shards(p, g, m_s, v_s):
+    """A sharded leaf's local shards: p's, the grad laid out as p, and the
+    moments (placed as p by the state's shardings); and the process
+    groups of the mesh dims that split its rows."""
+    if not isinstance(p, DTensor):
+        return p, g, m_s, v_s, ()
+    mesh, want, last = p.device_mesh, tuple(p.placements), p.dim() - 1
+    row = tuple(Replicate() if pl.is_shard(last) else pl for pl in want)
+
+    def own(t):  # a moment, or an int8 one's codes (as p) and scales (row)
+        if isinstance(t, dict):
+            return {k: own(v) for k, v in t.items()}
+        if tuple(t.placements) not in (want, row):
+            raise ValueError(f"a moment laid out as {t.placements}, its "
+                             f"param as {want}")
+        return t.to_local()
+
+    groups = tuple(mesh.get_group(i) for i, pl in enumerate(want)
+                   if pl.is_shard(last))
+    g = g.redistribute(mesh, want).to_local()
+    return p.to_local(), g, own(m_s), own(v_s), groups
+
+
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
                           for x in leaves(tree)))
@@ -124,13 +158,14 @@ def adamw_update(params, grads, state, lr, cfg: AdamWConfig):
     ``params`` and the moments in place; → (params, opt state, grad
     norm)."""
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = sh.local(sh.replicate(global_norm(grads)))
     clip = torch.clamp(cfg.max_grad_norm / (gnorm + 1e-12), max=1.0)
     lr = torch.as_tensor(lr, dtype=torch.float32, device=count.device)
     bc1 = 1.0 - cfg.b1 ** count.to(torch.float32)
     bc2 = 1.0 - cfg.b2 ** count.to(torch.float32)
 
     def upd(p, g, m_s, v_s, ref_ndim):
+        p, g, m_s, v_s, row_groups = _shards(p, g, m_s, v_s)
         g = g.to(torch.float32) * clip
         m = _moment_get(m_s)
         v = _moment_get(v_s)
@@ -140,8 +175,8 @@ def adamw_update(params, grads, state, lr, cfg: AdamWConfig):
         if ref_ndim >= 2:  # decoupled decay, matrices only
             step.add_(cfg.weight_decay * p.to(torch.float32))
         p.copy_((p.to(torch.float32) - lr * step).to(p.dtype))
-        _moment_set(m_s, m)
-        _moment_set(v_s, v)
+        _moment_set(m_s, m, row_groups)
+        _moment_set(v_s, v, row_groups)
 
     _zip_map(upd, params, grads, state["m"], state["v"])
     return params, {"m": state["m"], "v": state["v"], "count": count}, gnorm

@@ -1,0 +1,355 @@
+"""Multi-rank helpers for the port's sharding tests: ``gloo`` ranks on the
+CPU, each a spawned process, joined by a ``file://`` store in the test's
+temp dir (no TCP port), with a timeout of their own.
+
+This module imports torch and the port only: a spawned rank re-imports it,
+and neither JAX nor ``repro`` is loaded there.  Each rank's result is
+pickled into the temp dir and read back by ``run_ranks``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import io
+import json
+import multiprocessing
+import os
+import pickle
+import time
+import traceback
+
+import numpy as np
+
+
+def run_ranks(target, world: int, tmp, timeout: float, **kw) -> list:
+    """``target(rank, world, **kw)`` on ``world`` spawned ranks in one
+    gloo process group; → each rank's return value, in rank order.
+    Raises with the failing rank's traceback, or when the ranks outlive
+    ``timeout`` seconds (all are killed)."""
+    ctx = multiprocessing.get_context("spawn")
+    store = os.path.join(str(tmp), f"store_{target.__name__}")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(target, r, world, store, str(tmp), kw))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.1))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+    results = []
+    for r in range(world):
+        path = os.path.join(str(tmp), f"rank_{target.__name__}_{r}.pkl")
+        if not os.path.exists(path):
+            raise RuntimeError(f"rank {r} of {target.__name__} left no result"
+                               + (" (timed out)" if alive else ""))
+        with open(path, "rb") as f:
+            ok, value = pickle.load(f)
+        if not ok:
+            raise RuntimeError(f"rank {r} of {target.__name__}:\n{value}")
+        results.append(value)
+    return results
+
+
+def _rank_main(target, rank, world, store, tmp, kw):
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group
+
+    torch.set_num_threads(1)
+    out = (False, "did not finish")
+    try:
+        init_process_group("cpu", init_method=f"file://{store}", rank=rank,
+                           world_size=world, timeout_s=240)
+        out = (True, target(rank, world, **kw))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        out = (False, traceback.format_exc())
+    finally:
+        with open(os.path.join(tmp, f"rank_{target.__name__}_{rank}.pkl"),
+                  "wb") as f:
+            pickle.dump(out, f)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# shared by the ranks
+# ---------------------------------------------------------------------------
+ARCH = "qwen1.5-32b"
+BATCH_SPEC = {"tokens": ("batch", None), "labels": ("batch", None)}
+
+
+def step_batch(vocab: int, seed: int = 0, b: int = 8, s: int = 32) -> dict:
+    """The reference tests' batch: tokens and next tokens, from numpy."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, vocab, (b, s + 1)).astype(np.int32)
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+def _tensors(batch: dict) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in batch.items()}
+
+
+def _mesh(shape):
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    if len(shape) == 3:
+        return make_smoke_mesh(shape[1], shape[2], pod=shape[0],
+                               device="cpu")
+    return make_smoke_mesh(*shape, device="cpu")
+
+
+def _host(tree):
+    """A state tree as the reference's numpy layout, each leaf whole."""
+    from repro_torch.models import model
+    from repro_torch.sharding import specs as sh
+
+    return model.state_to_jax(model.tree_map(sh.full, tree))
+
+
+# ---------------------------------------------------------------------------
+# 4 ranks: the (2, 2) train step, elastic checkpoints, the train CLI
+# ---------------------------------------------------------------------------
+def mesh_ranks(rank, world, ref_ckpt, port_ckpt, cli_ckpt, cli_args):
+    """On a (2 data × 2 model) mesh: one sharded train step from the
+    reference's checkpoint (and, on rank 0, the one-device step from the
+    same state); the port's sharded save, restored onto (4, 1) and onto
+    one device; the reference's checkpoint restored onto (2, 2); the
+    train CLI at ``cli_args``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import common
+    from repro_torch.sharding import specs as sh
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import steps
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import ScheduleConfig
+
+    cfg = get_config(ARCH).reduced(n_layers=2)
+    ocfg, scfg = AdamWConfig(), ScheduleConfig(peak_lr=1e-3,
+                                               warmup_steps=2)
+    rules = sh.Rules.make()
+    batch = _tensors(step_batch(cfg.vocab))
+    mesh = _mesh((2, 2))
+    out = {}
+
+    # the train step, sharded and (rank 0) on one device, from one state
+    step, shapes, ssh, bsh = steps.jit_train_step(
+        cfg, ocfg, scfg, mesh, rules, batch, BATCH_SPEC)
+    state = ckpt.restore_checkpoint(ref_ckpt, 0, shapes, "cpu", ssh)
+    out["ref_restored"] = _host(state)
+    for _ in range(2):  # lr is 0 at step 0: the second step moves params
+        state, m = step(state, sh.place(batch, bsh))
+        out.setdefault("sharded_losses", []).append(float(m["loss"]))
+        out.setdefault("grad_norm0", float(m["grad_norm"]))
+    out["sharded_params"] = _host(state["params"])
+    if rank == 0:
+        one = ckpt.restore_checkpoint(ref_ckpt, 0, shapes, "cpu")
+        for _ in range(2):
+            one, m = steps.train_step(one, batch, cfg, ocfg, scfg)
+            out.setdefault("one_losses", []).append(float(m["loss"]))
+        out["one_params"] = _host(one["params"])
+
+    # 2 microbatches, accumulated into DTensors laid out as the params
+    cfg2 = dataclasses.replace(cfg, microbatches=2)
+    step2, _, _, _ = steps.jit_train_step(cfg2, ocfg, scfg, mesh, rules,
+                                          batch, BATCH_SPEC)
+    st2 = ckpt.restore_checkpoint(ref_ckpt, 0, shapes, "cpu", ssh)
+    _, m2 = step2(st2, sh.place(batch, bsh))
+    out["microbatch_metrics"] = {k: float(v) for k, v in m2.items()}
+
+    out["adamw_int8"] = _adamw_int8(mesh)
+
+    # elastic: saved on (2, 2), restored onto (4, 1) and one device
+    fresh = sh.place(steps.init_train_state(
+        common.make_generator(0, "cpu"), cfg, ocfg), ssh)
+    ckpt.save_checkpoint(port_ckpt, 5, fresh)
+    want = _host(fresh)
+    shapes_b, specs_b = steps.abstract_state(cfg, ocfg)
+    sh_b = sh.fitted_shardings(shapes_b, specs_b, _mesh((4, 1)), rules)
+    on_b = ckpt.restore_checkpoint(port_ckpt, 5, shapes_b, "cpu", sh_b)
+    on_one = ckpt.restore_checkpoint(port_ckpt, 5, shapes_b, "cpu")
+    out["elastic_sharded"] = any(isinstance(x, sh.DTensor) for x in
+                                 _leaves(on_b))
+    out["elastic_equal"] = [_tree_equal(want, _host(t))
+                            for t in (on_b, on_one)]
+
+    # the train CLI on this mesh, resuming from the reference's state
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ttrain.main(cli_args + ["--ckpt-dir", cli_ckpt])
+    if rank == 0:
+        out["cli"] = json.loads(buf.getvalue().strip().splitlines()[-1])
+    torch.distributed.barrier()
+    return out
+
+
+def _adamw_int8(mesh) -> dict:
+    """Two int8-moment AdamW updates of a stacked matrix and a vector,
+    plain and as DTensors whose rows are split over ``model`` (the row
+    absmax then spans ranks): each leaf's whole params and moments.  The
+    clip is off: the global norm sums its shards in another order, which
+    would move every value by a rounding."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models import model
+    from repro_torch.sharding import specs as sh
+    from repro_torch.train import optimizer as opt
+
+    ocfg = opt.AdamWConfig(eight_bit=True, max_grad_norm=1e9)
+    rng = np.random.default_rng(5)
+    draw = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32))
+    params = {"w": draw(8, 16), "layers": [{"s": draw(16)}]}
+    grads = [{"w": draw(8, 16), "layers": [{"s": draw(16)}]}
+             for _ in range(2)]
+
+    def place(t):
+        """Rows over data (a matrix's), the last axis over model (a row
+        scale's whole)."""
+        pl = (Shard(0) if t.dim() >= 2 else Replicate(),
+              Shard(t.dim() - 1) if t.shape[-1] > 1 else Replicate())
+        return distribute_tensor(t, mesh, pl, src_data_rank=None)
+
+    out = {}
+    for sharded in (False, True):
+        p = model.tree_map(torch.clone, params)
+        st = opt.adamw_init(p, ocfg)
+        if sharded:
+            p = model.tree_map(place, p)
+            st = dict(st, m=model.tree_map(place, st["m"]),
+                      v=model.tree_map(place, st["v"]))
+        with implicit_replication():
+            for g in grads:
+                g = model.tree_map(place, g) if sharded else g
+                p, st, _ = opt.adamw_update(p, g, st, 1e-2, ocfg)
+        out[sharded] = model.tree_map(
+            lambda t: sh.full(t).numpy(), {"p": p, "m": st["m"],
+                                            "v": st["v"]})
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.models import model
+
+    return list(model.leaves(tree))
+
+
+def _tree_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(a[k], b[k])
+                                            for k in a)
+    return bool(np.array_equal(np.asarray(a), np.asarray(b)))
+
+
+# ---------------------------------------------------------------------------
+# 8 ranks: the MoE's EP and ff paths
+# ---------------------------------------------------------------------------
+MOE_CASES = {"ep": ("qwen3-moe-235b-a22b",
+                    {"n_experts": 4, "top_k": 2, "capacity_factor": 8.0}),
+             "ff": ("grok-1-314b", {"capacity_factor": 8.0})}
+
+
+def moe_ranks(rank, world, params_np: dict, x_np: dict):
+    """Each MoE case under a (2 pod, 2 data, 2 model) mesh and alone
+    (``_moe_local``), from the reference's weights: y, aux and the grads
+    of mean(y²) + aux by the weights and the input."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import mlp
+    from repro_torch.sharding import specs as sh
+
+    mesh = _mesh((2, 2, 2))
+    out = {}
+    for case, (arch, over) in MOE_CASES.items():
+        cfg = get_config(arch).reduced(**over)
+        params = {k: torch.from_numpy(v) for k, v in params_np[case].items()}
+        x = torch.from_numpy(x_np[case])
+        res = {}
+        for sharded in (False, True):
+            ps = {k: v.clone().requires_grad_() for k, v in params.items()}
+            xx = x.clone().requires_grad_()
+            if sharded:
+                with sh.use_mesh(mesh, sh.Rules.make()):
+                    y, aux = mlp.moe_forward(ps, xx, cfg)
+            else:
+                y, aux = mlp.moe_forward(ps, xx, cfg)
+            g = torch.autograd.grad((y ** 2).mean() + aux,
+                                    list(ps.values()) + [xx])
+            res[sharded] = {"y": y.detach().numpy(), "aux": float(aux),
+                            "grads": dict(zip(list(ps) + ["x"],
+                                              (t.numpy() for t in g)))}
+        out[case] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 8 ranks: the int8 pod sync and the compressed train step
+# ---------------------------------------------------------------------------
+def compress_ranks(rank, world, leaves_np: dict, n_steps: int):
+    """On a (2 pod, 2 data, 2 model) mesh: ``_sync_leaf`` of this rank's
+    pod's (grad, residual) pairs, plain and as DTensors on the pod's
+    (data, model) sub-mesh with the last axis split over model; then
+    ``n_steps`` plain and compressed train steps from one state on the
+    same batches."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common
+    from repro_torch.sharding import specs as sh
+    from repro_torch.train import compress as compress_lib
+    from repro_torch.train import steps
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import ScheduleConfig
+
+    mesh = _mesh((2, 2, 2))
+    pod = mesh.get_coordinate()[0]
+    group = mesh.get_group("pod")
+    sub = mesh["data", "model"]
+    out = {"pod": pod, "sync": {}, "sync_dtensor": {}}
+    for name, (g, e) in leaves_np.items():
+        g, e = (torch.from_numpy(np.array(t[pod])) for t in (g, e))
+        got, err = compress_lib._sync_leaf(g, e, 2, group)
+        out["sync"][name] = (got.numpy(), err.numpy())
+        if g.dim() >= 2:  # the row split over model: absmax over the whole
+            pl = (Replicate(), Shard(g.dim() - 1))
+            gd = distribute_tensor(g, sub, pl, src_data_rank=None)
+            ed = distribute_tensor(e, sub, pl, src_data_rank=None)
+            got, err = compress_lib._sync_leaf(gd, ed, 2, group)
+            out["sync_dtensor"][name] = (got.full_tensor().numpy(),
+                                         err.full_tensor().numpy())
+
+    cfg = get_config(ARCH).reduced(n_layers=2)
+    ocfg, scfg = AdamWConfig(), ScheduleConfig(peak_lr=1e-3,
+                                               warmup_steps=2)
+    batches = [_tensors(step_batch(cfg.vocab, seed=i))
+               for i in range(n_steps)]
+    for compress in (False, True):
+        step, _, ssh, bsh = steps.jit_train_step(
+            cfg, ocfg, scfg, mesh, sh.Rules.make(), batches[0], BATCH_SPEC,
+            compress=compress)
+        state = sh.place(steps.init_train_state(
+            common.make_generator(0, "cpu"), cfg, ocfg, compress=compress),
+            ssh)
+        losses = []
+        for b in batches:
+            state, m = step(state, sh.place(b, bsh))
+            losses.append(float(m["loss"]))
+        out["compressed" if compress else "plain"] = losses
+    return out

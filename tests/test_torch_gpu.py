@@ -1212,3 +1212,92 @@ def test_lm_train_steps_on_card_match_cpu(arch):
             assert err <= LM_RTOL * float(a.abs().max()) + LM_TRAIN_ATOL
         else:
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# sharding: the one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def nccl_group():
+    """A one-rank NCCL process group on the card, destroyed after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group
+
+    dev = _cuda()
+    init_process_group(dev)
+    assert dist.get_backend() == "nccl"
+    yield dev
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "grok-1-314b"])
+def test_moe_sharded_body_on_one_nccl_rank_equals_local(nccl_group, arch):
+    """The EP (qwen3-moe) and ff (grok) bodies under a (1, 1) mesh, their
+    collectives real NCCL calls, equal ``_moe_local`` bitwise, with
+    grads, both run with deterministic algorithms (the combine's
+    index_add is atomic otherwise)."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import mlp
+    from repro_torch.sharding import specs as sh
+
+    dev = nccl_group
+    cfg = get_config(arch).reduced(capacity_factor=8.0)
+    params, _ = mlp.init_moe(lm_common.make_generator(0, dev), cfg)
+    x = torch.randn((4, 16, cfg.d_model), device=dev,
+                    generator=lm_common.make_generator(1, dev))
+    mesh = make_smoke_mesh(1, 1, device=dev)
+
+    def run(sharded):
+        ps = {k: v.detach().requires_grad_() for k, v in params.items()}
+        if sharded:
+            with sh.use_mesh(mesh, sh.Rules.make()):
+                y, aux = mlp.moe_forward(ps, x, cfg)
+        else:
+            y, aux = mlp._moe_local(ps, x.reshape(64, -1), cfg)
+            y = y.reshape(x.shape)
+        g = torch.autograd.grad((y.float() ** 2).mean() + aux,
+                                list(ps.values()))
+        return y, aux, g
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (y0, a0, g0), (y1, a1, g1) = run(False), run(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(y0, y1) and torch.equal(a0, a1)
+    for a, b in zip(g0, g1):
+        assert torch.isfinite(b).all() and torch.equal(a, b)
+
+
+def test_compressed_step_on_one_nccl_rank(nccl_group):
+    """One compressed train step on a (1, 1, 1) mesh: the int8 payload
+    through NCCL; the loss equals the plain mesh step's (the same forward)
+    and the first moments take the synced gradient."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.sharding import specs as sh
+    from repro_torch.train import steps
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import ScheduleConfig
+
+    dev = nccl_group
+    cfg = get_config("qwen1.5-32b").reduced(n_layers=2)
+    ocfg, scfg = AdamWConfig(), ScheduleConfig(peak_lr=1e-3, warmup_steps=1)
+    mesh = make_smoke_mesh(1, 1, pod=1, device=dev)
+    rng = np.random.default_rng(0)
+    t = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 33)).astype(
+        np.int32)).to(dev)
+    batch = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    spec = {"tokens": ("batch", None), "labels": ("batch", None)}
+    out = {}
+    for compress in (False, True):
+        step, _, ssh, bsh = steps.jit_train_step(
+            cfg, ocfg, scfg, mesh, sh.Rules.make(), batch, spec,
+            compress=compress)
+        st = sh.place(steps.init_train_state(
+            lm_common.make_generator(0, dev), cfg, ocfg, compress=compress),
+            ssh)
+        st, m = step(st, sh.place(batch, bsh))
+        out[compress] = float(m["loss"])
+        assert torch.count_nonzero(st["opt"]["m"]["head"]) > 0
+    assert np.isfinite(out[True]) and out[True] == out[False]

@@ -25,7 +25,12 @@ leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "repro" or m.startswith("repro."))
 print(len(names), leaked)
+print(" ".join(names))
 """
+
+# the sharding slice's modules, each among those imported
+SHARDING_MODULES = ("repro_torch.launch.mesh", "repro_torch.sharding",
+                    "repro_torch.sharding.specs", "repro_torch.train.compress")
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -33,12 +38,14 @@ def test_port_imports_neither_jax_nor_repro():
     out = subprocess.run(
         [sys.executable, "-c", _PROBE], env=env, capture_output=True,
         text=True, check=True, timeout=120,
-    ).stdout.split(maxsplit=1)
-    n_modules, leaked = int(out[0]), out[1].strip()
+    ).stdout.splitlines()
+    n_modules, leaked = out[0].split(maxsplit=1)
     # every module of the package was imported: 52 of the layout system,
-    # 28 of the LM stack (configs, models, train, launch.{serve_lm,train})
-    assert n_modules >= 80
-    assert leaked == "[]"
+    # 28 of the LM stack (configs, models, train, launch.{serve_lm,train}),
+    # 4 of sharding (launch.mesh, sharding, sharding.specs, train.compress)
+    assert int(n_modules) >= 84
+    assert set(SHARDING_MODULES) <= set(out[1].split())
+    assert leaked.strip() == "[]"
 
 
 def test_default_device_is_the_gpu():
