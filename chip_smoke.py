@@ -68,9 +68,9 @@ Then the layout lifecycle, each path counted from 0:
 * WOODBLOCK on the greedy tree's 1% sample: ``TreeEnv``'s cut matrix is
   one ``eval_cuts`` launch, equal to ``preds.eval_cuts`` (the kernel timed
   at that shape against its plain version and its bound);
-  ``build_layout(strategy="woodblock")`` within a 20 s budget (block ids
+  ``build_layout(strategy="woodblock")`` within a 10 s budget (block ids
   and Eq. 1 hits equal numpy's); one ``ppo_update`` on the card against
-  the CPU's at a stated tolerance; episodes, policy steps (one a tree
+  the CPU's in float64 at a stated tolerance (float32's gap recorded); episodes, policy steps (one a tree
   level) and updates timed;
 * the service: an observed ingest (the per-leaf counts on the card) whose
   every batch's WindowStat equals the host probe's, with one accumulator
@@ -149,10 +149,7 @@ either; its data tier launches ``fused_ingest`` and ``query_intersect``):
   the CPU (the CPU halves in the pool); and the CLI at reduced size
   crashed at step 12 with checkpoints every 5 steps, resumed from step 10
   to 16, its losses against an uninterrupted run's.  Every CLI run goes
-  through the CLI's one-rank (data 1, model 1) mesh; starcoder2-3b runs
-  once more with ``--dtensor-leaves`` (its state's leaves DTensors, not
-  the plain tensors that stand in for them on one rank) for 4 steps, its
-  losses against the plain run's and its step ms beside it.  The CLI's six runs
+  through the CLI's one-rank (data 1, model 1) mesh.  The CLI's five runs
   go one after another on a thread from the kernel build on, while the
   host makes the table and the layouts and the card is otherwise idle
   (the full-width ones timed there, beside that host work); the main
@@ -167,11 +164,25 @@ from 0, over a one-rank NCCL process group on the card:
   body) on 8 × 128 tokens, forward and backward through ``moe_forward``
   under a (data 1, model 1) mesh — its all-to-all, all-gather and psum
   real NCCL calls, seen in a trace — equal to ``_moe_local`` bit for bit
-  (y, aux, every gradient; both with deterministic algorithms); and
-  mamba2-780m at full width through ``jit_train_step`` on (pod 1, data
-  1, model 1), 8 plain and 8 compressed steps (the int8 payload through
-  NCCL), the last losses within 0.15, step ms side by side, the sync's
-  wire bytes against float32.
+  (y, aux, every gradient, with default algorithms, each body repeating
+  itself bit for bit); mamba2-780m at full width through
+  ``jit_train_step`` on (pod 1, data 1, model 1), 4 plain and 4
+  compressed steps (the int8 payload through NCCL), the last losses
+  within 0.15, step ms side by side, the sync's wire bytes against
+  float32; and starcoder2-3b at full width through ``jit_train_step`` on
+  (data 1, model 1), 3 steps with the state's leaves as plain tensors and
+  3 as DTensors, the losses bit for bit, step ms and peak GB each.
+* ``dryrun``: ``python -m repro_torch.launch.dryrun`` as subprocesses on
+  the host from the kernel build on (fake CUDA tensors over a fake
+  process group, no card): starcoder2-3b x decode_32k on the production
+  16x16 mesh with its cost variants, qwen3-moe-235b-a22b x train_4k
+  ``--cost-only`` (the EP all-to-all in its 1- and 2-group variants) and
+  mamba2-780m x decode_32k on a (1, 1) mesh; each exits 0 with a finite
+  per-device peak.  In this process, mamba2-780m's decode step for real
+  at its published widths (3.4 GB of float32 params, 9.8 GB of SSM state
+  at batch 128), placed as the dry-run places it on a one-rank NCCL
+  (1, 1) mesh: ``max_memory_allocated`` above the phase's start against
+  the dry-run's predicted peak, within DRYRUN_PEAK_RATIO.
 
 Then it times: route and query latencies (median and spread of warm
 calls, host clock; route split into its kernel, from a trace, and the
@@ -182,8 +193,8 @@ its plain version.  It exits non-zero on the first failure, without a
 CUDA device, and when the package is not beside it.  Output, before the
 last line: the card's name and power limit, build seconds, one
 ``{"metrics": ...}`` JSON line (keys ``serve``, ``pipeline``,
-``coordinator``, ``cli``, ``lm_serve``, ``lm_train``, ``lm_shard``, and
-``phase_s`` for every phase)
+``coordinator``, ``cli``, ``lm_serve``, ``lm_train``, ``lm_shard``,
+``dryrun``, and ``phase_s`` for every phase)
 and one ``{"kernels": [...]}`` JSON line (launches, median CUDA-event
 time, bound, plain-version time, max difference per kernel).  The last line is ``{"ok": true, "device":
 {...}}``.  ``--rows`` cuts the row count (the only cut allowed; it is
@@ -225,20 +236,26 @@ FINE_TIMEOUT_S = 900  # the finer layout's build, at most
 SEED = 0
 SHARD_THREADS = (1, 2, 4, 8)  # thread-shard counts over the whole table
 SHARD_PROCS = (4, 2)  # process-shard counts (4 first: the pool then serves 2)
-SHARD_REPS = 5  # timed sharded ingests a configuration, after the checked one
+SHARD_REPS = 3  # timed sharded ingests a configuration, after the checked one
 TWO_PASS_ROWS = 1 << 22  # the fused=False shard path's prefix
 STORE_ROWS = 1 << 22  # the spill ingest's and the block store's prefix
-SPILL_REPS = 3  # untraced whole-table spill ingests
+SPILL_REPS = 2  # untraced whole-table spill ingests
 SPILL_CHECK_BLOCKS = 5  # blocks held row for row to the oracle's ids
 STORE_QUERIES = 10  # workload queries scanned from the block store
-TUNED_REPS = 3  # whole-table ingests with each geometry, alternated
+TUNED_REPS = 2  # whole-table ingests with each geometry, alternated
 RANGE_COLUMN = 0  # l_shipdate: the range baseline's partitioning column
 BASELINE_ROUTE_ROWS = 1 << 16  # sample rows routed through each baseline
 BASELINE_TIMEOUT_S = 600  # the baselines' build, at most
-WOODBLOCK_BUDGET_S = 20  # build_layout(strategy="woodblock", time_budget_s)
+WOODBLOCK_BUDGET_S = 10  # build_layout(strategy="woodblock", time_budget_s)
 COPY_REPS = 3  # copies back of the env's matrix in each form, alternated
-# one PPO update on the card against the CPU: float32 sums in another
-# order, then one Adam step of at most lr = 3e-4 a parameter
+# one PPO update on the card against the CPU, both in float64: sums in
+# another order, then one Adam step of at most lr = 3e-4 a parameter.  In
+# float32 the update is not continuous in its inputs: a ReLU input within
+# rounding of 0 takes a row's gradient through the unit or not, and
+# Adam's m / sqrt(v) scales a gradient at its rounding floor to a step of
+# up to lr: on the CPU alone, float32 against float64 breaks this bound in
+# a few updates of a build (tools/ppo_conditioning.py).  The float32 pair
+# is recorded.
 PPO_RTOL, PPO_ATOL = 1e-4, 1e-6
 SHIPDATE, EXTENDEDPRICE = 0, 5  # the drift scenario's two query columns
 DRIFT_QUERIES, DRIFT_FRAC = 20, 0.04  # benchmarks/drift_rebuild.py's
@@ -276,17 +293,18 @@ LM_SMALL_PROMPT, LM_SMALL_GEN = 160, 32
 LM_CARD_RTOL, LM_CARD_ATOL = 1e-4, 1e-4
 LM_GAP_TOL = 2 * LM_CARD_ATOL  # a greedy pick may differ below this gap
 LM_CLI_TIMEOUT_S = 300
+LM_HOST_THREADS = 4  # the reduced archs' CPU halves, beside the card's
 LM_TRACE_STEPS = 4  # decode steps under torch.profiler, a full model
 LM_TRACE_TOP = 5  # ops listed by device time and by host time
 LM_OP_NAME = 64  # characters of an op's name kept in the listing
 # the LM training path: the two full models through the train CLI at its
 # defaults (batch 8, sequence 128, a 50,000-row table, curation on)
 LM_TRAIN_STEPS = 8
-LM_DTENSOR_STEPS = 4  # the DTensor-leaves run: its step is ~3x the plain one
+LM_DTENSOR_STEPS = 3  # steps with DTensor leaves: each ~2x the plain one
 LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 128
 LM_TRAIN_TOKENS = LM_TRAIN_BATCH * LM_TRAIN_SEQ
 LM_TRAIN_TIMEOUT_S = 300
-LM_CLI_WAIT_S = 900  # the train CLI's six runs, at most
+LM_CLI_WAIT_S = 900  # the train CLI's five runs, at most
 # weights an embedding gathers from, or read in float32: never cast whole
 LM_UNCAST = ("tok_embed", "pos_embed", "enc_pos", "dec_pos", "conv_w",
              "router")
@@ -313,7 +331,10 @@ LM_TRAIN_CARD_LR = 1e-3
 LM_TRAIN_CARD_RTOL, LM_TRAIN_CARD_ATOL = 1e-4, 1e-6
 # crash and resume through the CLI at reduced size
 LM_RESUME_STEPS, LM_CKPT_EVERY, LM_FAIL_AT = 16, 5, 12
-LM_RESUME_RTOL = 1e-5  # the loss is a float32 mean; atomics may reorder
+# a resumed run and a run with DTensor leaves repeat the plain run's
+# losses bit for bit: no op of the LM step accumulates with atomics (the
+# MoE's combine sums each token's rows in a fixed order)
+LM_RESUME_RTOL = 0.0
 
 # H100 SXM (NVIDIA data sheet): HBM rate, and the float32 rate outside the
 # tensor cores, taken as the rate of the kernels' int32 compares/atomics
@@ -323,8 +344,26 @@ LM_SHARD_FF = "grok-1-314b"  # 8 experts, top-2: the ff-sharded path
 LM_SHARD_TOKENS = (8, 128)  # the MoE layers' batch × sequence
 LM_SHARD_REPS = 2  # timed forward + backward calls a path, after a warm one
 LM_SHARD_COMPRESS = "mamba2-780m"  # the compressed step, at full width
-LM_SHARD_STEPS = 8
+LM_SHARD_STEPS = 4
 LM_SHARD_LOSS_TOL = 0.15  # the reference's bound (tests/test_sharding.py)
+# the dry-run CLI's cells, run on the host as subprocesses (fake CUDA
+# tensors over a fake process group; the card is not used): a decode cell
+# on the production 16x16 mesh with its cost variants, the EP MoE's cost
+# variants (its all-to-all in collectives_1g/2g), and the "check" cell's
+# decode on a (1, 1) mesh, whose prediction the card checks
+DRYRUN_CELLS = {
+    "decode": ("starcoder2-3b", "decode_32k", ()),
+    "moe_cost": ("qwen3-moe-235b-a22b", "train_4k", ("--cost-only",)),
+    "check": ("mamba2-780m", "decode_32k", ("--mesh", "1,1", "--no-cost")),
+}
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_DEVICE = "cuda"  # the fake tensors' device
+DRYRUN_NICE = 10  # the records yield the host to the main path's work
+# the fake account against the card's max_memory_allocated, both above
+# the same start and over the same ops: the allocator rounds each block up
+# to 512 B and cuBLAS takes a workspace the account does not see, tens of
+# MB against a 13.8 GB peak; 5% either way is far outside those
+DRYRUN_PEAK_RATIO = (0.95, 1.05)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989.4e12  # dense bf16 on the tensor cores
@@ -649,6 +688,13 @@ def compare_kernels(tree, rec, wt, dev, ctx: str,
         require(e == 0.0, f"{ctx}: {name} kernel differs from its plain "
                           f"version by {e}")
     return errs
+
+
+def timed(fn, *args):
+    """(fn(*args), its seconds on the host clock)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
 
 
 def oracle_partial(tree, records: np.ndarray, workers: int):
@@ -1284,7 +1330,8 @@ def woodblock_phase(ctx, counted) -> dict:
     the kernel at that shape against its plain version and its bound;
     ``build_layout(strategy="woodblock")`` within WOODBLOCK_BUDGET_S (its
     block ids equal the numpy route, its Eq. 1 hits the numpy hits); one
-    ``ppo_update`` on the card against the same update on the CPU."""
+    ``ppo_update`` on the card against the same update on the CPU, in
+    float64 (in float32 recorded only: see PPO_RTOL)."""
     import copy
 
     import torch
@@ -1373,30 +1420,36 @@ def woodblock_phase(ctx, counted) -> dict:
             "woodblock layout: Eq. 1 hits on the card differ from numpy")
     require(0.0 < build.scanned_fraction <= 1.0, "woodblock scanned")
 
-    # one PPO update on the card against the CPU, from the last update's
-    # inputs
-    card_net, cpu_net = last["net"], copy.deepcopy(last["net"]).cpu()
-    cpu_opt = {"m": {k: v.cpu() for k, v in last["opt"]["m"].items()},
-               "v": {k: v.cpu() for k, v in last["opt"]["v"].items()},
-               "t": last["opt"]["t"]}
-    cpu_batch = {k: v.cpu() for k, v in last["batch"].items()}
-    cfg = last["cfg"]
-    timing_net, timing_opt = (copy.deepcopy(card_net),
+    # one PPO update on the card against the CPU from the last update's
+    # inputs, in float64 (held to PPO_*) and in float32 (recorded)
+    def update_on(device, dtype):
+        net = copy.deepcopy(last["net"]).to(device=device, dtype=dtype)
+        opt = {s: {k: v.to(device=device, dtype=dtype)
+                   for k, v in last["opt"][s].items()} for s in ("m", "v")}
+        batch = {k: v.to(device=device, dtype=dtype)
+                 if v.is_floating_point() else v.to(device)
+                 for k, v in last["batch"].items()}
+        net, opt, _ = ppo.ppo_update(net, dict(opt, t=last["opt"]["t"]),
+                                     batch, last["cfg"])
+        return [p.detach().cpu() for p in net.parameters()] + [
+            opt[s][k].cpu() for s in ("m", "v") for k in sorted(opt[s])]
+
+    def card_vs_cpu(dtype):
+        err, ok = 0.0, True
+        for a, b in zip(update_on(dev, dtype), update_on("cpu", dtype)):
+            diff = (a - b).abs()
+            err = max(err, float(diff.max()))
+            ok &= bool((diff <= PPO_ATOL + PPO_RTOL * b.abs()).all())
+        return err, ok
+
+    timing_net, timing_opt = (copy.deepcopy(last["net"]),
                               copy.deepcopy(last["opt"]))
-    card_net, card_opt, _ = ppo.ppo_update(card_net, last["opt"],
-                                           last["batch"], cfg)
-    cpu_net, cpu_opt, _ = ppo.ppo_update(cpu_net, cpu_opt, cpu_batch, cfg)
-    ppo_err, ppo_ok = 0.0, True
-    pairs = [(a.detach().cpu(), b.detach()) for (_, a), (_, b) in zip(
-        card_net.named_parameters(), cpu_net.named_parameters())]
-    pairs += [(card_opt[s][k].cpu(), cpu_opt[s][k])
-              for s in ("m", "v") for k in cpu_opt[s]]
-    for a, b in pairs:
-        diff = (a - b).abs()
-        ppo_err = max(ppo_err, float(diff.max()))
-        ppo_ok &= bool((diff <= PPO_ATOL + PPO_RTOL * b.abs()).all())
-    require(ppo_ok, f"ppo_update on the card differs from the CPU's beyond "
-                    f"rtol {PPO_RTOL}, atol {PPO_ATOL} (max {ppo_err})")
+    ppo_err, ppo_ok = card_vs_cpu(torch.float64)
+    require(ppo_ok, f"ppo_update on the card differs from the CPU's in "
+                    f"float64 beyond rtol {PPO_RTOL}, atol {PPO_ATOL} (max "
+                    f"{ppo_err})")
+    ppo_err32, ppo_ok32 = card_vs_cpu(torch.float32)
+    cfg = last["cfg"]
     ppo_card_ms = time_ms(lambda: ppo.ppo_update(
         timing_net, timing_opt, last["batch"], cfg), 10)
     n_ep = int(build.metrics["n_episodes"])
@@ -1418,7 +1471,10 @@ def woodblock_phase(ctx, counted) -> dict:
         "ppo_update_card_ms": ppo_card_ms,
         "ppo_batch_rows": int(last["batch"]["weight"].shape[0]),
         "ppo_card_vs_cpu_max_abs_err": ppo_err,
-        "ppo_tolerance": {"rtol": PPO_RTOL, "atol": PPO_ATOL},
+        "ppo_tolerance": {"rtol": PPO_RTOL, "atol": PPO_ATOL,
+                          "dtype": "float64"},
+        "ppo_card_vs_cpu_f32_max_abs_err": ppo_err32,
+        "ppo_f32_within_tolerance": ppo_ok32,
         "leaves": tree.n_leaves, "depth": tree.depth,
         "best_scanned_sample": float(build.metrics["best_scanned_sample"]),
         "scanned_fraction": build.scanned_fraction,
@@ -1430,7 +1486,7 @@ def woodblock_phase(ctx, counted) -> dict:
         f"{out['best_scanned_sample']:.6f} on the sample against greedy's "
         f"{ctx['greedy_scanned_sample']:.6f}; policy step "
         f"{out['policy_step_ms']} ms; ppo_update {ppo_card_ms:.3f} ms, card "
-        f"vs CPU max {ppo_err:.3g}")
+        f"vs CPU max {ppo_err:.3g} in float64, {ppo_err32:.3g} in float32")
     return out
 
 
@@ -2337,12 +2393,9 @@ def coordinator_phase(ctx, counted) -> dict:
     return out
 
 
-def cli_phase(ctx) -> dict:
-    """Both command lines once, as subprocesses on the card, side by side:
-    each exits 0 and its summary line shows no stale response, no plan
-    built while serving and a swap note (serve), folds and a store
-    (ingest)."""
-    import shutil
+def cli_start(ctx) -> dict:
+    """Both command lines started as subprocesses on the card, side by
+    side (``cli_phase`` reads them; they run beside the phases between)."""
     import tempfile
 
     tmp = Path(tempfile.mkdtemp(prefix="qd-cli-"))
@@ -2357,12 +2410,23 @@ def cli_phase(ctx) -> dict:
                   str(CLI_SERVE_S), "--workload", "auto",
                   *CLI_DEVICE_ARGS],
     }
-    out = {}
     t0 = time.perf_counter()
     procs = {k: subprocess.Popen(c, cwd=ROOT, env=env, text=True,
                                  stdout=subprocess.PIPE,
                                  stderr=subprocess.PIPE)
              for k, c in cmds.items()}
+    ctx["children"].extend(procs.values())
+    return {"procs": procs, "tmp": tmp, "t0": t0}
+
+
+def cli_phase(ctx, started: dict) -> dict:
+    """The command lines of ``cli_start``: each exits 0 and its summary
+    line shows no stale response, no plan built while serving and a swap
+    note (serve), folds and a store (ingest)."""
+    import shutil
+
+    procs, tmp, t0 = started["procs"], started["tmp"], started["t0"]
+    out = {}
 
     def wait(name):
         stdout, stderr = procs[name].communicate(timeout=CLI_TIMEOUT_S)
@@ -2567,12 +2631,12 @@ def lm_full_model(arch: str, dev) -> dict:
     return out
 
 
-def lm_reduced_arch(arch: str, dev) -> dict:
+def lm_reduced_arch(arch: str, dev, host: ThreadPoolExecutor):
     """One reduced arch: weights drawn on the CPU and copied to the card;
-    greedy generation on the card against the CPU port fed the card's
-    tokens: prefill and every step's logits within LM_CARD_*, and each
-    greedy token the CPU's argmax unless its top-2 gap is under
-    LM_GAP_TOL."""
+    greedy generation on the card, then on a ``host`` thread the CPU port
+    fed the card's tokens: prefill and every step's logits within
+    LM_CARD_*, and each greedy token the CPU's argmax unless its top-2
+    gap is under LM_GAP_TOL.  → the future of the check's result."""
     import dataclasses
 
     import torch
@@ -2591,9 +2655,15 @@ def lm_reduced_arch(arch: str, dev) -> dict:
                             model.to_device(batch, dev), LM_SMALL_GEN,
                             LM_MAX_SEQ)
     toks = res["tokens"].cpu()
-    last, steps = lm_decode_forced(params, cfg, batch, toks, LM_MAX_SEQ)
     got = torch.cat([res["prefill_logits"][:, None], res["logits"]],
                     dim=1).cpu()
+    return host.submit(lm_reduced_check, arch, cfg, params, batch, toks, got)
+
+
+def lm_reduced_check(arch, cfg, params, batch, toks, got) -> dict:
+    import torch
+
+    last, steps = lm_decode_forced(params, cfg, batch, toks, LM_MAX_SEQ)
     want = torch.cat([last[:, None], steps], dim=1)
     err = float((got - want).abs().max())
     require(bool(torch.allclose(got, want, rtol=LM_CARD_RTOL,
@@ -2619,6 +2689,15 @@ def lm_serve_phase(ctx, counted) -> dict:
 
     dev = ctx["dev"]
     out = {"full": {}, "reduced": {}}
+    # the CLI as a subprocess beside the in-process path (it launches no
+    # kernel of the repo either; its times are its own)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve_lm",
+         *CLI_DEVICE_ARGS], cwd=ROOT, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    ctx["children"].append(proc)
 
     def path():
         for arch in LM_FULL:
@@ -2628,22 +2707,25 @@ def lm_serve_phase(ctx, counted) -> dict:
                 f"{r['tokens_per_s']:.1f} tok/s, peak "
                 f"{r['peak_device_gb']:.3f} GB, f32 check max err "
                 f"{r['f32_decode_vs_forced_max_abs_err']:.3g}")
-        for arch in sorted(ARCHS):
-            out["reduced"][arch] = lm_reduced_arch(arch, dev)
+        with ThreadPoolExecutor(LM_HOST_THREADS) as host:
+            checks = {arch: lm_reduced_arch(arch, dev, host)
+                      for arch in sorted(ARCHS)}
+            for arch, fut in checks.items():
+                out["reduced"][arch] = fut.result()
 
     counted("lm_serve", path)
     require(not any(ctx["path_launches"]["lm_serve"].values()),
             f"the LM path launched a kernel: "
             f"{ctx['path_launches']['lm_serve']}")
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve_lm",
-         *CLI_DEVICE_ARGS], cwd=ROOT, env=env, text=True,
-        capture_output=True, timeout=LM_CLI_TIMEOUT_S)
+    try:
+        stdout, stderr = proc.communicate(timeout=LM_CLI_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     require(proc.returncode == 0,
-            f"serve_lm exited {proc.returncode}: {proc.stderr[-2000:]}")
-    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+            f"serve_lm exited {proc.returncode}: {stderr[-2000:]}")
+    summary = json.loads(stdout.strip().splitlines()[-1])
     require(summary["device"].startswith(dev.type)
             and summary["tokens_shape"] == [4, 32] and summary["in_vocab"],
             f"serve_lm summary: {summary}")
@@ -2718,10 +2800,9 @@ def lm_train_bound(cfg) -> dict:
             "bound_ms": ms, "bound_by": by}
 
 
-def lm_train_full(arch: str, children: list, extra: tuple = (),
-                  steps: int = LM_TRAIN_STEPS) -> dict:
+def lm_train_full(arch: str, children: list) -> dict:
     """``python -m repro_torch.launch.train --arch <arch> --full-arch
-    --steps <steps>`` (and ``extra``) on the card at the CLI's defaults,
+    --steps LM_TRAIN_STEPS`` on the card at the CLI's defaults,
     through its one-rank (data 1, model 1) mesh: exit 0, every loss
     finite, the data tier's kernels launched; step ms (median of steps
     2.., the first being the warm one), tokens/s, MFU, peak GB and the
@@ -2729,10 +2810,11 @@ def lm_train_full(arch: str, children: list, extra: tuple = (),
     from repro_torch.configs import get_config
     from repro_torch.models import model
 
+    steps = LM_TRAIN_STEPS
     summary, _, wall = lm_cli_result(
-        lm_cli(["--arch", arch, "--full-arch", "--steps", str(steps),
-                *extra], children),
-        LM_TRAIN_TIMEOUT_S, f"train CLI {arch} {extra}")
+        lm_cli(["--arch", arch, "--full-arch", "--steps", str(steps)],
+               children),
+        LM_TRAIN_TIMEOUT_S, f"train CLI {arch}")
     cfg = get_config(arch)
     losses = summary["losses"]
     require(summary["device"].startswith("cuda") and summary["full_arch"]
@@ -2740,7 +2822,7 @@ def lm_train_full(arch: str, children: list, extra: tuple = (),
             and all(np.isfinite(losses))
             and summary["batch"] * summary["seq"] == LM_TRAIN_TOKENS
             and summary["mesh"] == {"data": 1, "model": 1}
-            and summary["dtensor_leaves"] == ("--dtensor-leaves" in extra),
+            and not summary["dtensor_leaves"],
             f"train CLI {arch}: {summary}")
     launches = summary["launches"]
     require(launches["fused_ingest_shared"] + launches["fused_ingest_global"]
@@ -3023,13 +3105,6 @@ def lm_train_cli_runs(ck: Path, children: list) -> dict:
         log(f"lm train {arch}: step {r['step_ms_median']:.3f} ms, "
             f"{r['tokens_per_s']:.1f} tok/s, MFU {r['mfu']:.4f}, peak "
             f"{r['peak_gb']:.3f} GB, losses {r['losses']}")
-    # the same mesh with the state's leaves as DTensors: their dispatch
-    # against the plain tensors that stand in for them on one rank
-    out["dtensor"] = r = lm_train_full(LM_FULL[0], children,
-                                       ("--dtensor-leaves",),
-                                       LM_DTENSOR_STEPS)
-    log(f"lm train {LM_FULL[0]} with DTensor leaves: step "
-        f"{r['step_ms_median']:.3f} ms, peak {r['peak_gb']:.3f} GB")
     return out
 
 
@@ -3056,18 +3131,6 @@ def lm_train_phase(ctx, counted) -> dict:
     for arch in LM_FULL:
         out["full"][arch] = runs["full"][arch]
         ctx["worker_launches"].append(runs["full"][arch]["launches"])
-    dt, plain = runs["dtensor"], runs["full"][LM_FULL[0]]
-    ctx["worker_launches"].append(dt["launches"])
-    # the two schedules (4 and 8 steps) agree on the lr of steps 0-2, so
-    # on the first 4 losses
-    got = np.asarray(dt["losses"])
-    want = np.asarray(plain["losses"][:LM_DTENSOR_STEPS])
-    rel = float(np.abs(got - want).max() / np.abs(want).max())
-    require(rel <= LM_RESUME_RTOL, f"{LM_FULL[0]} with DTensor leaves: "
-            f"losses {got.tolist()} against {want.tolist()}")
-    out["dtensor"] = dict(dt, losses_max_rel_err=rel,
-                          losses_bitwise=bool(np.array_equal(got, want)))
-
     def path():
         out["trace"] = lm_train_trace(dev)
         out["f32"] = lm_train_f32(dev)
@@ -3105,6 +3168,19 @@ def lm_train_phase(ctx, counted) -> dict:
         f"(bitwise {out['resume']['bitwise']})")
     return out
 
+def same_bits(a, b) -> bool:
+    """Two tensors equal bit for bit (the sign of a zero too)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    a, b = a.contiguous(), b.contiguous()
+    if a.is_floating_point():
+        a, b = (t.view(ints[t.element_size()]) for t in (a, b))
+    return bool(torch.equal(a, b))
+
+
 def lm_shard_nccl(prof) -> dict:
     """NCCL kernels in a profiler trace: {kernel name: count}."""
     import torch
@@ -3122,13 +3198,12 @@ def lm_shard_moe(arch: str, dev, mesh) -> dict:
     drawn on the card: forward and backward through the sharded body under
     the one-rank mesh (``moe_forward`` under ``use_mesh``: real NCCL
     all-to-all, all-gather and all-reduce calls) against ``_moe_local``
-    on the same weights and input.  y, aux and every gradient must be
-    equal, bitwise, and finite, both run under
-    ``torch.use_deterministic_algorithms``: the combine's index_add (and
-    the gathers' backward) accumulate with atomics otherwise, in which
-    ``_moe_local`` does not repeat itself bit for bit.  CUDA-event ms of
-    each (median of LM_SHARD_REPS after a warm call, default algorithms)
-    and the NCCL kernels of one traced sharded call."""
+    on the same weights and input, with default algorithms.  y, aux and
+    every gradient must be equal, bitwise, and finite, and each body must
+    repeat itself bit for bit (the combine and the dispatch's backward sum
+    each token's rows in a fixed order, with no atomics).  CUDA-event ms of
+    each (median of LM_SHARD_REPS after a warm call) and the NCCL kernels
+    of one traced sharded call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3164,11 +3239,17 @@ def lm_shard_moe(arch: str, dev, mesh) -> dict:
         run(True)
         torch.cuda.synchronize()
     nccl = lm_shard_nccl(prof)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        (y1, a1, g1), (y0, a0, g0) = run(True), run(False)
-    finally:
-        torch.use_deterministic_algorithms(False)
+    (y1, a1, g1), (y0, a0, g0) = run(True), run(False)
+    repeats = {}
+    for sharded, first in ((True, (y1, a1, g1)), (False, (y0, a0, g0))):
+        again = run(sharded)
+        repeats["sharded" if sharded else "local"] = all(
+            same_bits(a, c) for a, c in zip(
+                (first[0], first[1], *first[2]),
+                (again[0], again[1], *again[2])))
+        del again
+    require(all(repeats.values()), f"{arch}: a body did not repeat itself "
+            f"bit for bit: {repeats}")
     require(bool(torch.isfinite(y1.float()).all()) and all(
         bool(torch.isfinite(g.float()).all()) for g in g1),
         f"{arch}: a non-finite output or gradient")
@@ -3182,7 +3263,7 @@ def lm_shard_moe(arch: str, dev, mesh) -> dict:
     out = {"params": n, "param_gb": sum(int(p.numel()) * p.element_size()
                                         for p in params.values()) / 1e9,
            "moe_shard": cfg.moe_shard, "tokens": b * s, "equal": equal,
-           "ms": ms, "nccl_kernels": nccl}
+           "repeats_bitwise": repeats, "ms": ms, "nccl_kernels": nccl}
     del params, x, g0, g1
     torch.cuda.empty_cache()
     return out
@@ -3249,6 +3330,214 @@ def lm_shard_compress(dev, mesh) -> dict:
     return out
 
 
+def lm_shard_dtensor(dev, mesh) -> dict:
+    """``jit_train_step`` for LM_FULL[0] at full width on the one-rank
+    (data 1, model 1) mesh, LM_DTENSOR_STEPS steps from one seeded state on
+    the same batches, the state's leaves as plain tensors (what stands in
+    for them on one rank) and then as DTensors: the losses within
+    LM_RESUME_RTOL, step ms (host clock until the loss is on the host,
+    median of steps 2..) and peak GB each: DTensor's host cost on the
+    card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common
+    from repro_torch.sharding import specs as sh
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import schedule as sched
+    from repro_torch.train import steps
+
+    cfg = get_config(LM_FULL[0])
+    ocfg = opt_lib.AdamWConfig(eight_bit=cfg.opt_8bit)
+    scfg = sched.ScheduleConfig(peak_lr=3e-4, warmup_steps=2,
+                                total_steps=LM_DTENSOR_STEPS)
+    shapes = {n: torch.empty((LM_TRAIN_BATCH, LM_TRAIN_SEQ),
+                             dtype=torch.int32, device="meta")
+              for n in ("tokens", "labels")}
+    bspec = {"tokens": ("batch", None), "labels": ("batch", None)}
+    step, _, ssh, bsh = steps.jit_train_step(
+        cfg, ocfg, scfg, mesh, sh.Rules.make(), shapes, bspec)
+    out = {}
+    for dtensor in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state = sh.place(steps.init_train_state(
+            common.make_generator(SEED, dev), cfg, ocfg), ssh, dtensor)
+        losses, walls = [], []
+        for i in range(LM_DTENSOR_STEPS):
+            batch = sh.place(lm_train_batch(cfg, dev, SEED + i), bsh, dtensor)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        require(all(np.isfinite(losses)),
+                f"dtensor={dtensor}: losses {losses}")
+        out["dtensor" if dtensor else "plain"] = {
+            "losses": losses, "step_ms": walls,
+            "step_ms_median": float(np.median(walls[1:])),
+            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+        del state, batch, m
+    got = np.asarray(out["dtensor"]["losses"])
+    want = np.asarray(out["plain"]["losses"])
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    require(rel <= LM_RESUME_RTOL, f"{LM_FULL[0]} with DTensor leaves: "
+            f"losses {got.tolist()} against {want.tolist()}")
+    out["losses_max_rel_err"] = rel
+    out["losses_bitwise"] = bool(np.array_equal(got, want))
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_runs(out_dir: Path, children: list) -> dict:
+    """``python -m repro_torch.launch.dryrun`` for each DRYRUN_CELLS cell,
+    one subprocess after another, on a thread from the kernel build on:
+    fake CUDA tensors over a fake process group, no card (nor its
+    memory).  → {key: {"rc", "wall_s", "record", "stderr"}}."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    out = {}
+    for key, (arch, shape, extra) in DRYRUN_CELLS.items():
+        where = out_dir / key
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--device", DRYRUN_DEVICE, "--out",
+             str(where), *extra], cwd=ROOT, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            preexec_fn=lambda: os.nice(DRYRUN_NICE))
+        children.append(proc)
+        try:
+            _, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        files = list(where.glob("*.json"))
+        out[key] = {"rc": proc.returncode,
+                    "wall_s": time.perf_counter() - t0,
+                    "record": (json.loads(files[0].read_text())
+                               if len(files) == 1 else None),
+                    "stderr": err[-2000:]}
+    return out
+
+
+def dryrun_check(dev) -> dict:
+    """DRYRUN_CELLS["check"]'s cell for real: its published widths in its
+    dtypes, params drawn on the card and zeroed caches, placed as
+    DTensors by ``fitted_shardings`` on a one-rank (1, 1) NCCL mesh under
+    the shape's rules (the dry-run's layout), one ``serve_step``; → its
+    peak above the memory allocated before the arguments were made."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.shapes import rules_for_shape
+    from repro_torch.models import common, model
+    from repro_torch.sharding import specs as sh
+    from repro_torch.train import steps
+
+    arch, shape_name, _ = DRYRUN_CELLS["check"]
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    b = shape.global_batch
+    mesh = make_smoke_mesh(1, 1, device=dev)
+    rules = rules_for_shape(shape)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+
+    def placed(tree, specs):
+        return sh.place(tree, sh.fitted_shardings(tree, specs, mesh, rules),
+                        dtensor=True)
+
+    params = placed(*model.init_model(common.make_generator(SEED, dev), cfg))
+    caches = placed(*model.init_caches(cfg, b, shape.seq_len, dev))
+    token = placed({"t": torch.randint(
+        0, cfg.vocab, (b, 1), device=dev, dtype=torch.int32,
+        generator=common.make_generator(SEED + 1, dev))},
+        {"t": ("batch", None)})["t"]
+    args_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with sh.use_mesh(mesh, rules):
+        nxt, logits, caches = steps.serve_step(params, caches, token,
+                                               shape.seq_len - 1, cfg)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    logits = sh.full(logits)
+    require(tuple(logits.shape) == (b, cfg.vocab)
+            and bool(torch.isfinite(logits).all())
+            and tuple(sh.full(nxt).shape) == (b, 1),
+            f"{arch} decode on the card: logits {tuple(logits.shape)}")
+    del params, caches, token, nxt, logits
+    torch.cuda.empty_cache()
+    return {"arch": arch, "shape": shape_name, "batch": b,
+            "peak_bytes": int(peak), "args_gb": args_gb, "step_s": step_s}
+
+
+def dryrun_phase(ctx, counted) -> dict:
+    """The dry-run tier: the DRYRUN_CELLS records made on the host
+    (``ctx["dryrun_job"]``, from ``dryrun_runs``) and, in this process over
+    a one-rank NCCL group made here (and destroyed at the end),
+    ``dryrun_check``: the measured peak of a real decode step against the
+    dry-run's prediction for the same cell on a (1, 1) mesh (argument plus
+    temp bytes), within DRYRUN_PEAK_RATIO.  Each record exits 0 with a
+    finite per-device peak; the EP MoE's cost variants show its
+    all-to-all.  Launches none of the repo's kernels."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group
+
+    dev = ctx["dev"]
+    require(not dist.is_initialized(), "a process group exists already")
+    init_process_group(dev)
+    out = {}
+    try:
+        counted("dryrun", lambda: out.update(check=dryrun_check(dev)))
+    finally:
+        dist.destroy_process_group()
+    require(not any(ctx["path_launches"]["dryrun"].values()),
+            f"the dry-run phase launched a kernel: "
+            f"{ctx['path_launches']['dryrun']}")
+    t0 = time.perf_counter()
+    runs = ctx["dryrun_job"].result(timeout=3 * DRYRUN_TIMEOUT_S)
+    out["wait_s"] = time.perf_counter() - t0
+    for key, r in runs.items():
+        require(r["rc"] == 0 and r["record"] is not None,
+                f"dry-run {DRYRUN_CELLS[key]}: exit {r['rc']}: "
+                f"{r['stderr']}")
+    rec = {k: r["record"] for k, r in runs.items()}
+    peaks = {"decode": rec["decode"]["peak_bytes"],
+             "moe_cost": rec["moe_cost"]["cost_terms"]["peak_bytes_1g"],
+             "check": rec["check"]["peak_bytes"]}
+    require(all(np.isfinite(v) and v > 0 for v in peaks.values()),
+            f"dry-run peaks {peaks}")
+    a2a = rec["moe_cost"]["cost_terms"]["collectives_1g"]["all-to-all"]
+    require(a2a["count"] > 0 and a2a["bytes"] > 0,
+            f"the EP MoE's cost variant shows no all-to-all: {a2a}")
+    predicted = peaks["check"]
+    ratio = out["check"]["peak_bytes"] / predicted
+    lo, hi = DRYRUN_PEAK_RATIO
+    require(lo <= ratio <= hi, f"{DRYRUN_CELLS['check'][:2]}: the card's "
+            f"peak {out['check']['peak_bytes']} B against the dry-run's "
+            f"{predicted} B ({ratio:.4f}x)")
+    out.update(predicted_peak_bytes=predicted, measured_over_predicted=ratio,
+               peaks=peaks, ep_all_to_all_1g=a2a,
+               walls_s={k: r["wall_s"] for k, r in runs.items()},
+               records={k: {n: v[n] for n in (
+                   "arch", "shape", "mesh", "chips", "memory", "peak_bytes",
+                   "cost_scanned", "collectives_scanned", "compile_s",
+                   "cost_terms", "model_flops", "torch_version") if n in v}
+                   for k, v in rec.items()})
+    log(f"dry-run: {DRYRUN_CELLS['check'][0]} x {DRYRUN_CELLS['check'][1]}"
+        f" on the card {out['check']['peak_bytes']} B peak against the "
+        f"dry-run's {predicted} B on (1, 1) ({ratio:.4f}x); records "
+        f"{ {k: r['wall_s'] for k, r in runs.items()} } s")
+    return out
+
+
 def lm_shard_phase(ctx, counted) -> dict:
     """The sharding path on the card, in this process, over a one-rank
     NCCL process group made here (and destroyed at the end): the EP MoE
@@ -3278,6 +3567,12 @@ def lm_shard_phase(ctx, counted) -> dict:
                 out[key] = lm_shard_moe(arch, dev, mesh)
             out["compress"] = lm_shard_compress(
                 dev, make_smoke_mesh(1, 1, pod=1, device=dev))
+            out["dtensor"] = r = lm_shard_dtensor(dev, mesh)
+            log(f"lm train {LM_FULL[0]} with DTensor leaves: step "
+                f"{r['dtensor']['step_ms_median']:.3f} ms against "
+                f"{r['plain']['step_ms_median']:.3f} ms plain, peak "
+                f"{r['dtensor']['peak_gb']:.3f} GB; losses bitwise "
+                f"{r['losses_bitwise']}")
 
         counted("lm_shard", path)
     finally:
@@ -3355,6 +3650,12 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     lm_job = lm_pool.submit(lm_train_cli_runs, Path(store_root) / "lm-ckpt",
                             children)
     lm_pool.shutdown(wait=False)
+    # the dry-run's records, made on the host (no card) beside everything
+    # up to dryrun_phase, which reads them
+    dry_pool = ThreadPoolExecutor(1)
+    dryrun_job = dry_pool.submit(dryrun_runs, Path(store_root) / "dryrun",
+                                 children)
+    dry_pool.shutdown(wait=False)
 
     # -- small random trees: every kernel (both fused kernels) vs plain, and
     # the running fold over uneven batches --------------------------------
@@ -3391,6 +3692,14 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
         f"nodes, depth {tree.depth}")
     base_job = pool.apply_async(baseline_layouts,
                                 (sample, SEED, tree.n_leaves))
+    untightened = tree.to_arrays()
+    # the numpy oracle of the whole stream on host threads, beside the
+    # waits and the main path below (its check comes after them)
+    oracle_pool = ThreadPoolExecutor(1)
+    oracle_job = oracle_pool.submit(timed, oracle_partial,
+                                    FrozenQdTree.from_arrays(untightened),
+                                    records, workers)
+    oracle_pool.shutdown(wait=False)
     t0 = time.perf_counter()
     fine_arrays = fine_job.get(timeout=FINE_TIMEOUT_S)
     fine_wait_s = time.perf_counter() - t0
@@ -3401,7 +3710,6 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     fine = FrozenQdTree.from_arrays(fine_arrays)
     log(f"finer layout: {fine.n_leaves} leaves, depth {fine.depth} (waited "
         f"{fine_wait_s:.1f}s for it)")
-    untightened = tree.to_arrays()
     rec_dev = torch.from_numpy(records).to(dev)
     slices = [rec_dev[s:s + BATCH] for s in range(0, n_rows, BATCH)]
     sizes = {s.shape[0] for s in slices}
@@ -3472,17 +3780,18 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
             and np.array_equal(report.block_sizes, stats.block_sizes),
             "block sizes")
     t0 = time.perf_counter()
+    (oracle_bids, part), oracle_s = oracle_job.result()
+    oracle_wait_s = time.perf_counter() - t0
     oracle_tree = FrozenQdTree.from_arrays(untightened)
-    oracle_bids, part = oracle_partial(oracle_tree, records, workers)
     tightener = IncrementalTightener(oracle_tree)
     tightener.merge(part)
     tightener.apply()
-    oracle_s = time.perf_counter() - t0
     for f in ("leaf_lo", "leaf_hi", "leaf_cat", "leaf_adv", "block_sizes"):
         require(np.array_equal(getattr(oracle_tree, f), getattr(tree, f)),
                 f"whole-stream {f} differs from the numpy oracle")
     log(f"whole stream: tightened descriptions equal the numpy oracle's "
-        f"({oracle_s:.1f}s on {workers} host threads)")
+        f"({oracle_s:.1f}s on {workers} host threads from the greedy "
+        f"build on; waited {oracle_wait_s:.1f}s for it)")
     plain_fine = FrozenQdTree.from_arrays(fine_arrays)
     plain_acc = fk.IngestAccumulator(route_ops(plain_fine, dev))
     for s in slices:
@@ -3700,6 +4009,9 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     # counted from 0 ---------------------------------------------------------
     ctx["cuts"] = cuts
     ctx["greedy_scanned_sample"] = baselines["qdtree"]["scanned_fraction"]
+    # both CLIs run in their own processes beside the phases up to
+    # cli_phase, which reads them (their launches are their own)
+    cli_started = cli_start(ctx)
     t0 = time.perf_counter()
     woodblock = woodblock_phase(ctx, counted)
     phase_s["woodblock"] = time.perf_counter() - t0
@@ -3718,7 +4030,7 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     fleet = coordinator_phase(pctx, counted)
     phase_s["coordinator"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cli = cli_phase(ctx)
+    cli = cli_phase(ctx, cli_started)
     phase_s["cli"] = time.perf_counter() - t0
     # -- the LM serving path, counted from 0 ---------------------------------
     t0 = time.perf_counter()
@@ -3732,6 +4044,11 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     t0 = time.perf_counter()
     lm_shard = lm_shard_phase(ctx, counted)
     phase_s["lm_shard"] = time.perf_counter() - t0
+    # -- the dry-run tier, counted from 0 -------------------------------------
+    t0 = time.perf_counter()
+    ctx["dryrun_job"] = dryrun_job
+    dryrun = dryrun_phase(ctx, counted)
+    phase_s["dryrun"] = time.perf_counter() - t0
     # every path's launches, the process shards' (made in their workers)
     # included
     launches = {k: sum(c[k] for c in path_launches.values())
@@ -3843,14 +4160,14 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
         "build_s": build_s, "build_s_per_kernel": per_kernel,
         "datagen_s": datagen_s, "greedy_s": greedy_s,
         "fine_wait_s": fine_wait_s, "lm_cli_wait_s": lm_cli_wait_s,
-        "oracle_s": oracle_s,
+        "oracle_s": oracle_s, "oracle_wait_s": oracle_wait_s,
         "host_threads": workers,
         "sharded_ingest": shards, "spill_ingest": spill,
         "block_store": store, "autotune": tuned, "baselines": baselines,
         "woodblock": woodblock, "service": service, "serve": serve,
         "pipeline": pipeline, "coordinator": fleet, "cli": cli,
         "lm_serve": lm, "lm_train": lm_train, "lm_shard": lm_shard,
-        "phase_s": phase_s,
+        "dryrun": dryrun, "phase_s": phase_s,
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         "total_s": time.perf_counter() - t_start,
     }
@@ -3972,21 +4289,29 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
               f"{a} {r['state_max_rel_err']:.3g} ({r['int8_codes_differ']} "
               f"int8 codes differ)" for a, r in lm_train["reduced"].items()))
     print(f"lm_train resume: {lm_train['resume']}")
-    dt = lm_train["dtensor"]
-    print(f"lm_train {LM_FULL[0]} with DTensor leaves on the one-rank mesh: "
-          f"step {dt['step_ms_median']:.3f} ms against "
-          f"{lm_train['full'][LM_FULL[0]]['step_ms_median']:.3f} ms with "
-          f"plain tensors, {dt['tokens_per_s']:.1f} tok/s, peak "
-          f"{dt['peak_gb']:.3f} GB; losses {dt['losses_max_rel_err']:.3g} "
-          f"apart (bitwise {dt['losses_bitwise']})")
+    dt = lm_shard["dtensor"]
+    print(f"lm_shard {LM_FULL[0]} with DTensor leaves on the one-rank mesh, "
+          f"in process: step {dt['dtensor']['step_ms_median']:.3f} ms "
+          f"against {dt['plain']['step_ms_median']:.3f} ms with plain "
+          f"tensors, peak {dt['dtensor']['peak_gb']:.3f} against "
+          f"{dt['plain']['peak_gb']:.3f} GB; losses "
+          f"{dt['losses_max_rel_err']:.3g} apart (bitwise "
+          f"{dt['losses_bitwise']})")
     for key in ("ep", "ff"):
         r = lm_shard[key]
         print(f"lm_shard {key} ({r['params']} params, {r['param_gb']:.3f} "
               f"GB, {r['tokens']} tokens): forward + backward "
               f"{r['ms']['sharded']:.3f} ms through the one-rank NCCL body "
               f"against {r['ms']['local']:.3f} ms for _moe_local; bitwise "
-              f"equal {all(r['equal'].values())}; NCCL kernels "
-              f"{r['nccl_kernels']}")
+              f"equal {all(r['equal'].values())}; each repeats bitwise "
+              f"{r['repeats_bitwise']}; NCCL kernels {r['nccl_kernels']}")
+    d = dryrun
+    print(f"dryrun {DRYRUN_CELLS['check'][0]} x {DRYRUN_CELLS['check'][1]} "
+          f"on a (1, 1) mesh: peak on the card {d['check']['peak_bytes']} B "
+          f"against the dry-run's {d['predicted_peak_bytes']} B "
+          f"({d['measured_over_predicted']:.4f}x); per-device peaks "
+          f"{d['peaks']}; the EP all-to-all (1 group) {d['ep_all_to_all_1g']}"
+          f"; records made in {d['walls_s']} s, waited {d['wait_s']:.1f} s")
     c = lm_shard["compress"]
     print(f"lm_shard compressed {LM_SHARD_COMPRESS} step "
           f"{c['compressed']['step_ms_median']:.3f} ms against plain "

@@ -74,7 +74,12 @@ def _mesh(shape: tuple, axes: tuple, device=None) -> DeviceMesh:
         raise ValueError(
             f"mesh {dict(zip(axes, shape))} has {math.prod(shape)} devices; "
             f"the process group has {world}")
-    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    # the device asked for; else the backend's (a fake group, as the
+    # dry-run's, has neither)
+    if device is not None:
+        kind = torch.device(device).type
+    else:
+        kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(kind, shape, mesh_dim_names=axes)
 
 

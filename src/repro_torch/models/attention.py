@@ -11,6 +11,14 @@ allow_tf32`` stays False, so they are full f32 on the card too.
 Decode writes the new K/V into the fixed-capacity cache in place at
 ``pos`` (the reference's masked update of a donated buffer) and attends
 over the whole cache with positions > ``pos`` masked.
+
+Under a mesh, a projection is laid out as its heads fit the mesh before
+it is viewed as heads (``specs.unflatten_last``, ``merge_dims``: a
+``model`` axis that does not divide the heads leaves them whole, where the
+reference's partitioner pads); attention's core runs on each rank's batch
+rows and KV heads (``shard_local``), the query heads split as the KV heads
+are; decode on DTensor caches writes and attends on each rank's shard of
+the sequence (``_decode_sharded``).
 """
 
 from __future__ import annotations
@@ -18,10 +26,12 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.common import dense_init, split_tree
+from repro_torch.sharding import specs as sh
 from repro_torch.sharding.specs import logical_constraint as wsc
 from repro_torch.sharding.specs import shard_local
 
@@ -29,15 +39,23 @@ NEG_INF = -1e30
 SENTINEL = 2**30  # position of padded KV rows: masked causal or not
 
 
+# the logical axes of the projected heads, and of their weights
+Q_AXES = ("batch", "seq", "heads", None)
+KV_AXES = ("batch", "seq", "kv_heads", None)
+W_AXES = {Q_AXES: ("fsdp", "heads", None),
+          KV_AXES: ("fsdp", "kv_heads", None)}
+WO_AXES = ("heads", None, "fsdp")
+
+
 def init_attention(gen, cfg: ModelConfig):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = common.pdtype(cfg)
     pairs = {
-        "wq": dense_init(gen, (d, h, hd), dt, ("fsdp", "heads", None)),
-        "wk": dense_init(gen, (d, kv, hd), dt, ("fsdp", "kv_heads", None)),
-        "wv": dense_init(gen, (d, kv, hd), dt, ("fsdp", "kv_heads", None)),
+        "wq": dense_init(gen, (d, h, hd), dt, W_AXES[Q_AXES]),
+        "wk": dense_init(gen, (d, kv, hd), dt, W_AXES[KV_AXES]),
+        "wv": dense_init(gen, (d, kv, hd), dt, W_AXES[KV_AXES]),
         "wo": dense_init(
-            gen, (h, hd, d), dt, ("heads", None, "fsdp"),
+            gen, (h, hd, d), dt, WO_AXES,
             scale=1.0 / math.sqrt(h * hd),
         ),
     }
@@ -49,18 +67,18 @@ def init_attention(gen, cfg: ModelConfig):
     return split_tree(pairs)
 
 
-def _proj_heads(x, w, ct):
-    """einsum("bsd,dhk->bshk") as one matmul."""
-    d, h, k = w.shape
-    y = x @ w.to(ct).reshape(d, h * k)
-    return y.reshape(x.shape[:-1] + (h, k))
+def _proj_heads(x, w, ct, axes=Q_AXES):
+    """einsum("bsd,dhk->bshk") as one matmul; under a mesh the product is
+    laid out as ``axes`` fit the heads before it is viewed as heads."""
+    h, k = w.shape[1:]
+    y = x @ sh.merge_dims(w.to(ct), 1, W_AXES[axes])
+    return sh.unflatten_last(y, (h, k), axes)
 
 
 def _out_proj(out, wo, ct):
     """einsum("bshk,hkd->bsd") as one matmul."""
-    h, k, d = wo.shape
-    return out.to(ct).reshape(out.shape[:2] + (h * k,)) @ wo.to(ct).reshape(
-        h * k, d)
+    return (sh.merge_dims(out.to(ct), 2, Q_AXES)
+            @ sh.merge_dims(wo.to(ct), 0, WO_AXES))
 
 
 def _project_qkv(params, x, kv_x, positions, kv_positions, cfg: ModelConfig):
@@ -68,8 +86,8 @@ def _project_qkv(params, x, kv_x, positions, kv_positions, cfg: ModelConfig):
     xq = x.to(ct)
     xkv = (kv_x if kv_x is not None else x).to(ct)
     q = _proj_heads(xq, params["wq"], ct)
-    k = _proj_heads(xkv, params["wk"], ct)
-    v = _proj_heads(xkv, params["wv"], ct)
+    k = _proj_heads(xkv, params["wk"], ct, KV_AXES)
+    v = _proj_heads(xkv, params["wv"], ct, KV_AXES)
     if cfg.qkv_bias:
         q = q + params["bq"].to(ct)
         k = k + params["bk"].to(ct)
@@ -77,10 +95,7 @@ def _project_qkv(params, x, kv_x, positions, kv_positions, cfg: ModelConfig):
     if cfg.pos_embed == "rope":
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, kv_positions, cfg.rope_theta)
-    q = wsc(q, ("batch", "seq", "heads", None))
-    k = wsc(k, ("batch", "seq", "kv_heads", None))
-    v = wsc(v, ("batch", "seq", "kv_heads", None))
-    return q, k, v
+    return wsc(q, Q_AXES), wsc(k, KV_AXES), wsc(v, KV_AXES)
 
 
 def _group_q(q, n_kv: int):
@@ -169,21 +184,24 @@ def attn_forward(params, x, positions, cfg: ModelConfig, causal: bool = True,
     if kv_positions is None:
         kv_positions = positions
     q, k, v = _project_qkv(params, x, kv_x, positions, kv_positions, cfg)
-    qg = _group_q(q, cfg.n_kv_heads)
     s, t = x.shape[1], k.shape[1]
     if max(s, t) > 2 * cfg.attn_chunk:
         core = lambda *a: chunked_attention(
             *a, causal, q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
     else:
         core = lambda *a: full_attention(*a, causal)
+
+    def grouped(q, k, v, q_pos, k_pos):  # GQA over this rank's KV heads
+        return core(_group_q(q, k.shape[2]), k, v, q_pos, k_pos).reshape(
+            q.shape)
+
     # under a mesh, on each rank's batch rows and KV heads (no DTensor
-    # einsum rules for these layouts)
-    grouped, pos = ("batch", None, "kv_heads", None, None), ("batch", None)
-    out = shard_local(core, (qg, k, v, positions, kv_positions),
-                      (grouped, grouped[:4], grouped[:4], pos, pos), grouped)
-    b = x.shape[0]
-    out = out.reshape(b, s, cfg.n_heads, cfg.hd)
-    out = wsc(out, ("batch", "seq", "heads", None))
+    # einsum rules for these layouts), the query heads split as the KV
+    # heads are
+    heads, pos = ("batch", None, "kv_heads", None), ("batch", None)
+    out = shard_local(grouped, (q, k, v, positions, kv_positions),
+                      (heads, heads, heads, pos, pos), heads)
+    out = wsc(out, Q_AXES)
     y = _out_proj(out, params["wo"], common.cdtype(cfg))
     if return_kv:
         return y, (k.transpose(1, 2), v.transpose(1, 2))
@@ -199,7 +217,8 @@ def _cached_attention(qg, k_cache, v_cache, cfg: ModelConfig, mask=None):
         scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrst,bgth->bsgrh", probs.to(v_cache.dtype), v_cache)
-    return out.reshape(qg.shape[0], 1, cfg.n_heads, cfg.hd)
+    b, _, g, r, hd = qg.shape
+    return out.reshape(b, 1, g * r, hd)
 
 
 def cross_attn_cached(params, x, k_cache, v_cache, cfg: ModelConfig):
@@ -208,8 +227,13 @@ def cross_attn_cached(params, x, k_cache, v_cache, cfg: ModelConfig):
     q = _proj_heads(x.to(ct), params["wq"], ct)
     if cfg.qkv_bias:
         q = q + params["bq"].to(ct)
-    out = _cached_attention(_group_q(q, cfg.n_kv_heads), k_cache, v_cache,
-                            cfg)
+    # under a mesh, on each rank's batch rows and KV heads
+    heads, cache = ("batch", None, "kv_heads", None), (
+        "batch", "kv_heads", None, None)
+    out = shard_local(
+        lambda q, k, v: _cached_attention(_group_q(q, k.shape[1]), k, v,
+                                          cfg),
+        (q, k_cache, v_cache), (heads, cache, cache), heads)
     return _out_proj(out, params["wo"], ct)
 
 
@@ -235,6 +259,10 @@ def attn_decode(params, x, k_cache, v_cache, pos: int, cfg: ModelConfig):
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(params, x, None, positions, positions, cfg)
+    if isinstance(k_cache, sh.DTensor):
+        out = _decode_sharded(q, k, v, k_cache, v_cache, pos, cfg)
+        return (_out_proj(out, params["wo"], common.cdtype(cfg)), k_cache,
+                v_cache)
     k_cache[:, :, pos] = k[:, 0].to(k_cache.dtype)
     v_cache[:, :, pos] = v[:, 0].to(v_cache.dtype)
     t_idx = torch.arange(k_cache.shape[2], device=x.device)
@@ -242,3 +270,42 @@ def attn_decode(params, x, k_cache, v_cache, pos: int, cfg: ModelConfig):
     out = _cached_attention(_group_q(q, cfg.n_kv_heads), k_cache, v_cache,
                             cfg, mask)
     return _out_proj(out, params["wo"], common.cdtype(cfg)), k_cache, v_cache
+
+
+def _decode_sharded(q, k, v, k_cache, v_cache, pos: int, cfg: ModelConfig):
+    """``attn_decode``'s write and attention on DTensor caches, each rank
+    on its own shard: the rank whose shard of the sequence holds ``pos``
+    writes the new K/V there (no rank gathers a cache), each attends over
+    its shard, and the softmax's max and sum and the weighted values are
+    reduced over the mesh axes that split the sequence.  → (B,1,H,hd)."""
+    mesh = k_cache.device_mesh
+    spec = sh.spec_of(k_cache)  # (batch, kv_heads, cache_seq, head_dim)
+    if spec[3] is not None:
+        raise ValueError(f"a KV cache split along head_dim: {spec}")
+    start, length = sh.shard_start(k_cache, 2)
+    row = sh.P(spec[0], spec[1], None)
+    if start <= pos < start + length:
+        for cache, new in ((k_cache, k), (v_cache, v)):
+            sh.local(cache)[:, :, pos - start] = sh.take_local(
+                new[:, 0], row, mesh).to(cache.dtype)
+    ql = sh.take_local(q, sh.P(spec[0], None, spec[1], None), mesh)
+    kc, vc = sh.local(k_cache), sh.local(v_cache)
+    qg = _group_q(ql, kc.shape[1])
+    scores = torch.einsum("bsgrh,bgth->bgrst", qg.float(),
+                          kc.float()) / math.sqrt(cfg.hd)
+    t_idx = start + torch.arange(length, device=scores.device)
+    scores = torch.where(t_idx <= pos, scores, NEG_INF)
+    seq = spec[2] if isinstance(spec[2], tuple) else (spec[2],)
+    groups = [mesh.get_group(a) for a in seq if a is not None]
+    m = scores.amax(dim=-1, keepdim=True)
+    for g in groups:
+        dist.all_reduce(m, dist.ReduceOp.MAX, group=g)
+    p = torch.exp(scores - m)
+    denom = p.sum(dim=-1, keepdim=True)  # (b, g, r, 1, 1)
+    out = torch.einsum("bgrst,bgth->bsgrh", p, vc.float())
+    for g in groups:
+        dist.all_reduce(denom, group=g)
+        dist.all_reduce(out, group=g)
+    out = out / denom[..., 0].permute(0, 3, 1, 2)[..., None]
+    out = out.to(v_cache.dtype).reshape(ql.shape)
+    return sh.from_local(out, sh.P(spec[0], None, spec[1], None), mesh)

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.plan import resolve_device
-from repro_torch.sharding.specs import batch_only
+from repro_torch.sharding.specs import batch_only, shard_local
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -40,6 +40,8 @@ def make_generator(seed: int, device=None) -> torch.Generator:
 # ---------------------------------------------------------------------------
 def dense_init(gen: torch.Generator, shape, dtype, axes, scale=None):
     """Truncated-normal (±2σ) init with fan-in scaling + logical axes."""
+    if gen.device.type == "meta":  # shapes only (``abstract_state``)
+        return torch.empty(shape, dtype=dtype, device="meta"), axes
     fan_in = shape[0] if len(shape) > 1 else shape[-1]
     s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)
@@ -105,10 +107,15 @@ def softmax_cross_entropy(logits, labels, weights=None,
     slots); the mean is over the weighted token count.
     """
     # under a mesh: the label gather has no DTensor rule over a vocab
-    # split or a partial sum
+    # split or a partial sum, and its backward's scatter none over a batch
+    # split (every rank would scatter the whole batch): both on each
+    # rank's rows
     lg = batch_only(logits).float()
     lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+    ll = shard_local(
+        lambda lg, y: torch.gather(lg, -1, y[..., None].long())[..., 0],
+        (lg, labels), (("batch", None, None), ("batch", None)),
+        ("batch", None))
     nll = lse - ll
     z = z_loss_coef * (lse ** 2)
     if weights is None:

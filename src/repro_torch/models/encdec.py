@@ -23,7 +23,7 @@ from repro_torch.models.common import dense_init, split_tree
 from repro_torch.models.transformer import (apply_norm, head_logits,
                                             init_norm, whole_seq)
 from repro_torch.sharding.specs import logical_constraint as wsc
-from repro_torch.sharding.specs import replicate
+from repro_torch.sharding.specs import recompute_context, replicate
 
 N_FRAMES = 1500  # whisper's 30 s @ 50 Hz after the conv frontend
 
@@ -111,9 +111,11 @@ def encode(params, frames, cfg: ModelConfig):
         return wsc(x, ("batch", "seq_sp", "embed"))
 
     for lp in params["encoder"]:
-        x = (checkpoint(body, lp, x, use_reentrant=False) if _remat(cfg)
+        x = (checkpoint(body, lp, x, use_reentrant=False,
+                        context_fn=recompute_context) if _remat(cfg)
              else body(lp, x))
-    return apply_norm(params["enc_ln"], x, cfg)
+    # whole over the frames: the cross-attention's K/V input
+    return whole_seq(apply_norm(params["enc_ln"], x, cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +163,8 @@ def decode_train(params, enc_out, tokens, cfg: ModelConfig,
     for lp in params["decoder"]:
         if remat:
             x = checkpoint(lambda *a: body(*a)[0], lp, x,
-                           use_reentrant=False)
+                           use_reentrant=False,
+                           context_fn=recompute_context)
         else:
             x, cache = body(lp, x)
             if collect_cache:

@@ -126,6 +126,58 @@ def _bucket(top_e, tl: int, k: int, e: int, cap: int):
             torch.where(keep, pos_in_e, torch.zeros_like(pos_in_e)), keep)
 
 
+def _by_token(order, tl: int, k: int):
+    """(tl, k): each token's rows of the expert-sorted order, ascending,
+    the order in which a serial scatter-add (the CPU's ``index_add_``)
+    visits them."""
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    return inv.reshape(tl, k).sort(dim=1).values
+
+
+def _ordered_sum(rows, by_token):
+    """Each token's rows summed from zero in ``by_token``'s order: the
+    serial scatter-add's sums, with no atomics."""
+    out = torch.zeros((by_token.shape[0],) + rows.shape[1:],
+                      dtype=rows.dtype, device=rows.device)
+    for r in range(by_token.shape[1]):
+        out = out + rows[by_token[:, r]]
+    return out
+
+
+class _Dispatch(torch.autograd.Function):
+    """``x[src]``: each token's row once for each of its k choices, in the
+    expert-sorted order; the backward sums a token's k gradient rows in a
+    fixed order (``_ordered_sum``) where a scatter into repeated rows would
+    add them with atomics on the card."""
+
+    @staticmethod
+    def forward(ctx, x, src, by_token):
+        ctx.save_for_backward(by_token)
+        return x[src]
+
+    @staticmethod
+    def backward(ctx, g):
+        (by_token,) = ctx.saved_tensors
+        return _ordered_sum(g, by_token), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """The combine: each token's k weighted expert outputs (rows in the
+    expert-sorted order) summed in a fixed order, as ``index_add_`` adds
+    them on the CPU; the backward gathers each row's token gradient."""
+
+    @staticmethod
+    def forward(ctx, rows, src, by_token):
+        ctx.save_for_backward(src)
+        return _ordered_sum(rows, by_token)
+
+    @staticmethod
+    def backward(ctx, g):
+        (src,) = ctx.saved_tensors
+        return g[src], None, None
+
+
 def _expert_ffn(buf, wg, wu, wd, ct):
     """(E, C, D) → (E, C, D) batched expert matmuls."""
     hg = torch.bmm(buf, wg.to(ct))
@@ -150,7 +202,10 @@ def _moe_local(params, xf, cfg: ModelConfig):
     cap = _capacity(tl, cfg)
     probs, top_p, top_e = _route(params, xf, cfg)
     order, sorted_e, src, pos, keep = _bucket(top_e, tl, k, e, cap)
-    contrib = torch.where(keep[:, None], xf[src].to(ct), 0)
+    by_token = _by_token(order, tl, k)
+    contrib = torch.where(keep[:, None],
+                          _Dispatch.apply(xf, src, by_token).to(ct), 0)
+    # a kept row owns its slot; the dropped ones add zeros at slot 0
     buf = torch.zeros((e, cap, d), dtype=ct, device=xf.device)
     buf.index_put_((sorted_e, pos), contrib, accumulate=True)
     out = _expert_ffn(
@@ -158,8 +213,7 @@ def _moe_local(params, xf, cfg: ModelConfig):
     )
     gathered = out[sorted_e, pos]
     w = (top_p.reshape(tl * k)[order] * keep).to(ct)
-    y = torch.zeros((tl, d), dtype=ct, device=xf.device)
-    y.index_add_(0, src, gathered * w[:, None])
+    y = _Combine.apply(gathered * w[:, None], src, by_token)
     counts = torch.zeros((e,), dtype=torch.float32, device=xf.device)
     counts.index_add_(0, top_e.reshape(-1),
                       torch.ones(tl * k, dtype=torch.float32,
@@ -247,7 +301,9 @@ def _moe_sharded(params, x, cfg: ModelConfig, mesh, batch_axes, sizes):
     xl = specs.take_local(x, x_spec, mesh, True).reshape(tl, d)
     probs, top_p, top_e = _route(p, xl, cfg)
     order, sorted_e, src, pos, keep = _bucket(top_e, tl, k, e, cap)
-    contrib = torch.where(keep[:, None], xl[src].to(ct), 0)
+    by_token = _by_token(order, tl, k)
+    contrib = torch.where(keep[:, None],
+                          _Dispatch.apply(xl, src, by_token).to(ct), 0)
     buf = torch.zeros((e, cap, d), dtype=ct, device=xl.device)
     buf = buf.index_put((sorted_e, pos), contrib, accumulate=True)
 
@@ -280,8 +336,7 @@ def _moe_sharded(params, x, cfg: ModelConfig, mesh, batch_axes, sizes):
         out = _expert_ffn(buf, wg, wu, wd, ct)
     gathered = out[sorted_e, pos]
     w = (top_p.reshape(tl * k)[order] * keep).to(ct)
-    y = torch.zeros((tl, d), dtype=ct, device=xl.device)
-    y = y.index_add(0, src, gathered * w[:, None])
+    y = _Combine.apply(gathered * w[:, None], src, by_token)
     counts = torch.zeros((e,), dtype=torch.float32, device=xl.device)
     counts.index_add_(0, top_e.reshape(-1),
                       torch.ones(tl * k, dtype=torch.float32,

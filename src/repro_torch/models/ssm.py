@@ -7,6 +7,12 @@ recurrent update, written into the caches in place.
 
 Shapes: x (B,S,D) → in_proj → [z | xBC | dt]; causal depthwise conv over
 xBC; SSD over heads (H = d_inner / head_dim) with G B/C groups of state N.
+
+Under a mesh the projection's channels are gathered whole on each rank's
+batch rows (a ``model`` split of them does not fall on the z | xBC | dt
+cut); the SSD runs on each rank's batch rows and heads (``_ssd``, B and C
+broadcast to the heads first), and decode on DTensor caches updates each
+rank's shards in place (``_decode_sharded``).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.common import dense_init, split_tree
+from repro_torch.sharding import specs as sh
 from repro_torch.sharding.specs import logical_constraint as wsc
 
 SSD_CHUNK = 256
@@ -125,6 +132,32 @@ def ssd_chunked(x, dt, a_log, b_mat, c_mat, init_state=None,
     return y, prev
 
 
+HEADS = ("batch", "seq", "ssm_heads", None)
+STATE = ("batch", "ssm_heads", None, None)
+
+
+def _ssd(x, dt, a_log, b_mat, c_mat, init_state, chunk: int):
+    """``ssd_chunked``; under a mesh on each rank's batch rows and heads
+    (its einsums have no DTensor rule for a head split beside a group
+    split), B and C first broadcast from their groups to the heads."""
+    if sh.active_mesh() is None or not isinstance(x, sh.DTensor):
+        return ssd_chunked(x, dt, a_log, b_mat, c_mat, init_state, chunk)
+    bsz, s, h, _ = x.shape
+    g, n = b_mat.shape[2:]
+
+    def per_head(t):
+        return t[:, :, :, None, :].expand(bsz, s, g, h // g, n).reshape(
+            bsz, s, h, n)
+
+    args = (x, dt, a_log, per_head(b_mat), per_head(c_mat))
+    axes = (HEADS, HEADS[:3], ("ssm_heads",), HEADS, HEADS)
+    if init_state is not None:
+        args, axes = args + (init_state,), axes + (STATE,)
+    return sh.shard_local(
+        lambda *a: ssd_chunked(*a[:5], a[5] if len(a) > 5 else None, chunk),
+        args, axes, (HEADS, STATE))
+
+
 def _conv1d_causal(xbc, w, bias):
     """Depthwise causal conv.  xbc: (B,S,C); w: (K,C)."""
     k = w.shape[0]
@@ -151,26 +184,27 @@ def mamba_forward(params, x, cfg: ModelConfig, init_state=None):
     ct = common.cdtype(cfg)
     d_in, g, n, p, h, conv_ch, _ = _dims(cfg)
     bsz, s, _ = x.shape
-    proj = x.to(ct) @ params["in_proj"].to(ct)
+    # under a mesh the channels whole: a split of them does not fall on
+    # the z | xBC | dt cut
+    proj = sh.batch_only(x.to(ct) @ params["in_proj"].to(ct))
     z, xbc, dt = _split_proj(proj, cfg)
     k = cfg.ssm_conv
     if s >= k - 1:
         conv_tail = xbc[:, s - (k - 1):, :]
     else:
         conv_tail = F.pad(xbc, (0, 0, k - 1 - s, 0))
-    xbc = _conv1d_causal(xbc, params["conv_w"], params["conv_b"])
+    xbc = sh.batch_only(_conv1d_causal(xbc, params["conv_w"],
+                                       params["conv_b"]))
     xbc = F.silu(xbc)
     xs = xbc[..., :d_in].reshape(bsz, s, h, p)
     b_mat = xbc[..., d_in:d_in + g * n].reshape(bsz, s, g, n)
     c_mat = xbc[..., d_in + g * n:].reshape(bsz, s, g, n)
     dt = F.softplus(dt.float() + params["dt_bias"])
-    xs = wsc(xs, ("batch", "seq", "ssm_heads", None))
-    y, final = ssd_chunked(
-        xs.float(), dt, params["A_log"], b_mat.float(), c_mat.float(),
-        init_state=init_state, chunk=cfg.ssd_chunk,
-    )
+    xs = wsc(xs, HEADS)
+    y, final = _ssd(xs.float(), dt, params["A_log"], b_mat.float(),
+                    c_mat.float(), init_state, cfg.ssd_chunk)
     y = y + params["D"][None, None, :, None] * xs.float()
-    y = y.reshape(bsz, s, d_in).to(ct)
+    y = sh.merge_dims(y, 2, HEADS).to(ct)
     y = common.rmsnorm(y * F.silu(z.to(ct)), params["norm"], cfg.norm_eps)
     return y @ params["out_proj"].to(ct), final, conv_tail
 
@@ -197,6 +231,8 @@ def mamba_decode(params, x, state, conv_state, cfg: ModelConfig):
     conv_state: (B,K-1,C).  Writes the new state and conv window into
     ``state`` and ``conv_state`` in place; returns (y, state, conv_state).
     """
+    if isinstance(state, sh.DTensor):
+        return _decode_sharded(params, x, state, conv_state, cfg)
     ct = common.cdtype(cfg)
     d_in, g, n, p, h, conv_ch, _ = _dims(cfg)
     bsz = x.shape[0]
@@ -225,4 +261,55 @@ def mamba_decode(params, x, state, conv_state, cfg: ModelConfig):
         None, :, None] * xs
     y = y.reshape(bsz, 1, d_in).to(ct)
     y = common.rmsnorm(y * F.silu(z.to(ct)), params["norm"], cfg.norm_eps)
+    return y @ params["out_proj"].to(ct), state, conv_state
+
+
+def _decode_sharded(params, x, state, conv_state, cfg: ModelConfig):
+    """``mamba_decode`` on DTensor caches, each rank on its own shards:
+    its conv window's channels and its heads' states are updated in place
+    (no rank gathers a cache); the conv output's channels are gathered for
+    the heads' inputs, and the heads' outputs stay split for the gated
+    norm and the output projection."""
+    ct = common.cdtype(cfg)
+    d_in, g, n, p, h, conv_ch, _ = _dims(cfg)
+    mesh = state.device_mesh
+    proj = sh.batch_only(x.to(ct) @ params["in_proj"].to(ct))  # (B,1,proj)
+    z, xbc, dt = _split_proj(proj, cfg)
+    sspec, cspec = sh.spec_of(state), sh.spec_of(conv_state)
+    rows = sh.P(cspec[0], None, None)
+    whole = lambda t: sh.take_local(t, sh.P(*[None] * t.dim()), mesh)
+    c0, cl = sh.shard_start(conv_state, 2)
+    window = torch.cat([sh.local(conv_state),
+                        sh.take_local(xbc, rows, mesh)[..., c0:c0 + cl]],
+                       dim=1)  # (b, K, C_l)
+    w = whole(params["conv_w"]).float()[:, c0:c0 + cl]
+    conv_out = (window.float() * w[None]).sum(dim=1) + whole(
+        params["conv_b"]).float()[c0:c0 + cl]
+    sh.local(conv_state).copy_(window[:, 1:])
+    xbc = sh.take_local(sh.from_local(conv_out, sh.P(cspec[0], cspec[2]),
+                                      mesh), sh.P(cspec[0], None), mesh)
+    xbc = F.silu(xbc)  # (b, C) fp32, every channel
+    h0, hl = sh.shard_start(state, 1)
+    heads = slice(h0, h0 + hl)
+    bl = xbc.shape[0]
+    xs = xbc[:, :d_in].reshape(bl, h, p)[:, heads]
+    b_h = torch.repeat_interleave(
+        xbc[:, d_in:d_in + g * n].reshape(bl, g, n), h // g, dim=1)[:, heads]
+    c_h = torch.repeat_interleave(
+        xbc[:, d_in + g * n:].reshape(bl, g, n), h // g, dim=1)[:, heads]
+    dtv = F.softplus(sh.take_local(dt, rows, mesh)[:, 0, heads].float()
+                     + whole(params["dt_bias"])[heads])
+    a = -torch.exp(whole(params["A_log"])[heads])
+    da = torch.exp(dtv * a)
+    xdt = xs * dtv[..., None]
+    st = sh.local(state)
+    new_state = st * da[..., None, None] + torch.einsum(
+        "bhp,bhn->bhpn", xdt, b_h)
+    st.copy_(new_state)
+    y = torch.einsum("bhpn,bhn->bhp", new_state, c_h) + whole(
+        params["D"])[heads][None, :, None] * xs
+    y = sh.from_local(y.reshape(bl, 1, hl * p), sh.P(sspec[0], None,
+                                                     sspec[1]), mesh)
+    y = common.rmsnorm(y.to(ct) * F.silu(z.to(ct)), params["norm"],
+                       cfg.norm_eps)
     return y @ params["out_proj"].to(ct), state, conv_state

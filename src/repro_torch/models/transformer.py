@@ -30,7 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, mlp, ssm
 from repro_torch.models.common import dense_init, split_tree
 from repro_torch.sharding.specs import logical_constraint as wsc
-from repro_torch.sharding.specs import replicate
+from repro_torch.sharding.specs import recompute_context, replicate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,7 +201,8 @@ def stack_forward(layers, x, positions, cfg: ModelConfig,
     for lp in layers:
         if remat:
             x, aux = checkpoint(lambda *a: body(*a)[:2], lp, x, aux,
-                                use_reentrant=False)
+                                use_reentrant=False,
+                                context_fn=recompute_context)
         else:
             x, aux, caches = body(lp, x, aux)
             per_group.append(caches)

@@ -10,7 +10,8 @@ names), equal to the reference's for the same rules and mesh;
 ``placements`` turns it into DTensor placements, one a mesh dim.
 
 ``logical_constraint`` is the identity without an active mesh, and on a
-plain tensor; on a DTensor it redistributes to the spec's placements.
+plain tensor; on a DTensor it redistributes to the placements of the
+spec fitted to its shape (``fitted_spec``).
 
 Default placement (the reference's):
   * weights: FSDP along ``fsdp``→data, tensor-parallel along heads/mlp/
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from typing import Optional
 
@@ -157,6 +159,14 @@ def use_mesh(mesh, rules: Rules):
         _CTX.mesh, _CTX.rules = prev
 
 
+def recompute_context():
+    """``torch.utils.checkpoint``'s ``context_fn``: a checkpointed
+    region's recomputation, which the autograd engine runs on a thread of
+    its own for CUDA tensors, runs under the mesh and rules of its
+    forward (``use_mesh`` is thread-local)."""
+    return contextlib.nullcontext(), use_mesh(_CTX.mesh, _CTX.rules)
+
+
 def active_mesh():
     return _CTX.mesh
 
@@ -180,14 +190,70 @@ def placements(spec: P, mesh) -> tuple:
 
 
 def logical_constraint(x, logical_axes: tuple):
-    """Redistribute a DTensor to its logical axes' layout; the identity
-    without an active mesh and on a plain tensor."""
+    """Redistribute a DTensor to its logical axes' fitted layout
+    (``fitted_spec``: a mesh axis that does not divide a dim leaves it
+    whole, where the reference's partitioner pads); the identity without
+    an active mesh and on a plain tensor."""
     if _CTX.mesh is None or _CTX.rules is None or not isinstance(x, DTensor):
         return x
-    want = placements(_CTX.rules.spec(logical_axes, _CTX.mesh), _CTX.mesh)
+    return _redistribute(x, fitted_spec(tuple(x.shape), logical_axes,
+                                        _CTX.mesh, _CTX.rules))
+
+
+def _redistribute(x: DTensor, spec: P) -> DTensor:
+    want = placements(spec, _CTX.mesh)
     if tuple(x.placements) == want:
         return x
     return x.redistribute(_CTX.mesh, want)
+
+
+class _GradLayout(torch.autograd.Function):
+    """Identity whose backward lays the gradient out as ``want``."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.want = want
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.want:
+            g = g.redistribute(g.device_mesh, ctx.want)
+        return g, None
+
+
+def merge_dims(x, dim: int, logical_axes: tuple):
+    """``x`` with dims ``dim`` and ``dim + 1`` merged.  Under a mesh a
+    DTensor and its gradient are laid out as the fitted spec of
+    ``logical_axes`` on ``x`` (dim ``dim + 1`` whole), so that the
+    backward's view back to ``x``'s shape never unflattens an uneven
+    split."""
+    shape = tuple(x.shape)
+    merged = shape[:dim] + (shape[dim] * shape[dim + 1],) + shape[dim + 2:]
+    if _CTX.mesh is None or _CTX.rules is None or not isinstance(x, DTensor):
+        return x.reshape(merged)
+    spec = fitted_spec(shape, logical_axes, _CTX.mesh, _CTX.rules)
+    if spec[dim + 1] is not None:
+        raise ValueError(f"dim {dim + 1} may not be split: {spec}")
+    flat = _redistribute(x, spec).reshape(merged)
+    return _GradLayout.apply(
+        flat, placements(P(*(spec[:dim + 1] + spec[dim + 2:])), _CTX.mesh))
+
+
+def unflatten_last(x, tail: tuple, logical_axes: tuple):
+    """``x`` with its last dim viewed as ``tail``.  Under a mesh a DTensor
+    is first laid out as the fitted spec of ``logical_axes`` on the viewed
+    shape, the merged dim split as ``tail``'s first dim: a view cannot
+    unflatten a dim split over a mesh axis that does not divide that
+    first dim (24 heads of a flat projection on a 16-way ``model``)."""
+    shape = tuple(x.shape[:-1]) + tuple(tail)
+    if _CTX.mesh is not None and _CTX.rules is not None \
+            and isinstance(x, DTensor):
+        spec = fitted_spec(shape, logical_axes, _CTX.mesh, _CTX.rules)
+        if any(part is not None for part in spec[x.dim():]):
+            raise ValueError(f"only the first of {tail} may be split: {spec}")
+        x = _redistribute(x, P(*spec[:x.dim()]))
+    return x.reshape(shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -376,17 +442,22 @@ class _ContiguousGrad(torch.autograd.Function):
 
 
 def take_local(t: torch.Tensor, spec: P, mesh,
-               partial_grad: bool = False) -> torch.Tensor:
+               partial_grad=False) -> torch.Tensor:
     """This rank's shard of ``t`` (a DTensor, or a plain tensor holding
     the full value on every rank) laid out as ``spec``.  With
     ``partial_grad`` its gradient is partial over the mesh dims it is
-    replicated on (each replica passes back its own share, to be summed);
-    else each replica's gradient is taken to be the whole one."""
+    replicated on (each replica passes back its own share, to be summed),
+    or over those of them named in ``partial_grad`` when it is a
+    collection of axis names; else each replica's gradient is taken to be
+    the whole one."""
     want = placements(spec, mesh)
     grad = None
     if partial_grad:
-        grad = tuple(Partial() if isinstance(p, Replicate) else p
-                     for p in want)
+        every = partial_grad is True
+        grad = tuple(
+            Partial() if isinstance(p, Replicate) and (
+                every or name in partial_grad) else p
+            for name, p in zip(mesh.mesh_dim_names, want))
     shard = as_dtensor(t, mesh).redistribute(mesh, want).to_local(
         grad_placements=grad)
     return _ContiguousGrad.apply(shard)
@@ -402,27 +473,47 @@ def shard_local(fn, args: tuple, axes: tuple, out_axes):
     one tuple of axes each) is a DTensor laid out over the same mesh axes
     for the same logical names.  Otherwise ``fn(*args)``.
 
-    Backward needs no collective either: a dim replicated here is
-    computed alike on each replica, which gets the same gradient."""
+    Backward needs no collective of its own: on a mesh axis that splits
+    no arg every replica computes alike and gets the whole gradient; an
+    arg replicated over an axis that splits another (a weight beside a
+    batch split) gets a gradient partial over it, summed by DTensor."""
     mesh, rules = _CTX.mesh, _CTX.rules
     if mesh is None or rules is None or not any(
             isinstance(a, DTensor) for a in args):
         return fn(*args)
-    by_name: dict = {}
-    local_args = []
+    # a logical name is split only as far as it divides every dim it
+    # names (query heads beside fewer KV heads)
+    common: dict = {}
     for a, ax in zip(args, axes):
-        spec = fitted_spec(tuple(a.shape), ax, mesh, rules)
+        for n, name in zip(a.shape, ax):
+            if name is not None:
+                common[name] = math.gcd(common.get(name, 0), n)
+    by_name: dict = {}
+    fitted = []
+    for a, ax in zip(args, axes):
+        fit = tuple(common[name] if name is not None else n
+                    for n, name in zip(a.shape, ax))
+        spec = fitted_spec(fit, ax, mesh, rules)
         for name, part in zip(ax, spec):
             if name is not None and by_name.setdefault(name, part) != part:
                 raise ValueError(f"logical axis {name!r} is laid out both "
                                  f"as {by_name[name]} and as {part}")
-        local_args.append(take_local(a, spec, mesh))
+        fitted.append(spec)
+    split = set().union(*(_axes_of(spec) for spec in fitted))
+    local_args = [take_local(a, spec, mesh, split - _axes_of(spec))
+                  for a, spec in zip(args, fitted)]
     out = fn(*local_args)
     if isinstance(out, tuple):
         return tuple(
             from_local(o, P(*(by_name.get(n) for n in ax)), mesh)
             for o, ax in zip(out, out_axes))
     return from_local(out, P(*(by_name.get(n) for n in out_axes)), mesh)
+
+
+def _axes_of(spec: P) -> set:
+    return {a for part in spec
+            for a in (part if isinstance(part, tuple) else (part,))
+            if a is not None}
 
 
 def from_local(t: torch.Tensor, spec: P, mesh) -> DTensor:
@@ -438,3 +529,26 @@ def from_local(t: torch.Tensor, spec: P, mesh) -> DTensor:
                               run_check=False, shape=torch.Size(shape),
                               stride=torch.empty(shape, device="meta")
                               .stride())
+
+
+def shard_start(x: DTensor, dim: int) -> tuple[int, int]:
+    """(first index, length) along ``dim`` of this rank's shard of the
+    DTensor ``x``: each mesh dim that shards ``dim`` cuts this rank's part
+    into equal parts, in the mesh's order, as DTensor nests them."""
+    mesh = x.device_mesh
+    start, length = 0, x.shape[dim]
+    for p, size, c in zip(x.placements, mesh.shape, mesh.get_coordinate()):
+        if p.is_shard(dim):
+            length //= size
+            start += c * length
+    return start, length
+
+
+def spec_of(x: DTensor) -> P:
+    """The spec a DTensor is laid out as: each dim's sharding mesh axes,
+    in the mesh's order."""
+    parts: list[list] = [[] for _ in range(x.dim())]
+    for name, p in zip(x.device_mesh.mesh_dim_names, x.placements):
+        if p.is_shard():
+            parts[p.dim].append(name)
+    return P(*(_part(tuple(q)) for q in parts))

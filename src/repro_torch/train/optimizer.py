@@ -94,7 +94,11 @@ def _zip_map(fn, tree, *others, stacked: bool = False):
 def adamw_init(params, cfg: AdamWConfig) -> dict:
     def one(p, ref_ndim):
         z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        return quantize(z) if cfg.eight_bit and ref_ndim >= 2 else z
+        if not (cfg.eight_bit and ref_ndim >= 2):
+            return z
+        if p.device.type == "meta":  # shapes only (``abstract_state``)
+            return {"q": z.to(torch.int8), "scale": z[..., :1]}
+        return quantize(z)
 
     dev = next(leaves(params)).device
     return {

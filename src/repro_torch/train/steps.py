@@ -22,6 +22,8 @@ State layout: ``{"params": ..., "opt": adamw state, "step": int32
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
@@ -235,15 +237,31 @@ def _pod_mean(v, group, n: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
+def _on_mesh():
+    """Under an active mesh, plain tensors (positions, masks, a batch's
+    tokens) join DTensors as replicated; else nothing."""
+    if sh.active_mesh() is None:
+        return contextlib.nullcontext()
+    return implicit_replication()
+
+
 def serve_prefill(params, batch: dict, cfg: ModelConfig):
-    return model.prefill(params, batch, cfg)
+    """The prompt's forward pass: → (last-position logits (B,V), caches).
+    Under ``use_mesh`` the params may be DTensors (``fitted_shardings``)."""
+    with _on_mesh():
+        return model.prefill(params, batch, cfg)
 
 
 def serve_step(params, caches, token, pos: int, cfg: ModelConfig):
     """One decode step; greedy next token (the first maximum).
-    → (next_token (B,1) int32, logits (B,V), caches updated in place)."""
-    logits, caches = model.decode_step(params, caches, token, pos, cfg)
-    nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    → (next_token (B,1) int32, logits (B,V), caches updated in place).
+    Under ``use_mesh`` the params and caches may be DTensors; a cache
+    split along its sequence is written only by the rank that holds
+    ``pos``."""
+    with _on_mesh():
+        logits, caches = model.decode_step(params, caches, token, pos, cfg)
+        nxt = torch.argmax(sh.batch_only(logits), dim=-1).to(
+            torch.int32)[:, None]
     return nxt, logits, caches
 
 

@@ -353,3 +353,109 @@ def compress_ranks(rank, world, leaves_np: dict, n_steps: int):
             losses.append(float(m["loss"]))
         out["compressed" if compress else "plain"] = losses
     return out
+
+
+# ---------------------------------------------------------------------------
+# 4 or 8 ranks: a model axis of 4 that does not divide 2 KV heads
+# ---------------------------------------------------------------------------
+UNEVEN_ARCHS = {"starcoder2-3b": {},
+                "qwen3-moe-235b-a22b": {"capacity_factor": 8.0},
+                "mamba2-780m": {}}
+DECODE_STEPS, DECODE_SEQ = 4, 8
+
+
+def uneven_ranks(rank, world, mesh_shape):
+    """For each UNEVEN_ARCHS config at ``reduced()`` on a (data, model)
+    mesh of ``mesh_shape``: two train steps through ``jit_train_step``,
+    prefill and DECODE_STEPS decode steps (``serve_step`` on caches of
+    DECODE_SEQ positions, split along the sequence over ``model``) on
+    DTensors placed by ``fitted_shardings`` under each shape's rules; on
+    rank 0 the same on one device.  → per arch the losses, the params
+    after the steps, the prefill logits and each decode step's logits and
+    tokens, whole."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import rules_for_shape
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import common, model
+    from repro_torch.sharding import specs as sh
+    from repro_torch.train import steps
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import ScheduleConfig
+
+    mesh = _mesh(mesh_shape)
+    out = {}
+    for arch, over in UNEVEN_ARCHS.items():
+        cfg = get_config(arch).reduced(**over)
+        ocfg, scfg = AdamWConfig(), ScheduleConfig(peak_lr=1e-3,
+                                                   warmup_steps=2)
+        batch = _tensors(step_batch(cfg.vocab))
+        b = batch["tokens"].shape[0]
+        params, pspecs = model.init_model(common.make_generator(0, "cpu"),
+                                          cfg)
+        res = {}
+        for sharded in (False, True):
+            if not sharded and rank != 0:
+                continue
+            r = res[sharded] = {}
+            # the train step
+            state = steps.init_train_state(common.make_generator(0, "cpu"),
+                                           cfg, ocfg)
+            if sharded:
+                step, _, ssh, bsh = steps.jit_train_step(
+                    cfg, ocfg, scfg, mesh, sh.Rules.make(), batch,
+                    BATCH_SPEC)
+                state, tb = sh.place(state, ssh), sh.place(batch, bsh)
+            else:
+                step = lambda s, bb: steps.train_step(s, bb, cfg, ocfg, scfg)
+                tb = batch
+            for _ in range(2):
+                state, m = step(state, tb)
+                r.setdefault("losses", []).append(float(sh.full(m["loss"])))
+            r["params"] = _host(state["params"])
+            # prefill, default rules
+            prompt = {"tokens": batch["tokens"]}
+            p, rules = params, None
+            if sharded:
+                rules = rules_for_shape(SHAPES["prefill_32k"])
+                p = sh.place(params, sh.fitted_shardings(params, pspecs, mesh,
+                                                         rules))
+                prompt = sh.place(prompt, sh.fitted_shardings(
+                    prompt, {"tokens": ("batch", None)}, mesh, rules))
+            with _on(mesh, rules):
+                logits, _ = steps.serve_prefill(p, prompt, cfg)
+            r["prefill"] = sh.full(logits).numpy()
+            # decode over caches split along the sequence
+            caches, cspecs = model.init_caches(cfg, b, DECODE_SEQ, "cpu")
+            token = batch["tokens"][:, :1]
+            if sharded:
+                rules = rules_for_shape(SHAPES["decode_32k"])
+                p = sh.place(params, sh.fitted_shardings(params, pspecs, mesh,
+                                                         rules))
+                caches = sh.place(caches, sh.fitted_shardings(
+                    caches, cspecs, mesh, rules))
+                tsh = sh.fitted_shardings({"t": token}, {"t": (
+                    "batch", None)}, mesh, rules)
+            for pos in range(DECODE_STEPS):
+                t = sh.place({"t": token}, tsh)["t"] if sharded else token
+                with _on(mesh, rules):
+                    nxt, logits, caches = steps.serve_step(p, caches, t, pos,
+                                                           cfg)
+                r.setdefault("decode", []).append(sh.full(logits).numpy())
+                token = sh.full(nxt)
+                r.setdefault("tokens", []).append(token.numpy())
+            r["caches"] = _host(caches)
+        out[arch] = res
+    torch.distributed.barrier()
+    return out
+
+
+def _on(mesh, rules):
+    """``use_mesh(mesh, rules)``, or nothing without rules."""
+    import contextlib
+
+    from repro_torch.sharding import specs as sh
+
+    return contextlib.nullcontext() if rules is None else sh.use_mesh(
+        mesh, rules)

@@ -1231,12 +1231,96 @@ def nccl_group():
     dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "grok-1-314b"])
+def _same_bits(a, b) -> bool:
+    """Equal bit for bit (the sign of a zero too)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    a, b = a.contiguous(), b.contiguous()
+    if a.is_floating_point():
+        a, b = (t.view(ints[t.element_size()]) for t in (a, b))
+    return torch.equal(a, b)
+
+
+MOE_ARCHS = ["qwen3-moe-235b-a22b", "grok-1-314b"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_moe_repeats_bitwise_with_default_algorithms(nccl_group, arch,
+                                                     compute):
+    """The EP (qwen3-moe) and ff (grok) layers at ``reduced()``, forward
+    and backward twice each through ``_moe_local`` and through the
+    sharded body under a (1, 1) mesh (real NCCL calls), with default
+    algorithms: y, aux and the grads of every weight and of the input
+    repeat bit for bit, and the two bodies agree bit for bit (the
+    dispatch's backward and the combine sum each token's k rows in a
+    fixed order; nothing accumulates with atomics)."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import mlp
+    from repro_torch.sharding import specs as sh
+
+    dev = nccl_group
+    cfg = get_config(arch).reduced(capacity_factor=2.0,
+                                   compute_dtype=compute)
+    params, _ = mlp.init_moe(lm_common.make_generator(0, dev), cfg)
+    x = torch.randn((8, 64, cfg.d_model), device=dev,
+                    generator=lm_common.make_generator(1, dev)).to(
+        lm_common.cdtype(cfg))
+    mesh = make_smoke_mesh(1, 1, device=dev)
+
+    def run(sharded):
+        ps = {k: v.detach().requires_grad_() for k, v in params.items()}
+        xx = x.detach().requires_grad_()
+        if sharded:
+            with sh.use_mesh(mesh, sh.Rules.make()):
+                y, aux = mlp.moe_forward(ps, xx, cfg)
+        else:
+            y, aux = mlp._moe_local(ps, xx.reshape(-1, cfg.d_model), cfg)
+            y = y.reshape(x.shape)
+        g = torch.autograd.grad((y.float() ** 2).mean() + aux,
+                                list(ps.values()) + [xx])
+        return [y.detach(), aux.detach(), *g]
+
+    runs = [run(False), run(False), run(True), run(True)]
+    for got in runs[1:]:
+        for a, b in zip(runs[0], got):
+            assert torch.isfinite(b.float()).all() and _same_bits(a, b)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_train_step_repeats_bitwise(arch):
+    """One train step of the reduced MoE model (bf16 compute) from one
+    state, twice on the card with default algorithms: every leaf of the
+    new state and every metric equal bit for bit."""
+    from repro_torch.train import steps as lm_steps
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import ScheduleConfig
+
+    dev = _cuda()
+    cfg = get_config(arch).reduced(compute_dtype="bfloat16")
+    ocfg = AdamWConfig(eight_bit=cfg.opt_8bit)
+    scfg = ScheduleConfig(peak_lr=1e-3, warmup_steps=0)
+    rng = np.random.default_rng(0)
+    t = torch.from_numpy(rng.integers(0, cfg.vocab, (8, 65)).astype(
+        np.int32)).to(dev)
+    batch = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    out = []
+    for _ in range(2):
+        st = lm_steps.init_train_state(lm_common.make_generator(0, dev),
+                                       cfg, ocfg)
+        st, m = lm_steps.train_step(st, batch, cfg, ocfg, scfg)
+        out.append((list(lm_model.leaves(st)), m))
+    (s0, m0), (s1, m1) = out
+    assert all(_same_bits(m0[k], m1[k]) for k in m0)
+    assert all(_same_bits(a, b) for a, b in zip(s0, s1))
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_sharded_body_on_one_nccl_rank_equals_local(nccl_group, arch):
     """The EP (qwen3-moe) and ff (grok) bodies under a (1, 1) mesh, their
     collectives real NCCL calls, equal ``_moe_local`` bitwise, with
-    grads, both run with deterministic algorithms (the combine's
-    index_add is atomic otherwise)."""
+    grads, with default algorithms."""
     from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.models import mlp
     from repro_torch.sharding import specs as sh
@@ -1260,11 +1344,7 @@ def test_moe_sharded_body_on_one_nccl_rank_equals_local(nccl_group, arch):
                                 list(ps.values()))
         return y, aux, g
 
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        (y0, a0, g0), (y1, a1, g1) = run(False), run(True)
-    finally:
-        torch.use_deterministic_algorithms(False)
+    (y0, a0, g0), (y1, a1, g1) = run(False), run(True)
     assert torch.equal(y0, y1) and torch.equal(a0, a1)
     for a, b in zip(g0, g1):
         assert torch.isfinite(b).all() and torch.equal(a, b)
@@ -1301,3 +1381,54 @@ def test_compressed_step_on_one_nccl_rank(nccl_group):
         out[compress] = float(m["loss"])
         assert torch.count_nonzero(st["opt"]["m"]["head"]) > 0
     assert np.isfinite(out[True]) and out[True] == out[False]
+
+
+# ---------------------------------------------------------------------------
+# the dry-run tier: fake CUDA tensors on a CUDA build
+# ---------------------------------------------------------------------------
+_DRYRUN_REDUCED = """
+import json, sys
+from repro_torch import configs
+from repro_torch.configs import base
+from repro_torch.launch import dryrun, shapes
+
+arch, shape = sys.argv[1], sys.argv[2]
+configs.ARCHS[arch] = configs.ARCHS[arch].reduced()
+shapes.SHAPES = dict(shapes.SHAPES, **{
+    shape: base.InputShape(shape, 64, 8, shapes.SHAPES[shape].kind)})
+rec = dryrun.run_cell(arch, shape, False, device="cuda", mesh_shape=(2, 2))
+print(json.dumps(rec))
+"""
+
+
+@pytest.mark.parametrize("arch,shape", [("qwen3-moe-235b-a22b", "train_4k"),
+                                        ("mamba2-780m", "decode_32k")])
+def test_dryrun_of_a_reduced_cell_with_fake_cuda_tensors(arch, shape):
+    """``dryrun.run_cell`` with ``device="cuda"`` for a reduced cell on a
+    fake (2, 2) mesh, in a subprocess (a fake group of its own): the
+    record's memory account, cost and inventory are filled, the argument
+    bytes equal ``argument_bytes`` of the same cell, and the card's
+    memory is untouched by the fake tensors."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    dev = _cuda()
+    root = Path(__file__).resolve().parent.parent
+    before = torch.cuda.memory_allocated(dev)
+    r = subprocess.run([sys.executable, "-c", _DRYRUN_REDUCED, arch, shape],
+                       cwd=root, capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert r.returncode == 0, r.stderr[-3000:]
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    assert rec["device"] == "cuda" and rec["mesh"] == {"data": 2, "model": 2}
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] > 0 and mem["temp_size_in_bytes"] > 0
+    assert rec["peak_bytes"] == (mem["argument_size_in_bytes"]
+                                 + mem["temp_size_in_bytes"])
+    assert rec["cost_terms"]["total_flops"] > 0
+    assert rec["cost_terms"]["direct_total_flops"] > 0
+    if shape == "train_4k":  # the EP MoE's all-to-all
+        assert rec["collectives_scanned"]["all-to-all"]["count"] > 0
+    assert torch.cuda.memory_allocated(dev) == before

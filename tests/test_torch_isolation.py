@@ -28,9 +28,11 @@ print(len(names), leaked)
 print(" ".join(names))
 """
 
-# the sharding slice's modules, each among those imported
+# the sharding and dry-run slices' modules, each among those imported
 SHARDING_MODULES = ("repro_torch.launch.mesh", "repro_torch.sharding",
                     "repro_torch.sharding.specs", "repro_torch.train.compress")
+DRYRUN_MODULES = ("repro_torch.launch.shapes", "repro_torch.launch.hlo",
+                  "repro_torch.launch.dryrun")
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -42,9 +44,10 @@ def test_port_imports_neither_jax_nor_repro():
     n_modules, leaked = out[0].split(maxsplit=1)
     # every module of the package was imported: 52 of the layout system,
     # 28 of the LM stack (configs, models, train, launch.{serve_lm,train}),
-    # 4 of sharding (launch.mesh, sharding, sharding.specs, train.compress)
-    assert int(n_modules) >= 84
-    assert set(SHARDING_MODULES) <= set(out[1].split())
+    # 4 of sharding (launch.mesh, sharding, sharding.specs, train.compress),
+    # 3 of the dry-run tier (launch.{shapes,hlo,dryrun})
+    assert int(n_modules) >= 87
+    assert set(SHARDING_MODULES + DRYRUN_MODULES) <= set(out[1].split())
     assert leaked.strip() == "[]"
 
 

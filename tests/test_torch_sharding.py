@@ -400,3 +400,77 @@ def test_moe_sharded_body_matches_local(moe_ranks, case):
             assert np.isfinite(g).all() and np.any(g != 0)
             assert np.max(np.abs(g - want)) <= MOE_GRAD_RTOL * np.max(
                 np.abs(want))
+
+
+# ---------------------------------------------------------------------------
+# 4 and 8 ranks: a model axis that does not divide the KV heads
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module", params=[(1, 4), (2, 4)],
+                ids=["data1_model4", "data2_model4"])
+def uneven_ranks(request, tmp_path_factory):
+    """``_torch_ranks.uneven_ranks`` on 4 or 8 gloo ranks: ``reduced()``'s
+    2 KV heads on a 4-way ``model`` axis, as the production meshes' 16-way
+    axis against 2 to 8 KV heads."""
+    shape = request.param
+    tmp = tmp_path_factory.mktemp("uneven")
+    return shape, ranks.run_ranks(ranks.uneven_ranks, shape[0] * shape[1],
+                                  tmp, RANKS_TIMEOUT_S, mesh_shape=shape)
+
+
+@pytest.mark.parametrize("arch", sorted(ranks.UNEVEN_ARCHS))
+def test_steps_on_a_model_axis_that_does_not_divide_the_heads(
+        uneven_ranks, arch):
+    """A dense GQA arch, the EP MoE and mamba2 on (1, 4) and (2, 4): two
+    train steps, prefill and four decode steps over sequence-split caches
+    equal the one-device port at the (2, 2) step's bounds (loss 1e-3;
+    params, logits and caches 5e-3); every rank holds the same whole
+    values and takes the same greedy tokens."""
+    shape, got = uneven_ranks
+    one = got[0][arch][False]
+    for r in got:
+        sharded = r[arch][True]
+        for a, b in zip(sharded["losses"], one["losses"]):
+            assert abs(a - b) < STEP_LOSS_ATOL
+        assert _max_abs(sharded["params"], one["params"]) < STEP_PARAM_ATOL
+        assert np.max(np.abs(sharded["prefill"] - one["prefill"])) \
+            < STEP_PARAM_ATOL
+        for a, b in zip(sharded["decode"], one["decode"]):
+            assert np.max(np.abs(a - b)) < STEP_PARAM_ATOL
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(sharded["tokens"], one["tokens"]))
+        assert _max_abs(sharded["caches"], one["caches"]) < STEP_PARAM_ATOL
+        first = got[0][arch][True]
+        assert sharded["losses"] == first["losses"]
+        assert _max_abs(sharded["params"], first["params"]) == 0
+
+
+def test_remat_recomputes_under_the_forwards_mesh(monkeypatch):
+    """A checkpointed layer group's recomputation runs under the mesh and
+    rules of its forward, also when backward runs on another thread (the
+    autograd engine's own, for CUDA tensors; ``use_mesh`` is
+    thread-local)."""
+    import threading
+
+    from repro_torch.models import transformer
+
+    cfg = get_config("qwen1.5-32b").reduced(n_layers=2)
+    params, _ = model.init_model(common.make_generator(0, "cpu"), cfg)
+    seen = []
+    slot = transformer.apply_slot
+
+    def watched(*a, **k):
+        seen.append((sh.active_mesh(), sh.active_rules()))
+        return slot(*a, **k)
+
+    monkeypatch.setattr(transformer, "apply_slot", watched)
+    tokens = torch.zeros((2, 8), dtype=torch.int32)
+    with torch.enable_grad(), sh.use_mesh("mesh", RULES):
+        x = params["tok_embed"].detach().requires_grad_()
+        logits, _, _ = transformer.decoder_forward(
+            dict(params, tok_embed=x), tokens, cfg)
+    worker = threading.Thread(target=lambda: logits.sum().backward())
+    worker.start()
+    worker.join()
+    assert x.grad is not None and sh.active_mesh() is None
+    # two groups forward, two recomputed in the backward's thread
+    assert seen == [("mesh", RULES)] * 4
