@@ -184,6 +184,17 @@ from 0, over a one-rank NCCL process group on the card:
   (1, 1) mesh: ``max_memory_allocated`` above the phase's start against
   the dry-run's predicted peak, within DRYRUN_PEAK_RATIO.
 
+Then the port's examples and its qdlint:
+
+* ``examples``: the five ``examples_torch/`` scripts (quickstart,
+  layout_rl, train_lm, serve_lm, elastic_restart) at the reduced sizes
+  of ``EXAMPLES`` (``tests/test_torch_examples.py`` runs them at the same
+  on the CPU), as subprocesses on the card in three lanes started beside the lifecycle phases; and
+  ``python -m repro_torch.analysis --self-test`` and its scan of
+  ``src/repro_torch`` against ``qdlint-torch-baseline.json`` on the host.
+  Each exits 0 (an example prints its ``<name> OK`` line); each one's exit
+  code and seconds are printed.
+
 Then it times: route and query latencies (median and spread of warm
 calls, host clock; route split into its kernel, from a trace, and the
 ids' copy back), whole-table ingests on fresh trees, one ingest under
@@ -193,8 +204,8 @@ its plain version.  It exits non-zero on the first failure, without a
 CUDA device, and when the package is not beside it.  Output, before the
 last line: the card's name and power limit, build seconds, one
 ``{"metrics": ...}`` JSON line (keys ``serve``, ``pipeline``,
-``coordinator``, ``cli``, ``lm_serve``, ``lm_train``, ``lm_shard``,
-``dryrun``, and ``phase_s`` for every phase)
+``coordinator``, ``cli``, ``examples``, ``lm_serve``, ``lm_train``,
+``lm_shard``, ``dryrun``, and ``phase_s`` for every phase)
 and one ``{"kernels": [...]}`` JSON line (launches, median CUDA-event
 time, bound, plain-version time, max difference per kernel).  The last line is ``{"ok": true, "device":
 {...}}``.  ``--rows`` cuts the row count (the only cut allowed; it is
@@ -278,6 +289,29 @@ COORD_BATCH = 1 << 18  # rows a worker routes at a time
 CLI_INGEST_ROWS, CLI_SERVE_ROWS, CLI_SERVE_S = 400_000, 30_000, 4
 CLI_TIMEOUT_S = 300  # each CLI subprocess, at most
 CLI_DEVICE_ARGS: tuple = ()  # the CLIs' default device: the GPU
+# the examples' reduced sizes (tests/test_torch_examples.py runs them at
+# these on the CPU), and the port's qdlint on the host
+EXAMPLES = {
+    "quickstart.py": ("--rows", "8000", "--queries", "40", "--min-block",
+                      "200", "--wb-iters", "1"),
+    "layout_rl.py": ("--rows", "5000", "--queries", "40", "--iters", "2"),
+    "train_lm.py": (),
+    "serve_lm.py": ("--arch", "jamba-1.5-large-398b"),
+    "elastic_restart.py": ("--steps", "6", "--ckpt-every", "2",
+                           "--fail-at", "4", "--rows", "10000"),
+}
+QDLINT = {
+    "qdlint_self_test": ("--self-test",),
+    "qdlint_scan": ("src/repro_torch", "--baseline",
+                    "qdlint-torch-baseline.json"),
+}
+EXAMPLES_TIMEOUT_S = 300  # each example, at most
+EXAMPLES_THREADS = "2"  # each example's CPU threads, beside the main path
+# three lanes, each one run after another, of about 50 s each on the card
+# (the restart demo starts two train CLIs): they end within the ~75 s of
+# the lifecycle phases they run beside
+EXAMPLE_LANES = (("elastic_restart.py",), ("quickstart.py", "train_lm.py"),
+                 ("layout_rl.py", "serve_lm.py", *QDLINT))
 # the LM serving path: two models at full width and depth, in their own
 # dtypes, at the serving CLI's defaults
 LM_FULL = ("starcoder2-3b", "mamba2-780m")
@@ -2419,6 +2453,63 @@ def cli_start(ctx) -> dict:
     return {"procs": procs, "tmp": tmp, "t0": t0}
 
 
+def examples_runs(children: list) -> dict:
+    """The examples on the card and qdlint's self-test and scan on the
+    host, in EXAMPLE_LANES: → each one's exit code, seconds and the tail
+    of its output."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": EXAMPLES_THREADS}
+    cmds = {name: [sys.executable, str(ROOT / "examples_torch" / name),
+                   *args, *CLI_DEVICE_ARGS]
+            for name, args in EXAMPLES.items()}
+    cmds.update({name: [sys.executable, "-m", "repro_torch.analysis", *args]
+                 for name, args in QDLINT.items()})
+    out = {}
+
+    def lane(names):
+        for name in names:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmds[name], cwd=ROOT, env=env, text=True,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE)
+            children.append(proc)
+            try:
+                stdout, stderr = proc.communicate(timeout=EXAMPLES_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+            out[name] = {"rc": proc.returncode,
+                         "s": time.perf_counter() - t0,
+                         "stdout": stdout[-1500:], "stderr": stderr[-1500:]}
+
+    with ThreadPoolExecutor(len(EXAMPLE_LANES)) as lanes:
+        list(lanes.map(lane, EXAMPLE_LANES))
+    return {name: out[name] for name in cmds}
+
+
+def examples_phase(ctx) -> dict:
+    """The runs of ``examples_runs`` (``ctx["examples_job"]``): every
+    example exits 0 with its ``OK`` line, qdlint's self-test passes and
+    its scan of the port finds nothing."""
+    t0 = time.perf_counter()
+    runs = ctx["examples_job"].result(
+        timeout=EXAMPLES_TIMEOUT_S * max(map(len, EXAMPLE_LANES)))
+    wait_s = time.perf_counter() - t0
+    for name, r in runs.items():
+        require(r["rc"] == 0, f"{name} exited {r['rc']}: {r['stderr']}")
+        log(f"{name}: exit {r['rc']} in {r['s']:.2f}s")
+    for name in EXAMPLES:
+        require(f"{name[:-3]} OK" in runs[name]["stdout"],
+                f"{name} printed no OK line: {runs[name]['stdout']}")
+    require("[qdlint self-test] PASS" in runs["qdlint_self_test"]["stdout"],
+            f"qdlint self-test: {runs['qdlint_self_test']['stdout']}")
+    require("qdlint: 0 finding(s)" in runs["qdlint_scan"]["stdout"],
+            f"qdlint scan: {runs['qdlint_scan']['stdout']}")
+    return {"wait_s": wait_s,
+            "runs": {k: {"rc": r["rc"], "s": r["s"]}
+                     for k, r in runs.items()}}
+
+
 def cli_phase(ctx, started: dict) -> dict:
     """The command lines of ``cli_start``: each exits 0 and its summary
     line shows no stale response, no plan built while serving and a swap
@@ -4012,6 +4103,11 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     # both CLIs run in their own processes beside the phases up to
     # cli_phase, which reads them (their launches are their own)
     cli_started = cli_start(ctx)
+    # the examples and qdlint, in their lanes beside the phases up to
+    # examples_phase, which reads them
+    ex_pool = ThreadPoolExecutor(1)
+    ctx["examples_job"] = ex_pool.submit(examples_runs, children)
+    ex_pool.shutdown(wait=False)
     t0 = time.perf_counter()
     woodblock = woodblock_phase(ctx, counted)
     phase_s["woodblock"] = time.perf_counter() - t0
@@ -4032,6 +4128,9 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     t0 = time.perf_counter()
     cli = cli_phase(ctx, cli_started)
     phase_s["cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    examples = examples_phase(ctx)
+    phase_s["examples"] = time.perf_counter() - t0
     # -- the LM serving path, counted from 0 ---------------------------------
     t0 = time.perf_counter()
     lm = lm_serve_phase(ctx, counted)
@@ -4166,7 +4265,7 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
         "block_store": store, "autotune": tuned, "baselines": baselines,
         "woodblock": woodblock, "service": service, "serve": serve,
         "pipeline": pipeline, "coordinator": fleet, "cli": cli,
-        "lm_serve": lm, "lm_train": lm_train, "lm_shard": lm_shard,
+        "examples": examples, "lm_serve": lm, "lm_train": lm_train, "lm_shard": lm_shard,
         "dryrun": dryrun, "phase_s": phase_s,
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         "total_s": time.perf_counter() - t_start,

@@ -27,6 +27,8 @@ there is no validity mask.
 
 from __future__ import annotations
 
+# qdlint: deterministic-module
+
 import contextlib
 from typing import Optional
 

@@ -19,6 +19,8 @@ to a word.
 
 from __future__ import annotations
 
+# qdlint: deterministic-module
+
 import torch
 
 from repro_torch.kernels import _build

@@ -21,6 +21,8 @@ records' device (:func:`repro_torch.engine.plan.to_device`);
 
 from __future__ import annotations
 
+# qdlint: deterministic-module
+
 import contextlib
 from typing import Optional
 

@@ -161,7 +161,10 @@ def trace(cell, mesh, device: str) -> dict:
     return {"memory": mem, "peak_bytes": arg_b + rec.peak,
             "cost": hlo.cost_dict(rec),
             "fused_bytes": hlo.fused_bytes_estimate(rec),
-            "collectives": hlo.parse_collectives(rec), "ops": rec.ops}
+            "collectives": hlo.parse_collectives(rec), "ops": rec.ops,
+            "largest_live": [
+                {"op": op, "shape": list(shape), "dtype": dtype, "bytes": n}
+                for n, op, shape, dtype in rec.largest_live]}
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -217,6 +220,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                 collectives_scanned=full["collectives"],
                 hlo_bytes=None,  # no HLO: ``ops`` counts the dispatched ops
                 ops=full["ops"],
+                largest_live=full["largest_live"],
             )
 
         # ---- per-step cost terms via 1g/2g extrapolation ----------------

@@ -23,7 +23,10 @@ mode.  From them it records:
   * ``fused_bytes``: those bytes for the ops that ``_MEM_OPS`` names, the
     ones that still touch memory after fusion (``fused_bytes_estimate``);
   * live bytes: each op's new outputs from their allocation until their
-    storage is freed, and the peak (the dry-run's ``temp_size``).
+    storage is freed, and the peak (the dry-run's ``temp_size``);
+    ``largest_live``, the ``LARGEST_LIVE`` largest of the storages live at
+    the peak (within ``LARGEST_LIVE_SLACK`` of it), each with the op that
+    made it, its shape and dtype: what holds a cell's memory.
 
 How it differs from XLA's figures: no fusion, so ``bytes accessed``
 counts every elementwise intermediate; FLOPs count only the ops with a
@@ -35,6 +38,7 @@ DTensor chose, not XLA's, and their algorithms' constants are left out.
 
 from __future__ import annotations
 
+import heapq
 import sys
 import weakref
 
@@ -52,6 +56,9 @@ DTYPE_BYTES = {
     "s64": 8, "u64": 8, "f64": 8, "c64": 8,
     "c128": 16,
 }
+
+LARGEST_LIVE = 12
+LARGEST_LIVE_SLACK = 1.005  # a new peak this far over the last snapshot
 
 COLLECTIVES = (
     "all-reduce",
@@ -163,25 +170,36 @@ class StepRecorder(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self.ops = 0
+        self.largest_live: list = []
         self._seen = weakref.WeakSet()
+        self._live: dict = {}  # id(storage) → (bytes, op, shape, dtype)
+        self._snap = 0
 
-    def _free(self, n: int) -> None:
+    def _free(self, key: int, n: int) -> None:
         self.live -= n
+        self._live.pop(key, None)
 
-    def _allocated(self, inputs: list, out) -> None:
+    def _allocated(self, func, inputs: list, out) -> None:
         """Each new storage among ``out`` counts as live until it is
         freed; an output that is an input (in place, or an alias) or was
-        seen before does not."""
+        seen before does not, nor one on the ``meta`` device (a shape
+        only: ``specs.from_local`` makes one for its strides)."""
         given = {id(t.untyped_storage()) for t in inputs}
         for t in _tensors(out):
             st = t.untyped_storage()
-            if id(st) in given or st in self._seen:
+            if id(st) in given or st in self._seen or t.is_meta:
                 continue
             self._seen.add(st)
             n = st.nbytes()
             self.live += n
+            self._live[id(st)] = (n, func._overloadpacket.__name__,
+                                  tuple(t.shape), str(t.dtype))
             self.peak = max(self.peak, self.live)
-            weakref.finalize(st, self._free, n)
+            if self.live > self._snap * LARGEST_LIVE_SLACK:
+                self._snap = self.live
+                self.largest_live = heapq.nlargest(
+                    LARGEST_LIVE, self._live.values(), key=lambda e: e[0])
+            weakref.finalize(st, self._free, id(st), n)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
@@ -208,7 +226,7 @@ class StepRecorder(TorchDispatchMode):
         self.bytes += moved
         if coll is not None or func._overloadpacket.__name__ in _MEM_OPS:
             self.fused_bytes += moved
-        self._allocated(_tensors((args, kwargs)), out)
+        self._allocated(func, _tensors((args, kwargs)), out)
         return out
 
 

@@ -17,8 +17,12 @@ it is viewed as heads (``specs.unflatten_last``, ``merge_dims``: a
 ``model`` axis that does not divide the heads leaves them whole, where the
 reference's partitioner pads); attention's core runs on each rank's batch
 rows and KV heads (``shard_local``), the query heads split as the KV heads
-are; decode on DTensor caches writes and attends on each rank's shard of
-the sequence (``_decode_sharded``).
+are, where the ``model`` axis divides the KV heads; where it does not, on
+each rank's batch rows and ``ceil(h / model)`` query heads, with the KV
+heads they read repeated and the last ranks padded with zero heads
+(``_split_query_heads``, as the reference's partitioner splits them);
+decode on DTensor caches writes and attends on each rank's shard of the
+sequence (``_decode_sharded``).
 """
 
 from __future__ import annotations
@@ -195,17 +199,88 @@ def attn_forward(params, x, positions, cfg: ModelConfig, causal: bool = True,
         return core(_group_q(q, k.shape[2]), k, v, q_pos, k_pos).reshape(
             q.shape)
 
-    # under a mesh, on each rank's batch rows and KV heads (no DTensor
-    # einsum rules for these layouts), the query heads split as the KV
-    # heads are
-    heads, pos = ("batch", None, "kv_heads", None), ("batch", None)
-    out = shard_local(grouped, (q, k, v, positions, kv_positions),
-                      (heads, heads, heads, pos, pos), heads)
+    split = _query_head_split(q, k)
+    if split is None:
+        # under a mesh whose head axes divide the KV heads, on each rank's
+        # batch rows and KV heads (no DTensor einsum rules for these
+        # layouts), the query heads split as the KV heads are
+        heads, pos = ("batch", None, "kv_heads", None), ("batch", None)
+        out = shard_local(grouped, (q, k, v, positions, kv_positions),
+                          (heads, heads, heads, pos, pos), heads)
+    else:
+        out = _split_query_heads(core, q, k, v, positions, kv_positions,
+                                 *split)
     out = wsc(out, Q_AXES)
     y = _out_proj(out, params["wo"], common.cdtype(cfg))
     if return_kv:
         return y, (k.transpose(1, 2), v.transpose(1, 2))
     return y
+
+
+def _query_head_split(q, k):
+    """Under a mesh whose ``heads`` axes do not divide the KV heads:
+    (those axes, the ranks along them, this rank's index along them);
+    else None (no mesh, one rank along them, or KV heads that divide)."""
+    mesh, rules = sh.active_mesh(), sh.active_rules()
+    if mesh is None or rules is None or not isinstance(q, sh.DTensor):
+        return None
+    sizes = sh.axis_sizes(mesh)
+    batch = sh.fitted_spec((q.shape[0],), ("batch",), mesh, rules)
+    axes = tuple(a for a in rules.lookup("heads") or ()
+                 if a in sizes and a not in sh.axes_of(batch))
+    m = math.prod(sizes[a] for a in axes)
+    if m == 1 or k.shape[2] % m == 0:
+        return None
+    return axes, m, sh.axes_index(mesh, axes)
+
+
+def _split_query_heads(core, q, k, v, q_pos, k_pos, axes, m, index):
+    """Attention's core on this rank's batch rows and its ``ceil(h / m)``
+    query heads, for a mesh whose ``m`` ranks along the ``heads`` axes do
+    not divide the KV heads: each rank takes the KV heads its query heads
+    read, repeated once for each of them (the repeat's backward sums their
+    gradients back onto the KV heads), and runs them as ``ceil(h / m)``
+    groups of one.  Where ``m`` does not divide the query heads either,
+    the last ranks' heads are padded with zero heads (a zero query over
+    zero values gives zeros), and the padding is sliced off the gathered
+    output, so it takes no gradient.  → (B, S, H, hd)."""
+    mesh, rules = sh.active_mesh(), sh.active_rules()
+    h, kv = q.shape[2], k.shape[2]
+    rep, hl = h // kv, -(-h // m)
+    q_split = h % m == 0
+    head = sh.axes_part(axes)
+    batch = sh.fitted_spec(tuple(q_pos.shape), ("batch", None), mesh,
+                           rules)[0]
+    q_spec = sh.P(batch, None, head if q_split else None, None)
+    kv_spec, pos_spec = sh.P(batch, None, None, None), sh.P(batch, None)
+    split = sh.axes_of(q_spec) | set(axes)
+    q0 = index * hl
+    n = max(0, min(q0 + hl, h) - q0)  # this rank's real query heads
+    g0 = q0 // rep
+    g1 = (q0 + n - 1) // rep + 1 if n else g0
+
+    def rank_heads(x):  # (b, t, kv, hd) → the KV head of each query head
+        b, t, _, hd = x.shape
+        x = x[:, :, g0:g1, None].expand(b, t, g1 - g0, rep, hd)
+        x = x.reshape(b, t, (g1 - g0) * rep, hd)[:, :, q0 - g0 * rep:][
+            :, :, :n]
+        return torch.nn.functional.pad(x, (0, 0, 0, hl - n))
+
+    def local(ql, kl, vl, qp, kp):
+        if not q_split:
+            ql = torch.nn.functional.pad(ql[:, :, q0:q0 + n],
+                                         (0, 0, 0, hl - n))
+        kl, vl = rank_heads(kl), rank_heads(vl)
+        return core(_group_q(ql, hl), kl, vl, qp, kp).reshape(ql.shape)
+
+    args = [sh.take_local(a, spec, mesh, split - sh.axes_of(spec))
+            for a, spec in ((q, q_spec), (k, kv_spec), (v, kv_spec),
+                            (q_pos, pos_spec), (k_pos, pos_spec))]
+    out = sh.from_local(local(*args), sh.P(batch, None, head, None), mesh)
+    if hl * m == h:
+        return out
+    whole = sh.placements(sh.P(batch, None, None, None), mesh)
+    return out.redistribute(mesh, whole)[:, :, :h]
 
 
 def _cached_attention(qg, k_cache, v_cache, cfg: ModelConfig, mask=None):

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.plan import resolve_device
+from repro_torch.sharding import specs as sh
 from repro_torch.sharding.specs import batch_only, shard_local
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -99,6 +100,80 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 # ---------------------------------------------------------------------------
 # cross-entropy (fp32, label smoothing-free, z-loss optional)
 # ---------------------------------------------------------------------------
+def _vocab_split(logits):
+    """Under a mesh whose ``vocab`` axes have more than one rank: (the
+    mesh, the logits' fitted spec, those axes); else None.  Where the
+    axes do not divide the vocab the fitted spec leaves it whole, and
+    each rank takes its ceil(V / ranks) share of it
+    (``_vocab_parallel_nll``), unless some rank's share would be empty."""
+    mesh, rules = sh.active_mesh(), sh.active_rules()
+    if mesh is None or rules is None or not isinstance(logits, sh.DTensor):
+        return None
+    spec = sh.fitted_spec(tuple(logits.shape), ("batch", None, "vocab"),
+                          mesh, rules)
+    sizes = sh.axis_sizes(mesh)
+    vocab = sh.axes_of(sh.P(spec[2])) or set(rules.lookup("vocab") or ())
+    axes = tuple(a for a in mesh.mesh_dim_names
+                 if a in vocab and sizes[a] > 1
+                 and a not in sh.axes_of(sh.P(spec[0])))
+    ranks, v = math.prod(sizes[a] for a in axes), logits.shape[-1]
+    if not axes or (ranks - 1) * -(-v // ranks) >= v:
+        return None
+    return mesh, spec, axes
+
+
+class _VocabSum(torch.autograd.Function):
+    """Sum over the ranks that split the vocab, for a result every one of
+    them holds whole (replicated): the backward passes each rank's
+    gradient through, since each rank's part enters the sum once."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        y = x.clone()
+        for g in groups:
+            torch.distributed.all_reduce(y, group=g)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _vocab_parallel_nll(logits, labels, mesh, spec, axes):
+    """(logsumexp, nll) over the vocab's ranks, the reference's layout:
+    each rank reduces its own vocab slice (max, sum of exps, the label's
+    logit where its slice holds the label) and the parts are summed over
+    the vocab's ranks, so no rank holds the whole vocab in float32.  Each
+    rank works on its batch rows; both results are laid out over them and
+    replicated over the vocab's axes."""
+    groups = [mesh.get_group(a) for a in axes]
+    rows = sh.P(spec[0], None)
+    index = sh.axes_index(mesh, axes)
+    if spec[2] is not None:  # the logits split along the vocab
+        lg = sh.take_local(logits, spec, mesh).float()
+        v0 = index * lg.shape[-1]
+    else:  # whole on every rank: each takes its share, its grad partial
+        share = -(-logits.shape[-1] // math.prod(
+            sh.axis_sizes(mesh)[a] for a in axes))
+        v0 = index * share
+        lg = sh.take_local(logits, spec, mesh, set(axes))[
+            ..., v0:v0 + share].float()
+    y = sh.take_local(labels, rows, mesh)
+    width = lg.shape[-1]
+    m = lg.detach().amax(dim=-1)
+    for g in groups:
+        torch.distributed.all_reduce(m, torch.distributed.ReduceOp.MAX,
+                                     group=g)
+    se = _VocabSum.apply(torch.exp(lg - m[..., None]).sum(dim=-1), groups)
+    lse = torch.log(se) + m
+    off = y.long() - v0
+    mine = (off >= 0) & (off < width)
+    hit = torch.gather(lg, -1, off.clamp(0, width - 1)[..., None])[..., 0]
+    ll = _VocabSum.apply(torch.where(mine, hit, 0.0), groups)
+    return (sh.from_local(lse, rows, mesh),
+            sh.from_local(lse - ll, rows, mesh))
+
+
 def softmax_cross_entropy(logits, labels, weights=None,
                           z_loss_coef: float = 1e-4):
     """logits (..., V) any dtype → fp32 loss; returns (loss, mean_nll).
@@ -106,17 +181,21 @@ def softmax_cross_entropy(logits, labels, weights=None,
     ``weights`` (same shape as labels) masks positions (e.g. VLM image
     slots); the mean is over the weighted token count.
     """
-    # under a mesh: the label gather has no DTensor rule over a vocab
-    # split or a partial sum, and its backward's scatter none over a batch
-    # split (every rank would scatter the whole batch): both on each
-    # rank's rows
-    lg = batch_only(logits).float()
-    lse = torch.logsumexp(lg, dim=-1)
-    ll = shard_local(
-        lambda lg, y: torch.gather(lg, -1, y[..., None].long())[..., 0],
-        (lg, labels), (("batch", None, None), ("batch", None)),
-        ("batch", None))
-    nll = lse - ll
+    split = _vocab_split(logits)
+    if split is not None:
+        lse, nll = _vocab_parallel_nll(logits, labels, *split)
+    else:
+        # under a mesh whose axes do not split the vocab: the label gather
+        # has no DTensor rule over a partial sum, and its backward's
+        # scatter none over a batch split (every rank would scatter the
+        # whole batch): both on each rank's rows
+        lg = batch_only(logits).float()
+        lse = torch.logsumexp(lg, dim=-1)
+        ll = shard_local(
+            lambda lg, y: torch.gather(lg, -1, y[..., None].long())[..., 0],
+            (lg, labels), (("batch", None, None), ("batch", None)),
+            ("batch", None))
+        nll = lse - ll
     z = z_loss_coef * (lse ** 2)
     if weights is None:
         return nll.mean() + z.mean(), nll.mean()

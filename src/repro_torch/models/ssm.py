@@ -163,7 +163,7 @@ def _conv1d_causal(xbc, w, bias):
     k = w.shape[0]
     pad = F.pad(xbc, (0, 0, k - 1, 0))
     s = xbc.shape[1]
-    out = torch.zeros(xbc.shape, dtype=torch.float32, device=xbc.device)
+    out = torch.zeros_like(xbc, dtype=torch.float32)  # laid out as xbc
     for i in range(k):
         out = out + pad[:, i:i + s, :].float() * w[i].float()
     return (out + bias.float()).to(xbc.dtype)
@@ -190,7 +190,8 @@ def mamba_forward(params, x, cfg: ModelConfig, init_state=None):
     z, xbc, dt = _split_proj(proj, cfg)
     k = cfg.ssm_conv
     if s >= k - 1:
-        conv_tail = xbc[:, s - (k - 1):, :]
+        # a copy: a view would hold the whole projection alive as a cache
+        conv_tail = xbc[:, s - (k - 1):, :].clone()
     else:
         conv_tail = F.pad(xbc, (0, 0, k - 1 - s, 0))
     xbc = sh.batch_only(_conv1d_causal(xbc, params["conv_w"],

@@ -8,7 +8,9 @@ slot specs, repeated ``n_groups`` times.  The reference stacks each slot's
 leaves on a leading ``n_groups`` axis for one ``lax.scan``; the port keeps
 one dict a group, ``params["layers"][g]["slot{j}"]``, and loops over the
 groups.  Decode caches keep the reference's stacked layout (a leading
-``n_groups`` axis a slot), and decode writes them in place.
+``n_groups`` axis a slot): prefill writes each group's into them as the
+group ends (the reference's scan writes its stacked output directly),
+and decode writes them in place.
 
 With ``cfg.remat`` set and grad mode on, each layer group's body runs
 under ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
@@ -29,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, mlp, ssm
 from repro_torch.models.common import dense_init, split_tree
+from repro_torch.sharding import specs as sh
 from repro_torch.sharding.specs import logical_constraint as wsc
 from repro_torch.sharding.specs import recompute_context, replicate
 
@@ -170,11 +173,28 @@ def apply_slot(p, spec: SlotSpec, x, positions, cfg: ModelConfig,
     return x, aux, cache
 
 
-def _stack_caches(per_group: list):
-    """[{slot: {name: t}}] a group → {slot: {name: (n_groups, ...)}}."""
-    return {slot: {name: torch.stack([g[slot][name] for g in per_group])
-                   for name in c}
-            for slot, c in per_group[0].items()}
+def _stacked_like(t, n: int):
+    """An empty (n, *t.shape) tensor, laid out as ``t`` along its last
+    dims (a DTensor's leading dim whole)."""
+    if not isinstance(t, sh.DTensor):
+        return t.new_empty((n,) + tuple(t.shape))
+    shard = sh.local(t)
+    return sh.from_local(shard.new_empty((n,) + tuple(shard.shape)),
+                         sh.P(None, *sh.spec_of(t)), t.device_mesh)
+
+
+def _stack_into(stacked, i: int, caches) -> None:
+    """Group ``i``'s caches written into their slot of the stacked ones
+    (as ``torch.stack`` of every group's would give, without holding
+    every group's caches and their stack at once)."""
+    for slot, c in caches.items():
+        for name, t in c.items():
+            buf = stacked[slot][name]
+            if isinstance(buf, sh.DTensor):
+                t = sh.as_dtensor(t, buf.device_mesh).redistribute(
+                    buf.device_mesh, sh.placements(
+                        sh.P(*sh.spec_of(buf)[1:]), buf.device_mesh))
+            sh.local(buf)[i].copy_(sh.local(t))
 
 
 def stack_forward(layers, x, positions, cfg: ModelConfig,
@@ -197,16 +217,22 @@ def stack_forward(layers, x, positions, cfg: ModelConfig,
 
     remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    per_group = []
-    for lp in layers:
+    stacked = None
+    for i, lp in enumerate(layers):
         if remat:
             x, aux = checkpoint(lambda *a: body(*a)[:2], lp, x, aux,
                                 use_reentrant=False,
                                 context_fn=recompute_context)
         else:
             x, aux, caches = body(lp, x, aux)
-            per_group.append(caches)
-    return x, aux, (_stack_caches(per_group) if collect_cache else None)
+            if collect_cache:
+                if stacked is None:
+                    stacked = {slot: {name: _stacked_like(t, len(layers))
+                                      for name, t in c.items()}
+                               for slot, c in caches.items()}
+                _stack_into(stacked, i, caches)
+            del caches
+    return x, aux, stacked
 
 
 # ---------------------------------------------------------------------------

@@ -128,11 +128,13 @@ class Rules:
                 continue
             present = tuple(a for a in axes if a in names and a not in used)
             used.update(present)
-            parts.append(_part(present))
+            parts.append(axes_part(present))
         return P(*parts)
 
 
-def _part(kept) -> str | tuple | None:
+def axes_part(kept) -> str | tuple | None:
+    """A spec's entry for a tensor dim split over the mesh axes ``kept``
+    (major first)."""
     if not kept:
         return None
     return kept[0] if len(kept) == 1 else tuple(kept)
@@ -334,7 +336,7 @@ def fitted_spec(shape: tuple, logical_axes: tuple, mesh,
                 else:
                     break
         used.update(kept)
-        parts.append(_part(kept))
+        parts.append(axes_part(kept))
     return P(*parts)
 
 
@@ -499,8 +501,8 @@ def shard_local(fn, args: tuple, axes: tuple, out_axes):
                 raise ValueError(f"logical axis {name!r} is laid out both "
                                  f"as {by_name[name]} and as {part}")
         fitted.append(spec)
-    split = set().union(*(_axes_of(spec) for spec in fitted))
-    local_args = [take_local(a, spec, mesh, split - _axes_of(spec))
+    split = set().union(*(axes_of(spec) for spec in fitted))
+    local_args = [take_local(a, spec, mesh, split - axes_of(spec))
                   for a, spec in zip(args, fitted)]
     out = fn(*local_args)
     if isinstance(out, tuple):
@@ -510,10 +512,22 @@ def shard_local(fn, args: tuple, axes: tuple, out_axes):
     return from_local(out, P(*(by_name.get(n) for n in out_axes)), mesh)
 
 
-def _axes_of(spec: P) -> set:
+def axes_of(spec: P) -> set:
+    """The mesh axes a spec splits over."""
     return {a for part in spec
             for a in (part if isinstance(part, tuple) else (part,))
             if a is not None}
+
+
+def axes_index(mesh, axes) -> int:
+    """This rank's index along the mesh axes ``axes`` taken as one (the
+    mesh's order, major first, as DTensor nests a dim split over them)."""
+    sizes = axis_sizes(mesh)
+    index = 0
+    for name, c in zip(mesh.mesh_dim_names, mesh.get_coordinate()):
+        if name in axes:
+            index = index * sizes[name] + c
+    return index
 
 
 def from_local(t: torch.Tensor, spec: P, mesh) -> DTensor:
@@ -551,4 +565,4 @@ def spec_of(x: DTensor) -> P:
     for name, p in zip(x.device_mesh.mesh_dim_names, x.placements):
         if p.is_shard():
             parts[p.dim].append(name)
-    return P(*(_part(tuple(q)) for q in parts))
+    return P(*(axes_part(tuple(q)) for q in parts))

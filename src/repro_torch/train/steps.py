@@ -93,12 +93,20 @@ def abstract_state(cfg: ModelConfig, ocfg: AdamWConfig,
 # gradients (with optional microbatch accumulation)
 # ---------------------------------------------------------------------------
 def split_microbatches(batch: dict, k: int) -> list[dict]:
-    """``batch`` cut into ``k`` equal microbatches along dim 0."""
+    """``batch`` cut into ``k`` equal microbatches along dim 0, each laid
+    out as the batch is (a DTensor's slice along a split dim comes back
+    whole on every rank)."""
     b = next(iter(batch.values())).shape[0]
     if b % k:
         raise ValueError(f"batch {b} not divisible by microbatches {k}")
-    return [{n: x[i * (b // k):(i + 1) * (b // k)] for n, x in batch.items()}
-            for i in range(k)]
+
+    def cut(x, i):
+        mb = x[i * (b // k):(i + 1) * (b // k)]
+        if isinstance(x, DTensor) and mb.placements != x.placements:
+            mb = mb.redistribute(x.device_mesh, x.placements)
+        return mb
+
+    return [{n: cut(x, i) for n, x in batch.items()} for i in range(k)]
 
 
 def microbatch_loss(params, batch: dict, cfg: ModelConfig):

@@ -356,11 +356,14 @@ def compress_ranks(rank, world, leaves_np: dict, n_steps: int):
 
 
 # ---------------------------------------------------------------------------
-# 4 or 8 ranks: a model axis of 4 that does not divide 2 KV heads
+# 4 or 8 ranks: a model axis of 4 that does not divide 2 KV heads (its 4
+# query heads split one a rank), nor 6 heads and 6 KV heads (padded to 8)
+# and a 250-word vocabulary (the loss's shares 63, 63, 63 and 61 words)
 # ---------------------------------------------------------------------------
 UNEVEN_ARCHS = {"starcoder2-3b": {},
                 "qwen3-moe-235b-a22b": {"capacity_factor": 8.0},
-                "mamba2-780m": {}}
+                "mamba2-780m": {},
+                "qwen1.5-32b": {"n_heads": 6, "n_kv_heads": 6, "vocab": 250}}
 DECODE_STEPS, DECODE_SEQ = 4, 8
 
 
@@ -372,19 +375,26 @@ def uneven_ranks(rank, world, mesh_shape):
     DTensors placed by ``fitted_shardings`` under each shape's rules; on
     rank 0 the same on one device.  → per arch the losses, the params
     after the steps, the prefill logits and each decode step's logits and
-    tokens, whole."""
+    tokens, whole, and the query heads attention's core saw in the train
+    steps and prefill (``core_heads``)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.launch.shapes import rules_for_shape
     from repro_torch.configs import SHAPES
-    from repro_torch.models import common, model
+    from repro_torch.models import attention, common, model
     from repro_torch.sharding import specs as sh
     from repro_torch.train import steps
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.schedule import ScheduleConfig
 
     mesh = _mesh(mesh_shape)
+    seen = []
+    for name in ("full_attention", "chunked_attention"):
+        def watched(q, *a, _core=getattr(attention, name), **k):
+            seen.append(q.shape[2] * q.shape[3])  # (B, S, KV, rep, hd)
+            return _core(q, *a, **k)
+        setattr(attention, name, watched)
     out = {}
     for arch, over in UNEVEN_ARCHS.items():
         cfg = get_config(arch).reduced(**over)
@@ -399,6 +409,7 @@ def uneven_ranks(rank, world, mesh_shape):
             if not sharded and rank != 0:
                 continue
             r = res[sharded] = {}
+            seen.clear()
             # the train step
             state = steps.init_train_state(common.make_generator(0, "cpu"),
                                            cfg, ocfg)
@@ -426,6 +437,7 @@ def uneven_ranks(rank, world, mesh_shape):
             with _on(mesh, rules):
                 logits, _ = steps.serve_prefill(p, prompt, cfg)
             r["prefill"] = sh.full(logits).numpy()
+            r["core_heads"] = sorted(set(seen))
             # decode over caches split along the sequence
             caches, cspecs = model.init_caches(cfg, b, DECODE_SEQ, "cpu")
             token = batch["tokens"][:, :1]

@@ -355,18 +355,43 @@ def test_cli_writes_a_record_with_the_references_keys(tmp_path):
         assert set(inv) == set(jhlo.COLLECTIVES)
 
 
+# the 1-group variant's per-device peak before attention's query heads were
+# split over ``model``: the ``trace`` of the same variant on the tree before
+# the split, fake CPU tensors.  It is the same with ``StepRecorder``
+# skipping ``meta`` tensors (the accounting now) or not, and the tree of
+# the split with the split turned off, all its other memory repairs in
+# place, comes to exactly it: the peak is the core's float32 scores of all
+# 48 query heads on every rank ((16, 4, 12, 4096, 4096), 51.5 GB).  So
+# the bound guards the head split.
+PARENT_PEAK_1G = {("starcoder2-15b", "train_4k"): 162_135_441_436}
+# the query heads attention's core sees on a rank: ceil(h / 16) of a
+# train step's (24 and 48 heads over 2 and 4 KV heads, 16 not dividing
+# either's KV heads); decode's cached path and mamba2 run no such core
+CORE_HEADS = {("starcoder2-3b", "train_4k"): [2],
+              ("starcoder2-15b", "train_4k"): [3]}
+
+
 @pytest.mark.parametrize("arch,shape", [
     ("starcoder2-3b", "train_4k"), ("starcoder2-3b", "decode_32k"),
-    ("mamba2-780m", "train_4k"),
+    ("mamba2-780m", "train_4k"), ("starcoder2-15b", "train_4k"),
 ])
-def test_one_group_variant_traces_at_full_width_on_16x16(arch, shape):
+def test_one_group_variant_traces_at_full_width_on_16x16(arch, shape,
+                                                        monkeypatch):
     """The production-mesh regression: the 1-group cost variant of each
     cell at its published widths runs on fake DTensors over a fake
     256-rank (16, 16) mesh (24 heads and 2 KV heads on a 16-way ``model``
-    axis; mamba2's SSD over split heads)."""
+    axis; mamba2's SSD over split heads; 48 heads and 4 KV heads, split 3
+    query heads a rank, below the parent's peak)."""
     import torch.distributed as dist
 
-    from repro_torch.models import transformer
+    from repro_torch.models import attention, transformer
+
+    seen = []
+    for name in ("full_attention", "chunked_attention"):
+        def watched(q, *a, _core=getattr(attention, name), **k):
+            seen.append(q.shape[2] * q.shape[3])  # (B, S, KV, rep, hd)
+            return _core(q, *a, **k)
+        monkeypatch.setattr(attention, name, watched)
 
     cfg = tconfigs.get_config(arch)
     vcfg = dataclasses.replace(
@@ -380,6 +405,9 @@ def test_one_group_variant_traces_at_full_width_on_16x16(arch, shape):
         dist.destroy_process_group()
     assert got["cost"]["flops"] > 0 and got["peak_bytes"] > 0
     assert got["memory"]["argument_size_in_bytes"] > 0
+    assert sorted(set(seen)) == CORE_HEADS.get((arch, shape), [])
+    if (arch, shape) in PARENT_PEAK_1G:
+        assert got["peak_bytes"] < PARENT_PEAK_1G[arch, shape]
 
 
 def test_importing_the_dryrun_sets_up_nothing():

@@ -33,6 +33,10 @@ SHARDING_MODULES = ("repro_torch.launch.mesh", "repro_torch.sharding",
                     "repro_torch.sharding.specs", "repro_torch.train.compress")
 DRYRUN_MODULES = ("repro_torch.launch.shapes", "repro_torch.launch.hlo",
                   "repro_torch.launch.dryrun")
+# qdlint's, the last slice's
+ANALYSIS_MODULES = tuple(f"repro_torch.analysis{m}" for m in (
+    "", ".__main__", ".cli", ".core", ".determinism", ".lock_check",
+    ".retrace"))
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -45,9 +49,11 @@ def test_port_imports_neither_jax_nor_repro():
     # every module of the package was imported: 52 of the layout system,
     # 28 of the LM stack (configs, models, train, launch.{serve_lm,train}),
     # 4 of sharding (launch.mesh, sharding, sharding.specs, train.compress),
-    # 3 of the dry-run tier (launch.{shapes,hlo,dryrun})
-    assert int(n_modules) >= 87
-    assert set(SHARDING_MODULES + DRYRUN_MODULES) <= set(out[1].split())
+    # 3 of the dry-run tier (launch.{shapes,hlo,dryrun}), 7 of qdlint
+    # (analysis and its six modules)
+    assert int(n_modules) >= 94
+    assert set(SHARDING_MODULES + DRYRUN_MODULES + ANALYSIS_MODULES) <= set(
+        out[1].split())
     assert leaked.strip() == "[]"
 
 

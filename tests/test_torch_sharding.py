@@ -410,7 +410,9 @@ def test_moe_sharded_body_matches_local(moe_ranks, case):
 def uneven_ranks(request, tmp_path_factory):
     """``_torch_ranks.uneven_ranks`` on 4 or 8 gloo ranks: ``reduced()``'s
     2 KV heads on a 4-way ``model`` axis, as the production meshes' 16-way
-    axis against 2 to 8 KV heads."""
+    axis against 2 to 8 KV heads, and 6 heads and 6 KV heads and a
+    250-word vocabulary on it, as 40, 24 or 12 heads and a 51,865-word
+    vocabulary on 16."""
     shape = request.param
     tmp = tmp_path_factory.mktemp("uneven")
     return shape, ranks.run_ranks(ranks.uneven_ranks, shape[0] * shape[1],
@@ -420,15 +422,22 @@ def uneven_ranks(request, tmp_path_factory):
 @pytest.mark.parametrize("arch", sorted(ranks.UNEVEN_ARCHS))
 def test_steps_on_a_model_axis_that_does_not_divide_the_heads(
         uneven_ranks, arch):
-    """A dense GQA arch, the EP MoE and mamba2 on (1, 4) and (2, 4): two
-    train steps, prefill and four decode steps over sequence-split caches
-    equal the one-device port at the (2, 2) step's bounds (loss 1e-3;
-    params, logits and caches 5e-3); every rank holds the same whole
-    values and takes the same greedy tokens."""
+    """A dense GQA arch, the EP MoE, mamba2 and a dense arch whose heads
+    and vocabulary do not divide ``model`` either on (1, 4) and (2, 4):
+    two train steps,
+    prefill and four decode steps over sequence-split caches equal the
+    one-device port at the (2, 2) step's bounds (loss 1e-3; params, logits
+    and caches 5e-3); every rank holds the same whole values and takes the
+    same greedy tokens.  Each rank's attention core sees ``h / model``
+    query heads, or ``ceil(h / model)`` where they are padded, not all h
+    of them."""
     shape, got = uneven_ranks
     one = got[0][arch][False]
+    h = get_config(arch).reduced(**ranks.UNEVEN_ARCHS[arch]).n_heads
+    assert one["core_heads"] == ([h] if h else [])
     for r in got:
         sharded = r[arch][True]
+        assert sharded["core_heads"] == ([-(-h // shape[1])] if h else [])
         for a, b in zip(sharded["losses"], one["losses"]):
             assert abs(a - b) < STEP_LOSS_ATOL
         assert _max_abs(sharded["params"], one["params"]) < STEP_PARAM_ATOL
