@@ -20,9 +20,11 @@ rows and KV heads (``shard_local``), the query heads split as the KV heads
 are, where the ``model`` axis divides the KV heads; where it does not, on
 each rank's batch rows and ``ceil(h / model)`` query heads, with the KV
 heads they read repeated and the last ranks padded with zero heads
-(``_split_query_heads``, as the reference's partitioner splits them);
-decode on DTensor caches writes and attends on each rank's shard of the
-sequence (``_decode_sharded``).
+(``_split_query_heads``, as the reference's partitioner splits them;
+decode's cached cross-attention likewise); prefill emits its caches in
+decode's layout (``_emitted_cache``: split along the sequence where the
+KV heads do not divide ``model``); decode on DTensor caches writes and
+attends on each rank's shard of the sequence (``_decode_sharded``).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ SENTINEL = 2**30  # position of padded KV rows: masked causal or not
 # the logical axes of the projected heads, and of their weights
 Q_AXES = ("batch", "seq", "heads", None)
 KV_AXES = ("batch", "seq", "kv_heads", None)
+CACHE_AXES = ("batch", "kv_heads", "cache_seq", None)
 W_AXES = {Q_AXES: ("fsdp", "heads", None),
           KV_AXES: ("fsdp", "kv_heads", None)}
 WO_AXES = ("heads", None, "fsdp")
@@ -183,7 +186,9 @@ def attn_forward(params, x, positions, cfg: ModelConfig, causal: bool = True,
     """Train/prefill attention.  x: (B,S,D) → (B,S,D).
 
     ``return_kv=True`` additionally returns (k, v) as (B, KV, S, hd) — the
-    cache layout — so prefill populates decode caches for free.
+    cache layout — so prefill populates decode caches for free; under a
+    mesh a self-attention's laid out as decode's caches
+    (``_emitted_cache``).
     """
     if kv_positions is None:
         kv_positions = positions
@@ -199,7 +204,7 @@ def attn_forward(params, x, positions, cfg: ModelConfig, causal: bool = True,
         return core(_group_q(q, k.shape[2]), k, v, q_pos, k_pos).reshape(
             q.shape)
 
-    split = _query_head_split(q, k)
+    split = _query_head_split(q, k.shape[2])
     if split is None:
         # under a mesh whose head axes divide the KV heads, on each rank's
         # batch rows and KV heads (no DTensor einsum rules for these
@@ -208,19 +213,41 @@ def attn_forward(params, x, positions, cfg: ModelConfig, causal: bool = True,
         out = shard_local(grouped, (q, k, v, positions, kv_positions),
                           (heads, heads, heads, pos, pos), heads)
     else:
-        out = _split_query_heads(core, q, k, v, positions, kv_positions,
+        out = _split_query_heads(core, q, k, v, (positions, kv_positions),
                                  *split)
     out = wsc(out, Q_AXES)
     y = _out_proj(out, params["wo"], common.cdtype(cfg))
     if return_kv:
-        return y, (k.transpose(1, 2), v.transpose(1, 2))
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+        if kv_x is None:  # a self-attention cache, which decode extends
+            k, v = _emitted_cache(k), _emitted_cache(v)
+        return y, (k, v)
     return y
 
 
-def _query_head_split(q, k):
-    """Under a mesh whose ``heads`` axes do not divide the KV heads:
-    (those axes, the ranks along them, this rank's index along them);
-    else None (no mesh, one rank along them, or KV heads that divide)."""
+def _emitted_cache(t):
+    """A (B, KV, S, hd) cache that prefill emits, laid out as decode's
+    caches are (``fitted_shardings`` under ``rules_for_shape`` of a decode
+    shape, which ``_decode_sharded`` reads): on each rank's KV heads where
+    the ``kv_heads`` axes divide them (the projection's layout, as it
+    is), else split along S over those axes, so no rank holds every KV
+    head of the whole sequence.  Where S does not divide either, whole,
+    as ``fitted_spec`` leaves a dim that an axis does not divide.  The
+    identity without a mesh and on a plain tensor."""
+    mesh, rules = sh.active_mesh(), sh.active_rules()
+    if mesh is None or rules is None or not isinstance(t, sh.DTensor):
+        return t
+    spec = sh.fitted_spec(tuple(t.shape), CACHE_AXES, mesh, rules.with_rule(
+        "cache_seq", rules.lookup("kv_heads")))
+    want = sh.placements(spec, mesh)
+    return t if tuple(t.placements) == want else t.redistribute(mesh, want)
+
+
+def _query_head_split(q, n_kv: int):
+    """Under a mesh whose ``heads`` axes do not divide the ``n_kv`` KV
+    heads: (those axes, the ranks along them, this rank's index along
+    them); else None (no mesh, one rank along them, or KV heads that
+    divide)."""
     mesh, rules = sh.active_mesh(), sh.active_rules()
     if mesh is None or rules is None or not isinstance(q, sh.DTensor):
         return None
@@ -229,12 +256,12 @@ def _query_head_split(q, k):
     axes = tuple(a for a in rules.lookup("heads") or ()
                  if a in sizes and a not in sh.axes_of(batch))
     m = math.prod(sizes[a] for a in axes)
-    if m == 1 or k.shape[2] % m == 0:
+    if m == 1 or n_kv % m == 0:
         return None
     return axes, m, sh.axes_index(mesh, axes)
 
 
-def _split_query_heads(core, q, k, v, q_pos, k_pos, axes, m, index):
+def _split_query_heads(core, q, k, v, pos, axes, m, index):
     """Attention's core on this rank's batch rows and its ``ceil(h / m)``
     query heads, for a mesh whose ``m`` ranks along the ``heads`` axes do
     not divide the KV heads: each rank takes the KV heads its query heads
@@ -243,14 +270,15 @@ def _split_query_heads(core, q, k, v, q_pos, k_pos, axes, m, index):
     groups of one.  Where ``m`` does not divide the query heads either,
     the last ranks' heads are padded with zero heads (a zero query over
     zero values gives zeros), and the padding is sliced off the gathered
-    output, so it takes no gradient.  → (B, S, H, hd)."""
+    output, so it takes no gradient.  q: (B, S, H, hd); k, v: (B, T, KV,
+    hd); ``pos``: (B, ·) tensors passed on to ``core`` after k and v.
+    → (B, S, H, hd)."""
     mesh, rules = sh.active_mesh(), sh.active_rules()
     h, kv = q.shape[2], k.shape[2]
     rep, hl = h // kv, -(-h // m)
     q_split = h % m == 0
     head = sh.axes_part(axes)
-    batch = sh.fitted_spec(tuple(q_pos.shape), ("batch", None), mesh,
-                           rules)[0]
+    batch = sh.fitted_spec((q.shape[0],), ("batch",), mesh, rules)[0]
     q_spec = sh.P(batch, None, head if q_split else None, None)
     kv_spec, pos_spec = sh.P(batch, None, None, None), sh.P(batch, None)
     split = sh.axes_of(q_spec) | set(axes)
@@ -266,16 +294,16 @@ def _split_query_heads(core, q, k, v, q_pos, k_pos, axes, m, index):
             :, :, :n]
         return torch.nn.functional.pad(x, (0, 0, 0, hl - n))
 
-    def local(ql, kl, vl, qp, kp):
+    def local(ql, kl, vl, *ps):
         if not q_split:
             ql = torch.nn.functional.pad(ql[:, :, q0:q0 + n],
                                          (0, 0, 0, hl - n))
         kl, vl = rank_heads(kl), rank_heads(vl)
-        return core(_group_q(ql, hl), kl, vl, qp, kp).reshape(ql.shape)
+        return core(_group_q(ql, hl), kl, vl, *ps).reshape(ql.shape)
 
     args = [sh.take_local(a, spec, mesh, split - sh.axes_of(spec))
-            for a, spec in ((q, q_spec), (k, kv_spec), (v, kv_spec),
-                            (q_pos, pos_spec), (k_pos, pos_spec))]
+            for a, spec in ((q, q_spec), (k, kv_spec), (v, kv_spec))
+            + tuple((p, pos_spec) for p in pos)]
     out = sh.from_local(local(*args), sh.P(batch, None, head, None), mesh)
     if hl * m == h:
         return out
@@ -297,18 +325,29 @@ def _cached_attention(qg, k_cache, v_cache, cfg: ModelConfig, mask=None):
 
 
 def cross_attn_cached(params, x, k_cache, v_cache, cfg: ModelConfig):
-    """Decode-time cross-attention against precomputed (B,KV,F,hd) K/V."""
+    """Decode-time cross-attention against precomputed (B,KV,F,hd) K/V;
+    under a mesh on each rank's query heads, as train's core."""
     ct = common.cdtype(cfg)
     q = _proj_heads(x.to(ct), params["wq"], ct)
     if cfg.qkv_bias:
         q = q + params["bq"].to(ct)
-    # under a mesh, on each rank's batch rows and KV heads
-    heads, cache = ("batch", None, "kv_heads", None), (
-        "batch", "kv_heads", None, None)
-    out = shard_local(
-        lambda q, k, v: _cached_attention(_group_q(q, k.shape[1]), k, v,
-                                          cfg),
-        (q, k_cache, v_cache), (heads, cache, cache), heads)
+    split = _query_head_split(q, k_cache.shape[1])
+    if split is None:
+        # under a mesh whose head axes divide the KV heads, on each rank's
+        # batch rows and KV heads
+        heads, cache = ("batch", None, "kv_heads", None), (
+            "batch", "kv_heads", None, None)
+        out = shard_local(
+            lambda q, k, v: _cached_attention(_group_q(q, k.shape[1]), k,
+                                              v, cfg),
+            (q, k_cache, v_cache), (heads, cache, cache), heads)
+    else:
+        # else on its ceil(h / model) query heads, as train's core
+        out = _split_query_heads(
+            lambda qg, k, v: _cached_attention(
+                qg, k.transpose(1, 2), v.transpose(1, 2), cfg),
+            q, k_cache.transpose(1, 2), v_cache.transpose(1, 2), (),
+            *split)
     return _out_proj(out, params["wo"], ct)
 
 

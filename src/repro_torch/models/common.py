@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.plan import resolve_device
@@ -172,6 +173,63 @@ def _vocab_parallel_nll(logits, labels, mesh, spec, axes):
     ll = _VocabSum.apply(torch.where(mine, hit, 0.0), groups)
     return (sh.from_local(lse, rows, mesh),
             sh.from_local(lse - ll, rows, mesh))
+
+
+class _SliceLookup(torch.autograd.Function):
+    """The rows ``off`` of a table's vocab slice, zeros where ``off``
+    falls outside it; saves only the offsets, as the whole table's
+    lookup saves the ids."""
+
+    @staticmethod
+    def forward(ctx, local, off):
+        ctx.width = local.shape[0]
+        ctx.save_for_backward(off)
+        mine = (off >= 0) & (off < ctx.width)
+        return F.embedding(torch.where(mine, off, 0), local).masked_fill_(
+            ~mine[..., None], 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (off,) = ctx.saved_tensors
+        mine = (off >= 0) & (off < ctx.width)
+        g = g.masked_fill(~mine[..., None], 0)
+        return torch.ops.aten.embedding_dense_backward(
+            g, torch.where(mine, off, 0), ctx.width, -1, False), None
+
+
+def embed_lookup(table, ids):
+    """``F.embedding(ids, table)``: the rows of a (V, D) table.  Where the
+    table is split along the vocab over ranks (a DTensor, under active
+    rules), each rank looks up the ids that fall in its slice, zeros the
+    rest and the parts are summed over the vocab's ranks: the
+    reference's lookup on a vocab-split table.  One real row plus zeros,
+    so the values are the whole table's bit for bit, and no rank gathers
+    the table or its gradient, which stays on each rank's slice (partial
+    over the axes that split the batch).  Each rank works on its batch
+    rows; the result is laid out over them and replicated over the
+    vocab's axes.  Elsewhere (no mesh, a plain table, a vocabulary the
+    axes do not divide, which ``fitted_spec`` leaves whole) the table is
+    gathered first: a lookup on a sharded table has no DTensor rule."""
+    rules = sh.active_rules()
+    if not isinstance(table, sh.DTensor) or rules is None \
+            or sh.spec_of(table)[0] is None:
+        return F.embedding(ids.long(), sh.replicate(table))
+    mesh = table.device_mesh
+    vocab = sh.spec_of(table)[0]
+    rows = sh.fitted_spec(tuple(ids.shape), ("batch",) + (None,) * (
+        ids.dim() - 1), mesh, rules)
+    axes = sh.axes_of(sh.P(vocab))
+    if axes & sh.axes_of(rows):
+        raise ValueError(f"the batch {rows} and the vocab {vocab} share "
+                         "a mesh axis")
+    local = sh.take_local(table, sh.P(vocab, None), mesh, sh.axes_of(rows))
+    width = local.shape[0]
+    off = sh.take_local(ids, rows, mesh).long() - sh.axes_index(
+        mesh, axes) * width
+    part = _SliceLookup.apply(local, off)
+    groups = [mesh.get_group(a) for a in mesh.mesh_dim_names if a in axes]
+    return sh.from_local(_VocabSum.apply(part, groups),
+                         sh.P(*rows, None), mesh)
 
 
 def softmax_cross_entropy(logits, labels, weights=None,

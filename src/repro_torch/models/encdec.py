@@ -123,8 +123,7 @@ def encode(params, frames, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 def _embed(params, tokens, positions, cfg: ModelConfig):
     ct = common.cdtype(cfg)
-    # a vocab-sharded table has no DTensor rule here: gathered first
-    x = F.embedding(tokens.long(), replicate(params["tok_embed"])).to(ct)
+    x = common.embed_lookup(params["tok_embed"], tokens).to(ct)
     return x + F.embedding(positions.long(),
                            replicate(params["dec_pos"])).to(ct)
 

@@ -267,8 +267,7 @@ def init_decoder(gen, cfg: ModelConfig):
 
 def embed_tokens(params, tokens, positions, cfg: ModelConfig):
     ct = common.cdtype(cfg)
-    # a vocab-sharded table has no DTensor rule here: gathered first
-    x = F.embedding(tokens.long(), replicate(params["tok_embed"])).to(ct)
+    x = common.embed_lookup(params["tok_embed"], tokens).to(ct)
     if cfg.pos_embed == "learned":
         x = x + F.embedding(positions.long(),
                             replicate(params["pos_embed"])).to(ct)

@@ -116,6 +116,12 @@ class Rules:
             table.append((k, v))
         return Rules(table=tuple(table))
 
+    def with_rule(self, name: str | None,
+                  axes: tuple[str, ...] | None) -> "Rules":
+        """These rules with ``name`` mapped to ``axes``."""
+        return Rules(table=tuple((k, axes if k == name else v)
+                                 for k, v in self.table))
+
     def spec(self, logical_axes: tuple, mesh) -> P:
         """Resolve logical axes to a PartitionSpec on ``mesh``."""
         names = axis_sizes(mesh)

@@ -86,11 +86,17 @@ ARCH = "qwen1.5-32b"
 BATCH_SPEC = {"tokens": ("batch", None), "labels": ("batch", None)}
 
 
-def step_batch(vocab: int, seed: int = 0, b: int = 8, s: int = 32) -> dict:
-    """The reference tests' batch: tokens and next tokens, from numpy."""
+def step_batch(vocab: int, seed: int = 0, b: int = 8, s: int = 32,
+               frames: tuple | None = None) -> dict:
+    """The reference tests' batch: tokens and next tokens, from numpy;
+    with ``frames`` (n, d_model) an enc-dec's stub frame embeddings too."""
     rng = np.random.default_rng(seed)
     t = rng.integers(0, vocab, (b, s + 1)).astype(np.int32)
-    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    batch = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    if frames is not None:
+        batch["frames"] = (0.01 * rng.standard_normal(
+            (b,) + tuple(frames))).astype(np.float32)
+    return batch
 
 
 def _tensors(batch: dict) -> dict:
@@ -358,13 +364,16 @@ def compress_ranks(rank, world, leaves_np: dict, n_steps: int):
 # ---------------------------------------------------------------------------
 # 4 or 8 ranks: a model axis of 4 that does not divide 2 KV heads (its 4
 # query heads split one a rank), nor 6 heads and 6 KV heads (padded to 8)
-# and a 250-word vocabulary (the loss's shares 63, 63, 63 and 61 words)
+# and a 250-word vocabulary (the loss's shares 63, 63, 63 and 61 words);
+# the others' 256 words split 64 a rank (the embedding on each slice)
 # ---------------------------------------------------------------------------
 UNEVEN_ARCHS = {"starcoder2-3b": {},
                 "qwen3-moe-235b-a22b": {"capacity_factor": 8.0},
                 "mamba2-780m": {},
-                "qwen1.5-32b": {"n_heads": 6, "n_kv_heads": 6, "vocab": 250}}
+                "qwen1.5-32b": {"n_heads": 6, "n_kv_heads": 6, "vocab": 250},
+                "whisper-small": {"n_heads": 6, "n_kv_heads": 6}}
 DECODE_STEPS, DECODE_SEQ = 4, 8
+ENC_FRAMES = 24  # an enc-dec's stub frames (up to whisper's 1,500)
 
 
 def uneven_ranks(rank, world, mesh_shape):
@@ -376,7 +385,11 @@ def uneven_ranks(rank, world, mesh_shape):
     rank 0 the same on one device.  → per arch the losses, the params
     after the steps, the prefill logits and each decode step's logits and
     tokens, whole, and the query heads attention's core saw in the train
-    steps and prefill (``core_heads``)."""
+    steps and prefill (``core_heads``).  Also prefill's caches, whole,
+    and the positions of each rank's share of its attention caches
+    (``cache_seq``); an enc-dec decodes against its prefill's
+    cross-attention caches, and the query heads its cached core saw in
+    decode are ``cached_heads``."""
     import torch
 
     from repro_torch.configs import get_config
@@ -389,10 +402,11 @@ def uneven_ranks(rank, world, mesh_shape):
     from repro_torch.train.schedule import ScheduleConfig
 
     mesh = _mesh(mesh_shape)
-    seen = []
-    for name in ("full_attention", "chunked_attention"):
-        def watched(q, *a, _core=getattr(attention, name), **k):
-            seen.append(q.shape[2] * q.shape[3])  # (B, S, KV, rep, hd)
+    seen, cached = [], []
+    for name, into in (("full_attention", seen), ("chunked_attention", seen),
+                       ("_cached_attention", cached)):
+        def watched(q, *a, _core=getattr(attention, name), _into=into, **k):
+            _into.append(q.shape[2] * q.shape[3])  # (B, S, KV, rep, hd)
             return _core(q, *a, **k)
         setattr(attention, name, watched)
     out = {}
@@ -400,7 +414,10 @@ def uneven_ranks(rank, world, mesh_shape):
         cfg = get_config(arch).reduced(**over)
         ocfg, scfg = AdamWConfig(), ScheduleConfig(peak_lr=1e-3,
                                                    warmup_steps=2)
-        batch = _tensors(step_batch(cfg.vocab))
+        frames = (ENC_FRAMES, cfg.d_model) if cfg.is_encdec else None
+        batch = _tensors(step_batch(cfg.vocab, frames=frames))
+        bspec = dict(BATCH_SPEC, frames=("batch", None, "embed"))
+        bspec = {k: bspec[k] for k in batch}
         b = batch["tokens"].shape[0]
         params, pspecs = model.init_model(common.make_generator(0, "cpu"),
                                           cfg)
@@ -415,8 +432,7 @@ def uneven_ranks(rank, world, mesh_shape):
                                            cfg, ocfg)
             if sharded:
                 step, _, ssh, bsh = steps.jit_train_step(
-                    cfg, ocfg, scfg, mesh, sh.Rules.make(), batch,
-                    BATCH_SPEC)
+                    cfg, ocfg, scfg, mesh, sh.Rules.make(), batch, bspec)
                 state, tb = sh.place(state, ssh), sh.place(batch, bsh)
             else:
                 step = lambda s, bb: steps.train_step(s, bb, cfg, ocfg, scfg)
@@ -426,21 +442,29 @@ def uneven_ranks(rank, world, mesh_shape):
                 r.setdefault("losses", []).append(float(sh.full(m["loss"])))
             r["params"] = _host(state["params"])
             # prefill, default rules
-            prompt = {"tokens": batch["tokens"]}
+            prompt = {k: v for k, v in batch.items() if k != "labels"}
             p, rules = params, None
             if sharded:
                 rules = rules_for_shape(SHAPES["prefill_32k"])
                 p = sh.place(params, sh.fitted_shardings(params, pspecs, mesh,
                                                          rules))
                 prompt = sh.place(prompt, sh.fitted_shardings(
-                    prompt, {"tokens": ("batch", None)}, mesh, rules))
+                    prompt, {k: bspec[k] for k in prompt}, mesh, rules))
             with _on(mesh, rules):
-                logits, _ = steps.serve_prefill(p, prompt, cfg)
+                logits, pcaches = steps.serve_prefill(p, prompt, cfg)
             r["prefill"] = sh.full(logits).numpy()
             r["core_heads"] = sorted(set(seen))
-            # decode over caches split along the sequence
+            r["prefill_caches"] = _host(pcaches)
+            r["cache_seq"] = _attention_cache_seq(pcaches)
+            # decode over caches split along the sequence (an enc-dec's
+            # cross-attention caches its prefill's)
             caches, cspecs = model.init_caches(cfg, b, DECODE_SEQ, "cpu")
+            if cfg.is_encdec:
+                for name in ("cross_k", "cross_v"):
+                    caches[name] = sh.full(pcaches[name])
+            del pcaches
             token = batch["tokens"][:, :1]
+            cached.clear()
             if sharded:
                 rules = rules_for_shape(SHAPES["decode_32k"])
                 p = sh.place(params, sh.fitted_shardings(params, pspecs, mesh,
@@ -458,9 +482,63 @@ def uneven_ranks(rank, world, mesh_shape):
                 token = sh.full(nxt)
                 r.setdefault("tokens", []).append(token.numpy())
             r["caches"] = _host(caches)
+            r["cached_heads"] = sorted(set(cached))
         out[arch] = res
     torch.distributed.barrier()
     return out
+
+
+def _attention_cache_seq(caches) -> list:
+    """The sequence positions of this rank's share of each attention
+    cache (a ``k`` or ``v`` leaf, (n, B, KV, S, hd))."""
+    from repro_torch.sharding import specs as sh
+
+    out = []
+    for name, t in caches.items():
+        if isinstance(t, dict):
+            out += _attention_cache_seq(t)
+        elif name in ("k", "v"):
+            out.append(sh.local(t).shape[3])
+    return out
+
+
+def embed_ranks(rank, world, vocab: int):
+    """On a (1, 4) mesh: a ``(vocab, 32)`` table placed as ``tok_embed``
+    (split along the vocab where 4 divides it, else whole) and looked up
+    by ``common.embed_lookup``, against ``F.embedding`` of the whole
+    table on the same ids, and the table's gradient under a seeded
+    upstream gradient.  → (the whole lookup, its sharded counterpart
+    gathered, the whole table's gradient, this rank's shard of the
+    sharded gradient, the index of that shard's first row)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import common
+    from repro_torch.sharding import specs as sh
+
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.standard_normal((vocab, 32)).astype(
+        np.float32))
+    ids = torch.from_numpy(rng.integers(0, vocab, (8, 16)).astype(np.int32))
+    ids[0, :4] = ids[0, 4]  # a row looked up more than once
+    up = torch.from_numpy(rng.standard_normal((8, 16, 32)).astype(
+        np.float32))
+    whole = table.clone().requires_grad_()
+    want = F.embedding(ids.long(), whole)
+    (want * up).sum().backward()
+
+    mesh, rules = _mesh((1, world)), sh.Rules.make()
+    tree = {"table": table, "ids": ids}
+    placed = sh.place(tree, sh.fitted_shardings(
+        tree, {"table": ("vocab", "embed"), "ids": ("batch", None)}, mesh,
+        rules), dtensor=True)
+    t = placed["table"].requires_grad_()
+    with sh.use_mesh(mesh, rules):
+        got = common.embed_lookup(t, placed["ids"])
+        (got * sh.as_dtensor(up, mesh)).sum().backward()
+    start = sh.shard_start(t, 0)[0] if sh.spec_of(t)[0] else 0
+    return (want.detach().numpy(), sh.full(got).detach().numpy(),
+            whole.grad.numpy(), sh.local(t.grad).numpy(), start)
 
 
 def _on(mesh, rules):

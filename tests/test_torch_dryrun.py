@@ -410,6 +410,46 @@ def test_one_group_variant_traces_at_full_width_on_16x16(arch, shape,
         assert got["peak_bytes"] < PARENT_PEAK_1G[arch, shape]
 
 
+# the same variants' per-device peaks on the tree before prefill's caches
+# were laid out as decode's and the embedding looked up on each rank's vocab
+# slice (fake CPU tensors): prefill's two groups at the cost variants'
+# chunking hold the first group's caches whole over 40 KV heads
+# ((2, 2, 40, 32768, 128) bf16 for k and for v) through the second
+# group's attention; the train step's one group, at the config's own
+# chunking and two microbatches, peaks at the embedding's gradient, three
+# float32 copies of the whole (152064, 5120) table.  A one-group prefill
+# peaks in its attention before its caches are written, the same on both
+# trees (10,003,689,476 B).
+PARENT_PEAK_RELAYOUT = {("prefill_32k", 2): 12_762_877_956,
+                        ("train_4k", 1): 11_393_867_812}
+
+
+@pytest.mark.parametrize("shape,groups", sorted(PARENT_PEAK_RELAYOUT))
+def test_qwen_32b_holds_no_whole_cache_or_table_on_16x16(shape, groups):
+    """qwen1.5-32b at its published widths on the fake 16×16 mesh, whose
+    16-way ``model`` axis divides neither its 40 KV heads nor leaves its
+    152,064-word table whole: prefill's caches split along the sequence,
+    the embedding's table and gradient on each rank's vocab slice.  Each
+    variant's peak is below the parent's, and no storage among the
+    largest live at it is a whole cache or a whole table."""
+    import torch.distributed as dist
+
+    cfg = tconfigs.get_config("qwen1.5-32b")
+    vcfg = dataclasses.replace(cfg, n_layers=groups)
+    if shape == "prefill_32k":
+        vcfg = dataclasses.replace(vcfg, attn_chunk=8192, microbatches=1)
+    dryrun._join_fake_group(256)
+    try:
+        mesh = dryrun._mesh(False, None, "cpu")
+        got = dryrun.trace(shapes.build_cell(vcfg, shape, mesh), mesh, "cpu")
+    finally:
+        dist.destroy_process_group()
+    assert 0 < got["peak_bytes"] < PARENT_PEAK_RELAYOUT[shape, groups]
+    for t in got["largest_live"]:
+        assert t["shape"][-3:] != [cfg.n_kv_heads, 32768, cfg.hd], t
+        assert t["shape"] != [cfg.vocab, cfg.d_model], t
+
+
 def test_importing_the_dryrun_sets_up_nothing():
     code = textwrap.dedent("""
         import os, torch.distributed as dist

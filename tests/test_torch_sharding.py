@@ -422,22 +422,36 @@ def uneven_ranks(request, tmp_path_factory):
 @pytest.mark.parametrize("arch", sorted(ranks.UNEVEN_ARCHS))
 def test_steps_on_a_model_axis_that_does_not_divide_the_heads(
         uneven_ranks, arch):
-    """A dense GQA arch, the EP MoE, mamba2 and a dense arch whose heads
-    and vocabulary do not divide ``model`` either on (1, 4) and (2, 4):
-    two train steps,
-    prefill and four decode steps over sequence-split caches equal the
-    one-device port at the (2, 2) step's bounds (loss 1e-3; params, logits
-    and caches 5e-3); every rank holds the same whole values and takes the
-    same greedy tokens.  Each rank's attention core sees ``h / model``
-    query heads, or ``ceil(h / model)`` where they are padded, not all h
-    of them."""
+    """A dense GQA arch, the EP MoE, mamba2, a dense arch whose heads
+    and vocabulary do not divide ``model`` either and whisper with such
+    heads on (1, 4) and (2, 4): two train steps, prefill and four decode
+    steps over sequence-split caches (whisper's against its prefill's
+    cross-attention caches) equal the one-device port at the (2, 2)
+    step's bounds (loss 1e-3; params, logits and caches, prefill's too,
+    5e-3); every rank holds the same whole values and takes the same
+    greedy tokens.  Each rank's attention core, and whisper's cached
+    cross-attention core in decode, sees ``h / model`` query heads, or
+    ``ceil(h / model)`` where they are padded, not all h of them; each
+    rank holds ``S / model`` positions of prefill's attention caches where
+    ``model`` does not divide the KV heads."""
     shape, got = uneven_ranks
     one = got[0][arch][False]
-    h = get_config(arch).reduced(**ranks.UNEVEN_ARCHS[arch]).n_heads
+    cfg = get_config(arch).reduced(**ranks.UNEVEN_ARCHS[arch])
+    h, kv, s = cfg.n_heads, cfg.n_kv_heads, ranks.step_batch(8)[
+        "tokens"].shape[1]
     assert one["core_heads"] == ([h] if h else [])
+    assert one["cache_seq"] == [s] * len(one["cache_seq"])
+    assert bool(one["cache_seq"]) == bool(kv)
     for r in got:
         sharded = r[arch][True]
         assert sharded["core_heads"] == ([-(-h // shape[1])] if h else [])
+        assert sharded["cache_seq"] == [
+            s // shape[1] if kv % shape[1] else s] * len(one["cache_seq"])
+        assert _max_abs(sharded["prefill_caches"], one["prefill_caches"]) \
+            < STEP_PARAM_ATOL
+        if cfg.is_encdec:
+            assert one["cached_heads"] == [h]
+            assert sharded["cached_heads"] == [-(-h // shape[1])]
         for a, b in zip(sharded["losses"], one["losses"]):
             assert abs(a - b) < STEP_LOSS_ATOL
         assert _max_abs(sharded["params"], one["params"]) < STEP_PARAM_ATOL
@@ -451,6 +465,24 @@ def test_steps_on_a_model_axis_that_does_not_divide_the_heads(
         first = got[0][arch][True]
         assert sharded["losses"] == first["losses"]
         assert _max_abs(sharded["params"], first["params"]) == 0
+
+
+@pytest.mark.parametrize("vocab", [256, 250], ids=["split", "whole"])
+def test_embedding_looks_up_each_ranks_vocab_slice(vocab, tmp_path):
+    """On (1, 4): ``common.embed_lookup`` of a table split along a vocab
+    that 4 divides (64 words a rank) equals ``F.embedding`` of the whole
+    table bit for bit, and each rank's shard of the table's gradient is
+    its slice of the whole table's gradient, bit for bit; a 250-word
+    table stays whole on every rank, with the same values."""
+    got = ranks.run_ranks(ranks.embed_ranks, 4, tmp_path, RANKS_TIMEOUT_S,
+                          vocab=vocab)
+    for want, lookup, grad, shard, start in got:
+        assert np.array_equal(lookup, want)
+        assert shard.shape[0] == (vocab // 4 if vocab % 4 == 0 else vocab)
+        assert np.array_equal(shard, grad[start:start + shard.shape[0]])
+        assert np.any(shard != 0)
+    assert sorted(r[4] for r in got) == (
+        [0, 64, 128, 192] if vocab % 4 == 0 else [0] * 4)
 
 
 def test_remat_recomputes_under_the_forwards_mesh(monkeypatch):
