@@ -12,15 +12,18 @@ accumulator on the device), ``route`` (one ``route_descend`` launch),
 (``query_intersect``).  The main path also ingests the table into a finer
 layout (1,250 blocks learned from an 8,000-row sample, built in a second
 process while the rest runs), whose aggregates do not fit a block's
-shared memory, so ``fused_ingest`` takes its global-atomic kernel there.
+shared memory, so ``fused_ingest`` takes its cluster kernel there (a
+thread block cluster splits the aggregates over its blocks' shared
+memory).
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` first,
 and checks:
 
-* each kernel (both ``fused_ingest`` and both ``route_descend`` kernels)
-  equals its plain PyTorch version on the card, exactly: on small random
-  trees with every cut kind, on the finer layout, and at the main path's
-  shapes; ``eval_cuts`` → ``locate_leaf``, off the main path since
-  ``route`` descends directly, are still built, launched and checked;
+* each kernel (the three ``fused_ingest`` kernels, each forced too, and
+  both ``route_descend`` kernels) equals its plain PyTorch version on the
+  card, exactly: on small random trees with every cut kind, on the finer
+  layout, and at the main path's shapes; ``eval_cuts`` →
+  ``locate_leaf``, off the main path since ``route`` descends directly,
+  are still built, launched and checked;
 * the running accumulator folded over uneven batches (one a single row,
   one starting at an unaligned row) equals the plain version over their
   concatenation and the numpy oracle (``fused_ingest_ref``);
@@ -41,6 +44,13 @@ and checks:
 Then this slice's paths, each counted from 0 just before it, over the same
 table and layout:
 
+* trees past one block's shared memory (``BIG_TREES``: 1,300 to 20,000
+  leaves grown by random legal splits of the 1% sample): one batch
+  through the plan's kernel, the cluster kernel at two blocks of 32
+  warps, else the global one, a counted path a tree; the cluster kernel
+  forced (2 or 16 blocks, in two ranges at 20,000 leaves, one launch a
+  batch) and the global kernel forced, each equal to the plain version
+  and timed in turn;
 * sharded ingest (``sharded_ingest``, batches of 2**20): thread shards at
   k = 1, 2, 4, 8 (each on its own CUDA stream) and process shards at
   k = 4, 2 (spawned workers on the card, the table staged once); each
@@ -200,12 +210,15 @@ calls, host clock; route split into its kernel, from a trace, and the
 ids' copy back), whole-table ingests on fresh trees, one ingest under
 ``torch.profiler`` (the device's busy share), the fold of the running
 accumulator into the tightener (once an ingest), and each kernel against
-its plain version.  It exits non-zero on the first failure, without a
-CUDA device, and when the package is not beside it.  Output, before the
+its plain version (``fused_ingest_cluster`` on the finer layout, and
+``fused_ingest_global``, off the main path, forced on the same layout).
+It exits non-zero on the first failure, without a CUDA device, and when
+the package is not beside it.  Output, before the
 last line: the card's name and power limit, build seconds, one
 ``{"metrics": ...}`` JSON line (keys ``serve``, ``pipeline``,
 ``coordinator``, ``cli``, ``examples``, ``lm_serve``, ``lm_train``,
-``lm_shard``, ``dryrun``, and ``phase_s`` for every phase)
+``lm_shard``, ``dryrun``, ``big_trees``, and ``phase_s`` for every
+phase)
 and one ``{"kernels": [...]}`` JSON line (launches, median CUDA-event
 time, bound, plain-version time, max difference per kernel).  The last line is ``{"ok": true, "device":
 {...}}``.  ``--rows`` cuts the row count (the only cut allowed; it is
@@ -235,6 +248,12 @@ SAMPLE_EVERY = 100  # a 1% sample for the greedy build
 MIN_BLOCK = 400  # in sample records: ~40k rows a block at full size
 FINE_SAMPLE = 8_000  # TPC-H-like rows the finer layout is learned from
 FINE_MIN_BLOCK = 5  # ... giving 1,250 blocks, 250 KB of aggregates
+# trees past one block's shared memory, grown by random legal splits of
+# the 1% sample: the plan takes the cluster kernel for the first (two
+# blocks of 32 warps) and the global kernel for the others; forced, the
+# cluster kernel takes two blocks of 17 warps, 16 blocks, and 16 blocks
+# in two ranges
+BIG_TREES = (1_300, 1_800, 8_000, 20_000)
 ORACLE_ROWS = 1 << 18
 ORACLE_CHUNK = 1 << 18  # rows a host thread routes at a time
 ROUTE_QUERY_N = 10  # queries routed one at a time on the main path
@@ -414,13 +433,24 @@ KERNEL_SOURCES = {
                       "src/repro/kernels/route_records.py:114; "
                       "src/repro/kernels/route_records.py:198"),
     "fused_ingest_shared": (FUSED, FUSED_REF),
+    "fused_ingest_cluster": (FUSED, FUSED_REF),
     "fused_ingest_global": (FUSED, FUSED_REF),
     "query_intersect": ("src/repro_torch/kernels/csrc/query_intersect.cu",
                         "src/repro/kernels/query_intersect.py:94"),
 }
-VARIANTS = ("shared", "global")
-# kernels off the main path: ``route`` no longer goes through them
-OFF_PATH = ("eval_cuts", "locate_leaf")
+VARIANTS = ("shared", "global")  # route_descend's, eval_cuts', locate_leaf's
+FUSED_VARIANTS = ("shared", "cluster", "global")
+# kernels off the main path: ``route`` no longer goes through them, and
+# fused_ingest_global takes only trees past a cluster of two blocks, which
+# no layout of the main path reaches (the big trees' paths and the
+# autotuner's candidates launch it)
+OFF_PATH = ("eval_cuts", "locate_leaf", "fused_ingest_global")
+
+
+def fused_launches(counts: dict) -> int:
+    """``fused_ingest`` launches in a launch count, of any of its kernels."""
+    return (counts["fused_ingest_shared"] + counts["fused_ingest_cluster"]
+            + counts["fused_ingest_global"])
 
 
 def log(msg: str) -> None:
@@ -538,38 +568,26 @@ def traced_kernels(fn, reps: int) -> dict[str, list]:
     return spans
 
 
-def traced_kernel_ms(fn, name: str, reps: int) -> float:
-    """Median device time of the kernel ``name`` over ``reps`` calls of
-    ``fn`` under ``torch.profiler``; ``fn`` launches ``name`` once a call
-    and no other kernel of the repo.  The profiler may drop a kernel's
-    events (``traced_kernel_sample``; one of ten 0.02 ms
-    ``query_intersect`` kernels on the H100): a trace that shows fewer
-    than ``reps`` of ``name`` and nothing else is taken again, at most
-    TRACE_TRIES traces in all; the one kept must show exactly ``reps``."""
-    for attempt in range(TRACE_TRIES):
-        spans = traced_kernels(fn, reps)
-        counts = {k: len(v) for k, v in spans.items()}
-        if not (set(counts) == {name} and counts[name] < reps):
-            break  # complete, or a count no dropped event explains
-        log(f"trace {attempt + 1} of {name} kept {counts[name]} of {reps} "
-            f"kernels")
-    require(counts == {name: reps},
-            f"the trace shows {counts} kernels for {reps} calls; expected "
-            f"{reps} {name}")
-    return float(np.median(spans[name]))
-
-
 def traced_kernel_sample(fn, name: str, reps: int) -> dict:
     """Device times of the kernel ``name`` over ``reps`` calls of ``fn``
-    under ``torch.profiler``, where the trace may drop some of its
-    events (it dropped seven of ten 0.1 ms ``eval_cuts`` kernels at the
-    env's shape on the H100, and all ten of them at 2**20 rows once): the
-    median of those it kept and their count.  The launches themselves are
-    counted by the wrappers.  A trace that kept none is taken again, at
-    most TRACE_TRIES traces in all; fails if the last kept none, or shows
-    another kernel of the repo."""
+    under ``torch.profiler``: the median of the events the trace kept, and
+    their count.  The trace may drop some (seven of ten 0.1 ms
+    ``eval_cuts`` kernels at the env's shape on the H100, all ten of them
+    at 2**20 rows once, one of ten 0.02 ms ``query_intersect`` kernels in
+    every trace of one run), so the launches are counted by the wrappers
+    instead: each traced window must launch exactly ``reps`` of ``name``
+    and no other kernel of the repo.  A trace that kept none is taken
+    again, at most TRACE_TRIES traces in all; fails if the last kept none,
+    or shows another kernel of the repo."""
+    from repro_torch.kernels import _build
+
     for attempt in range(TRACE_TRIES):
+        before = _build.launch_counts()
         spans = traced_kernels(fn, reps)
+        launched = {k: v - before[k] for k, v in _build.launch_counts().items()
+                    if v != before[k]}
+        require(launched == {name: reps},
+                f"{reps} calls launched {launched}; expected {reps} {name}")
         if spans:
             break
         log(f"trace {attempt + 1} of {name} kept none of {reps} kernels")
@@ -686,7 +704,7 @@ def route_forced(rec, ops, variant):
 
 
 def compare_kernels(tree, rec, wt, dev, ctx: str,
-                    variants=VARIANTS) -> dict[str, float]:
+                    variants=FUSED_VARIANTS) -> dict[str, float]:
     """Each kernel against its plain version on the same inputs (exact):
     both kernels of ``eval_cuts``, ``locate_leaf`` and ``route_descend``,
     the last also against the two-kernel form."""
@@ -847,6 +865,75 @@ def fused_bound(tree, ops, bids, m: int, d: int):
                  path + m * (2 * d + n_cat + int(ops["n_adv"]) + 1))
 
 
+def big_tree_phase(ctx, cuts, x, counted) -> dict:
+    """Trees past one block's shared memory (BIG_TREES leaves over the
+    main path's schema and cuts, grown by random legal splits of the 1%
+    sample): one batch folded by the plan's kernel, each tree a counted
+    path of its own (``big_tree_<leaves>``) with one launch of that
+    kernel; then the cluster kernel (its own split, in ranges past the
+    largest cluster) and the one-thread-a-record kernel, each forced,
+    equal to the plain version too and timed in turn; and the bound."""
+    import torch
+
+    from repro_torch.core.qdtree import random_layout
+    from repro_torch.kernels import fused_ingest as fk
+
+    m, d = x.shape
+    dev = ctx["dev"]
+    out = {}
+    for n_leaves in BIG_TREES:
+        tree, grow_s = timed(random_layout, cuts, ctx["sample"], n_leaves,
+                             SEED)
+        require(tree.n_leaves == n_leaves,
+                f"grew {tree.n_leaves} leaves, not {n_leaves}")
+        ops = route_ops(tree, dev)
+        acc = fk.IngestAccumulator(ops)
+        plan = acc._launch
+        want_plan = fk.layout_plan(fk.plan_shape(ops),
+                                   fk.optin_bytes(dev.index))
+        require(plan._replace(most=0) == want_plan,
+                f"{n_leaves} leaves: plan {plan}, not {want_plan}")
+        path = f"big_tree_{n_leaves}"
+        bids = counted(path, lambda: acc.fold(x, bids=True))
+        name = fk.KERNEL_NAMES[plan.kernel]
+        require(ctx["path_launches"][path]
+                == {k: int(k == name) for k in ctx["path_launches"][path]},
+                f"{n_leaves} leaves: one batch launched "
+                f"{ctx['path_launches'][path]}; expected one {name}")
+        with fk._forced("cluster"):
+            acc_c = fk.IngestAccumulator(ops)
+        require((acc_c._launch.ranges > 1) == (n_leaves == BIG_TREES[-1]),
+                f"{n_leaves} leaves: cluster plan {acc_c._launch}")
+        with fk._forced("global"):
+            acc_g = fk.IngestAccumulator(ops)
+        plain = fk.IngestAccumulator(ops)
+        want = [fk.fused_ingest_plain(x, plain), *plain.tensors()]
+        err = {"plan": max_abs_err([bids, *acc.tensors()], want)}
+        for v, a in (("cluster", acc_c), ("global", acc_g)):
+            err[v] = max_abs_err([a.fold(x, bids=True), *a.tensors()], want)
+        require(all(e == 0.0 for e in err.values()),
+                f"{n_leaves} leaves: the kernels differ from the plain "
+                f"version by {err}")
+        times = {"cluster": [], "global": []}
+        turns = (("cluster", acc_c), ("global", acc_g))
+        for v, a in turns + turns[::-1]:  # cluster, global, global, ...
+            times[v].append(time_ms(lambda: a.fold(x), 20))
+        bound_ms, bound_by = fused_bound(tree, ops, bids.cpu().numpy(), m, d)
+        out[n_leaves] = {
+            "grow_s": grow_s, "depth": tree.depth, "kernel": name,
+            "plan": plan._asdict(), "cluster_plan": acc_c._launch._asdict(),
+            "max_abs_err": max(err.values()), "cluster_ms": times["cluster"],
+            "global_ms": times["global"], "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        log(f"{n_leaves} leaves (grown in {grow_s:.1f}s, depth "
+            f"{tree.depth}): plan {plan} ({name}); cluster "
+            f"{acc_c._launch} {times['cluster']} ms, global "
+            f"{times['global']} ms, bound {bound_ms:.6f} ms")
+        del acc, acc_c, acc_g, plain, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def baseline_layouts(sample: np.ndarray, seed: int, n_blocks: int) -> dict:
     """The paper's baseline layouts over the greedy tree's 1% sample, built
     by the port's host code (run in a second process): the range layout at
@@ -933,8 +1020,7 @@ def shard_phase(ctx, counted) -> dict:
         rep = counted(path, lambda: run_thread(eng, k))
         check(rep, eng.tree, f"thread shards k={k}")
         launched = ctx["path_launches"][path]
-        fused = launched["fused_ingest_shared"] + launched[
-            "fused_ingest_global"]
+        fused = fused_launches(launched)
         require(fused == rep.n_batches,
                 f"thread shards k={k}: {fused} fused_ingest launches for "
                 f"{rep.n_batches} batches")
@@ -983,8 +1069,7 @@ def shard_phase(ctx, counted) -> dict:
                 rep = counted(path, run_process)
                 check(rep, eng.tree, f"process shards k={k}")
                 worker = sess.stats()["launches"]
-                fused = (worker["fused_ingest_shared"]
-                         + worker["fused_ingest_global"])
+                fused = fused_launches(worker)
                 require(fused == rep.n_batches,
                         f"process shards k={k}: {fused} fused_ingest "
                         f"launches in the workers for {rep.n_batches} "
@@ -1066,8 +1151,8 @@ def spill_phase(ctx, counted) -> tuple:
     rep = counted("spill", lambda: eng.ingest(slices, buffers=buf))
     n = len(slices)
     launched = ctx["path_launches"]["spill"]
-    require(launched["fused_ingest_shared"] + launched["fused_ingest_global"]
-            == n, f"spill ingest: {launched} for {n} batches")
+    require(fused_launches(launched) == n,
+            f"spill ingest: {launched} for {n} batches")
     require(np.array_equal(buf.sizes, rep.block_sizes)
             and np.array_equal(buf.sizes, ctx["oracle_tree"].block_sizes),
             "spill buffer sizes differ from the block sizes")
@@ -2916,8 +3001,8 @@ def lm_train_full(arch: str, children: list) -> dict:
             and not summary["dtensor_leaves"],
             f"train CLI {arch}: {summary}")
     launches = summary["launches"]
-    require(launches["fused_ingest_shared"] + launches["fused_ingest_global"]
-            > 0 and launches["query_intersect"] > 0,
+    require(fused_launches(launches) > 0
+            and launches["query_intersect"] > 0,
             f"train CLI {arch}: the data tier launched {launches}")
     step_s = summary["step_ms_median"] / 1e3
     flops = model.model_flops_per_token(cfg) * LM_TRAIN_TOKENS
@@ -3244,8 +3329,7 @@ def lm_train_phase(ctx, counted) -> dict:
     require(rel <= LM_RESUME_RTOL,
             f"resumed losses {got.tolist()} against {want.tolist()}")
     for s in (ref, resumed):
-        require(s["launches"]["fused_ingest_shared"]
-                + s["launches"]["fused_ingest_global"] > 0
+        require(fused_launches(s["launches"]) > 0
                 and s["launches"]["query_intersect"] > 0,
                 f"a reduced train CLI's data tier launched {s['launches']}")
         ctx["worker_launches"].append(s["launches"])
@@ -3757,7 +3841,7 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
         ctx = f"random tree {seed}"
         compare_kernels(tree, rec, work.tensorize(tree.cuts), dev, ctx)
         running_fold(tree, rec, recs, [0, 1, 777, 20_000, 20_001, 50_000],
-                     dev, ctx, VARIANTS, workers)
+                     dev, ctx, FUSED_VARIANTS, workers)
     torch.cuda.synchronize()
     log("small random trees: every kernel equals its plain version; the "
         "running fold equals the plain version and the numpy oracle")
@@ -3923,8 +4007,8 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     route_copy_ms = host_ms(lambda: ids.cpu(), LAT_REPS)
     queries_ms = host_ms(lambda: engine.route_queries(work), LAT_REPS)
     query_ms = host_ms(lambda: engine.route_query(work.queries[0]), LAT_REPS)
-    route_kernel_ms = traced_kernel_ms(lambda: engine.route(slices[0]),
-                                       "route_descend", LAT_REPS)
+    route_kernel_ms = traced_kernel_sample(lambda: engine.route(slices[0]),
+                                           "route_descend", LAT_REPS)["ms"]
     engine.fused_step(slices[-1], return_bids=False)
     require(tplan.build_counts() == warm, "a warm engine built a plan")
 
@@ -3968,14 +4052,14 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     # large for shared memory; the running fold over uneven batches -------
     errs = compare_kernels(tree, slices[0], wt, dev, "main path shapes")
     fine_errs = compare_kernels(fine, slices[0], wt, dev, "finer layout",
-                                variants=("global",))
+                                variants=("cluster", "global"))
     fops = route_ops(fine, dev)
     before = _build.launch_counts()
     fk.IngestAccumulator(fops).fold(slices[0])
     after = _build.launch_counts()
-    require(after["fused_ingest_global"] == before["fused_ingest_global"] + 1
-            and after["fused_ingest_shared"] == before["fused_ingest_shared"],
-            "the finer layout's aggregates should take the global kernel")
+    require({k: after[k] - before[k] for k in after}
+            == {k: int(k == "fused_ingest_cluster") for k in after},
+            "the finer layout's aggregates should take the cluster kernel")
     try:
         with fk._forced("shared"):
             fk.IngestAccumulator(fops).fold(slices[0])
@@ -3984,12 +4068,13 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
         refused = True
     require(refused, "a shared-memory request past the card's limit must "
                      "raise")
-    errs["fused_ingest_global"] = max(errs["fused_ingest_global"],
-                                      fine_errs["fused_ingest_global"])
+    for v in ("cluster", "global"):
+        errs[f"fused_ingest_{v}"] = max(errs[f"fused_ingest_{v}"],
+                                        fine_errs[f"fused_ingest_{v}"])
     n_run = min(n_rows, 3 * BATCH // 2)
     bounds = sorted({0, 1, 1000, min(BATCH - 3, n_run), n_run})
     running_fold(tree, rec_dev, records, bounds, dev, "main path shapes",
-                 VARIANTS, workers)
+                 FUSED_VARIANTS, workers)
     log("main path shapes: every kernel equals its plain version; running "
         "fold equal to the plain version and the numpy oracle")
 
@@ -3998,10 +4083,11 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     ops = route_ops(tree, dev)
     leaf, conj, layout = query_args(tree, wt, dev)
     m_mat = rk.eval_cuts(x, ops)
-    acc_s, acc_g = fk.IngestAccumulator(ops), fk.IngestAccumulator(fops)
-    acc_p, acc_gp = fk.IngestAccumulator(ops), fk.IngestAccumulator(fops)
-    with fk._forced("global"):
-        acc_gm = fk.IngestAccumulator(ops)
+    acc_s, acc_c = fk.IngestAccumulator(ops), fk.IngestAccumulator(fops)
+    acc_p, acc_cp = fk.IngestAccumulator(ops), fk.IngestAccumulator(fops)
+    acc_gp = fk.IngestAccumulator(fops)
+    with fk._forced("global"):  # the old kernel, on the same layouts
+        acc_gm, acc_g = fk.IngestAccumulator(ops), fk.IngestAccumulator(fops)
     runs = {
         "eval_cuts": (lambda: rk.eval_cuts(x, ops),
                       lambda: rk.eval_cuts_plain(x, ops)),
@@ -4013,6 +4099,9 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
         "fused_ingest_shared": (
             lambda: acc_s.fold(x),
             lambda: fk.fused_ingest_plain(x, acc_p, bids=False)),
+        "fused_ingest_cluster": (
+            lambda: acc_c.fold(x),
+            lambda: fk.fused_ingest_plain(x, acc_cp, bids=False)),
         "fused_ingest_global": (
             lambda: acc_g.fold(x),
             lambda: fk.fused_ingest_plain(x, acc_gp, bids=False)),
@@ -4041,12 +4130,13 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     locate_trace = traced_kernel_sample(lambda: rk.locate_leaf(m_mat, ops),
                                         "locate_leaf", LAT_REPS)
     # the query kernel's own device time, without the wrapper's host side
-    q_kernel_ms = traced_kernel_ms(
+    q_kernel_ms = traced_kernel_sample(
         lambda: qk.query_intersect(leaf, conj, layout), "query_intersect",
-        LAT_REPS)
+        LAT_REPS)["ms"]
 
-    # -- this slice's paths, each counted from 0: sharded ingest, spill,
-    # block store, autotune, baselines -------------------------------------
+    # -- this slice's paths, each counted from 0: the trees past one block's
+    # shared memory, sharded ingest, spill, block store, autotune,
+    # baselines -------------------------------------------------------------
     ctx = {
         "dev": dev, "records": records, "rec_dev": rec_dev, "slices": slices,
         "sizes": sizes, "n_rows": n_rows, "untightened": untightened,
@@ -4056,7 +4146,9 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
         "worker_launches": [], "work": work, "wt": wt, "sample": sample,
         "tree": tree, "children": children, "lm_cli": lm_cli_runs,
     }
-    phase_s = {}
+    t0 = time.perf_counter()
+    big = big_tree_phase(ctx, cuts, x, counted)
+    phase_s = {"big_trees": time.perf_counter() - t0}
     t0 = time.perf_counter()
     shards = shard_phase(ctx, counted)
     phase_s["shard"] = time.perf_counter() - t0
@@ -4182,6 +4274,8 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
         "route_descend": bound(
             m * d * 4 + nodes + int(ops["in_mask"].numel()) + m * 4, path),
         "fused_ingest_shared": fused_bound(tree, ops, route_bids, m, d),
+        "fused_ingest_cluster": fused_bound(fine, fops, fine_route_bids, m,
+                                            d),
         "fused_ingest_global": fused_bound(fine, fops, fine_route_bids, m, d),
         "query_intersect": bound(
             4 * (L * kl + nq * kc) + 8 * L + L * nq + 8 * nq,
@@ -4244,6 +4338,10 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
         "locate_leaf_plan": dict(zip(plan_keys, rk.locate_leaf_plan(ops))),
         "fused_fold_host_ms": fold_host_ms,
         "fused_shared_plan": shared_plan,
+        # the finer layout's plan (fused_ingest_cluster), and the trees past
+        # one block grown from the sample
+        "fused_cluster_plan": acc_c._launch._asdict(),
+        "big_trees": big,
         "query_intersect_kernel_ms": q_kernel_ms,
         "route_ms_per_batch": route_ms,
         # its kernel alone (trace of engine.route calls) and the ids' copy
@@ -4419,6 +4517,18 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
           f"(plain {c['plain']['losses']}, compressed "
           f"{c['compressed']['losses']}); wire {c['wire_bytes']} B against "
           f"{c['f32_bytes']} B in float32")
+    print(f"fused_ingest on the finer layout ({fine.n_leaves} leaves, plan "
+          f"{acc_c._launch}): cluster {times['fused_ingest_cluster'][0]:.6f} "
+          f"ms, the old global kernel {times['fused_ingest_global'][0]:.6f} "
+          f"ms; on the main layout: shared "
+          f"{times['fused_ingest_shared'][0]:.6f} ms, global "
+          f"{global_on_main_ms:.6f} ms")
+    for n_leaves, r in big.items():
+        print(f"fused_ingest on {n_leaves} grown leaves (the plan's kernel "
+              f"{r['kernel']}): cluster {r['cluster_ms']} ms (blocks "
+              f"{r['cluster_plan']['cluster']}, ranges "
+              f"{r['cluster_plan']['ranges']}), global {r['global_ms']} ms, "
+              f"bound {r['bound_ms']:.6f} ms")
     print(f"phase seconds: {phase_s}")
     print(json.dumps({"metrics": metrics}))
     print(json.dumps({"kernels": kernels}))

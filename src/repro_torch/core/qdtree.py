@@ -543,3 +543,43 @@ def singleton_tree(
     """T_0: the tree with only a root (paper Alg. 1 initialization)."""
     root = Node(desc=root_desc(schema, cuts.n_adv), rows=sample_rows)
     return QdTree(schema=schema, cuts=cuts, root=root)
+
+
+def grow_random(tree, cut_matrix: np.ndarray, n_leaves: int, seed: int):
+    """``tree`` (a singleton tree of this package or the JAX package's,
+    over a sample whose predicate matrix is ``cut_matrix``) split at random
+    leaves by random legal cuts until it has ``n_leaves`` leaves or none
+    can split, frozen.  No workload guides it, so its leaves are as uneven
+    as random cuts make them: a tree of a given size for kernel tests and
+    timings, not a layout."""
+    rng = np.random.default_rng(seed)
+    open_leaves, n = [tree.root], 1
+    while n < n_leaves and open_leaves:
+        i = int(rng.integers(len(open_leaves)))
+        node = open_leaves[i]
+        cut = -1
+        for c in rng.integers(0, cut_matrix.shape[1], 8):  # most split
+            if 0 < cut_matrix[node.rows, c].sum() < node.size:
+                cut = int(c)
+                break
+        if cut < 0:
+            s = cut_matrix[node.rows].sum(axis=0)
+            legal = np.flatnonzero((s > 0) & (s < node.size))
+            if legal.size == 0:
+                open_leaves[i] = open_leaves[-1]
+                open_leaves.pop()
+                continue
+            cut = int(rng.choice(legal))
+        left, right = tree.split(node, cut, cut_matrix=cut_matrix)
+        open_leaves[i] = left
+        open_leaves.append(right)
+        n += 1
+    return tree.freeze()
+
+
+def random_layout(cuts: CutTable, sample: np.ndarray, n_leaves: int,
+                  seed: int) -> FrozenQdTree:
+    """:func:`grow_random` from this package's singleton tree over
+    ``cuts`` and ``sample``."""
+    tree = singleton_tree(cuts.schema, cuts, np.arange(sample.shape[0]))
+    return grow_random(tree, preds.eval_cuts(sample, cuts), n_leaves, seed)

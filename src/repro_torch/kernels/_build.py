@@ -69,6 +69,7 @@ _ARGTYPES = {
         P, P, P, P, P, P, P,  # bids (or null) + accumulators
         I32, I32, I32,  # n_leaves, cw, aw
         I32, I32, I32, I32,  # the plan: kernel, warps, smem, most blocks
+        I32, I32, I32,  # ... the cluster's: blocks, ranges, leaves a block
         P,  # stream
     ],
     "query_intersect": [
@@ -91,15 +92,16 @@ _EXTRA = {
         "route_descend_plan": [I32] * 3 + [ctypes.POINTER(I32)],  # plan
     },
     "fused_ingest": {
-        "fused_ingest_plan": [I32] * 7 + [ctypes.POINTER(I32)],  # plan
+        # kernel, warps, smem, cluster, ranges, leaves a block, n_leaves
+        "fused_ingest_plan": [I32] * 7 + [ctypes.POINTER(I32)],
     },
 }
 
-# the kernels each launch counter stands for: fused_ingest.cu's two count
+# the kernels each launch counter stands for: fused_ingest.cu's three count
 # apart, route_descend.cu's two together
 LAUNCH_NAMES = ("eval_cuts", "locate_leaf", "route_descend",
-                "fused_ingest_shared", "fused_ingest_global",
-                "query_intersect")
+                "fused_ingest_shared", "fused_ingest_cluster",
+                "fused_ingest_global", "query_intersect")
 
 LAUNCHES: collections.Counter = collections.Counter()  # guarded by: _COUNT_LOCK
 _COUNT_LOCK = threading.Lock()

@@ -10,12 +10,19 @@ is copied to the host once, at the end (:meth:`IngestAccumulator.partial`).
 Min, max, add and or are associative, so folding batch after batch equals
 one fold of their concatenation, bit for bit.
 
-On a CUDA tensor ``fold`` launches one of two kernels of
+On a CUDA tensor ``fold`` launches one kernel of
 ``csrc/fused_ingest.cu``: the shared-memory kernel when the tree's
-aggregates fit a block's shared memory, else the global-atomic kernel.
-The choice, the warps a block and the grid's cap are planned once a shape
-(``_build.plan``), not once a batch, or pinned by the caller (the
-autotuner's geometry, ``engine/autotune.py``), checked against the card.
+aggregates fit a block's shared memory, else the cluster kernel, whose
+cluster of two blocks splits them, where each block keeps every warp
+beside its half, else the one-thread-a-record global kernel (on an H100
+it was as fast or faster on every larger tree, PERF.md §6; the cluster
+kernel's other sizes, and a cluster's leaves in ranges of one launch,
+run when forced).  The choice, the warps a block, the cluster's
+size and its leaf split are planned once a shape, not once a batch
+(:func:`layout_plan`, pure arithmetic on the shape and the card's
+shared bytes), or pinned by the caller (the autotuner's geometry,
+``engine/autotune.py``), and checked against the card
+(``fused_ingest_plan``).
 The plain PyTorch version beside them evaluates the full predicate
 matrix, locates leaves in path-constraint form and folds with scatters
 into the same accumulator layout; the wrapper takes it only for a tensor
@@ -30,7 +37,8 @@ from __future__ import annotations
 # qdlint: deterministic-module
 
 import contextlib
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -49,27 +57,172 @@ from repro_torch.kernels.route_records import (
 I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
 
-# fused_ingest_plan's ``variant`` argument, and the launch counter each
-# kernel moves
-VARIANTS = {None: 0, "shared": 1, "global": 2}
-KERNEL_NAMES = {1: "fused_ingest_shared", 2: "fused_ingest_global"}
+# the plan's kernel, and the launch counter each kernel moves
+VARIANTS = {None: 0, "shared": 1, "global": 2, "cluster": 3}
+KERNEL_NAMES = {1: "fused_ingest_shared", 2: "fused_ingest_global",
+                3: "fused_ingest_cluster"}
 MAX_WARPS = 32  # csrc/fused_ingest.cu's kMaxWarps: 1024 threads a block
+MIN_WARPS = 4  # fewer warps beside the aggregates: the cluster kernel
+CLUSTER_SIZES = (2, 4, 8, 16)  # 16 past the portable 8, where the card allows
+# the cluster kernel is planned unforced only at PLANNED_CLUSTER blocks of
+# MAX_WARPS warps each (up to about 1,380 leaves at 21 columns); past
+# that the global kernel was as fast or faster on an H100 (PERF.md §6)
+PLANNED_CLUSTER = 2
+# warps a block the cluster's leaf split is sized by; the block then
+# takes as many warps as fit beside its slice
+SPLIT_WARPS = 16
+# inbox entries a peer warp's lane: csrc/fused_ingest.cu's kInboxShare
+INBOX_SHARE = 2
 
-# The kernel the accumulators made under :func:`_forced` take; None
-# chooses by shape.  For tests and measurement only.
-_FORCED: Optional[str] = None
+# The kernel the accumulators made under :func:`_forced` take, with the
+# cluster kernel's split to force; None chooses by shape.  For tests and
+# measurement only.
+_FORCED: tuple = (None, None, None)
 
 
 @contextlib.contextmanager
-def _forced(variant: Optional[str]):
-    """Accumulators made inside take ``variant`` ("shared" or "global");
-    forcing the shared kernel on a tree too large for it raises."""
+def _forced(variant: Optional[str], cluster: Optional[int] = None,
+            ranges: Optional[int] = None):
+    """Accumulators made inside take ``variant`` ("shared", "cluster" or
+    "global"), the cluster kernel with ``cluster`` blocks a cluster and
+    ``ranges`` ranges where given; forcing the shared kernel on a tree too
+    large for it, or a cluster the card refuses, raises."""
     global _FORCED
-    before, _FORCED = _FORCED, variant
+    before, _FORCED = _FORCED, (variant, cluster, ranges)
     try:
         yield
     finally:
         _FORCED = before
+
+
+class Plan(NamedTuple):
+    """A launch plan: the kernel (:data:`VARIANTS`), warps a block,
+    dynamic shared bytes, the most blocks (shared) or clusters (cluster)
+    resident on the card (0 until the card is asked), and the cluster
+    kernel's blocks a cluster, ranges and leaves a block (0 otherwise)."""
+
+    kernel: int
+    warps: int
+    smem: int
+    most: int = 0
+    cluster: int = 0
+    ranges: int = 0
+    per_block: int = 0
+
+
+def leaf_bytes(shape: tuple) -> int:
+    """Shared bytes of one leaf's aggregates: count, lo and hi of every
+    column, categorical and advanced-cut words."""
+    _, d, cw, aw, _, _ = shape
+    return 4 * (1 + 2 * d + cw + 2 * aw)
+
+
+def table_bytes(shape: tuple) -> int:
+    """Shared bytes of the fold's small tables: categorical columns, their
+    bit offsets and the advanced cuts' (col_a, op, col_b) rows."""
+    _, d, _, _, n_cat, n_adv = shape
+    return 4 * (n_cat + d + 3 * n_adv)
+
+
+def tile_bytes(d: int) -> int:
+    """One warp's staging buffer: 32 rows of ``d`` int32 columns."""
+    return 4 * 32 * d
+
+
+def inbox_bytes(cluster: int) -> int:
+    """A cluster kernel block's two inboxes, a warp: a 4-byte entry for
+    each row its peers' warps may send it in a round, up to INBOX_SHARE a
+    lane; rows past a full inbox are folded by their senders."""
+    return 2 * 4 * 32 * min(cluster - 1, INBOX_SHARE)
+
+
+def block_leaves(shape: tuple, optin: int, cluster: int) -> int:
+    """Leaves a block of a cluster of ``cluster`` holds beside the warps
+    the split is sized by: SPLIT_WARPS, fewer where their tiles would
+    take more than half a block's bytes, never fewer than MIN_WARPS, each
+    with its tile and its inbox share; and the inboxes' two counts."""
+    tile = tile_bytes(shape[1])
+    sizing = min(SPLIT_WARPS, max(MIN_WARPS, optin // 2 // tile))
+    free = optin - table_bytes(shape) - 8 - sizing * (
+        tile + inbox_bytes(cluster))
+    return max(1, free // leaf_bytes(shape))
+
+
+def shared_warps_fit(shape: tuple, optin: int) -> int:
+    """Warps whose tiles fit beside the whole tree's aggregates (at most
+    MAX_WARPS, 0 when none does)."""
+    fixed = shape[0] * leaf_bytes(shape) + table_bytes(shape)
+    return max(0, min(MAX_WARPS, (optin - fixed) // tile_bytes(shape[1])))
+
+
+def layout_plan(shape: tuple, optin: int, variant: Optional[str] = None,
+                warps: Optional[int] = None, cluster: Optional[int] = None,
+                ranges: Optional[int] = None) -> Plan:
+    """The launch plan of a tree of ``shape`` (:func:`plan_shape`) on a
+    card whose blocks may opt in to ``optin`` shared bytes; ``most`` is
+    left 0 for the card to fill.  Pure arithmetic, no card asked.
+
+    ``variant`` None takes the shared kernel when MIN_WARPS warps' tiles
+    fit beside the aggregates, else the cluster kernel when its split is
+    PLANNED_CLUSTER blocks of MAX_WARPS warps, else the global kernel.  The
+    cluster kernel's leaf split (:func:`block_leaves`) is the smallest
+    size of CLUSTER_SIZES whose blocks hold the tree, else the largest in
+    the fewest ranges; each block then takes ``warps``, or as many as fit
+    beside its slice of ``per_block`` leaves.  ``cluster`` and ``ranges``
+    force the split.
+    Nothing is clamped to fit: a plan past ``optin`` goes to the card,
+    which refuses it.
+    """
+    L, d = shape[0], shape[1]
+    tile = tile_bytes(d)
+    fit = shared_warps_fit(shape, optin)
+    if variant is None:
+        if fit < MIN_WARPS:
+            p = layout_plan(shape, optin, "cluster")
+            return (p if (p.cluster, p.warps) == (PLANNED_CLUSTER, MAX_WARPS)
+                    else layout_plan(shape, optin, "global", warps))
+        variant = "shared"
+    if variant == "global":
+        return Plan(VARIANTS["global"], warps or 8, 0)
+    if variant == "shared":
+        w = warps or max(1, fit)
+        return Plan(VARIANTS["shared"], w,
+                    L * leaf_bytes(shape) + table_bytes(shape) + w * tile)
+    if variant != "cluster":
+        raise ValueError(f"unknown fused_ingest variant {variant!r}")
+    if cluster is None:
+        fits = [c for c in CLUSTER_SIZES
+                if c * block_leaves(shape, optin, c) >= L]
+        cluster = fits[0] if fits else CLUSTER_SIZES[-1]
+    if ranges is None:
+        ranges = -(-L // (cluster * block_leaves(shape, optin, cluster)))
+    per_block = -(-L // (cluster * ranges))
+    # the tables, the slice and the inboxes' two counts
+    fixed = table_bytes(shape) + per_block * leaf_bytes(shape) + 8
+    per_warp = tile + inbox_bytes(cluster)
+    w = warps or max(1, min(MAX_WARPS, (optin - fixed) // per_warp))
+    return Plan(VARIANTS["cluster"], w, fixed + w * per_warp, 0, cluster,
+                ranges, per_block)
+
+
+@functools.lru_cache(maxsize=None)
+def optin_bytes(index: int) -> int:
+    """Shared bytes a block of device ``index`` may opt in to."""
+    return int(torch.cuda.get_device_properties(
+        index).shared_memory_per_block_optin)
+
+
+def device_plan(index: int, shape: tuple, variant: Optional[str] = None,
+                cluster: Optional[int] = None, ranges: Optional[int] = None,
+                warps: Optional[int] = None) -> Plan:
+    """:func:`layout_plan` on device ``index``, checked by the card
+    (``fused_ingest_plan``), with the most blocks or clusters resident;
+    raises ``RuntimeError`` with CUDA's error where the card refuses it."""
+    p = layout_plan(shape, optin_bytes(index), variant, warps, cluster,
+                    ranges)
+    out = _build.plan("fused_ingest", index, p.kernel, p.warps, p.smem,
+                      p.cluster, p.ranges, p.per_block, shape[0])
+    return p._replace(most=out[3])
 
 
 class IngestAccumulator:
@@ -92,10 +245,11 @@ class IngestAccumulator:
 
     def __init__(self, ops: dict, launch: Optional[tuple] = None):
         """``launch`` pins the geometry, ``(variant, warps a block, grid
-        cap)`` with variant "shared" or "global" (the global kernel sizes
-        its own grid, so its cap is unused); None plans it by shape.  A
-        pinned geometry the card cannot run raises ``ValueError``.  On the
-        CPU the plain version runs and the geometry is not used.
+        cap)`` with variant "shared", "cluster" or "global" (the cluster
+        and global kernels size their own grids, so their cap is unused);
+        None plans it by shape.  A pinned geometry the card cannot run
+        raises ``ValueError``.  On the CPU the plain version runs and the
+        geometry is not used.
         """
         self.ops = ops
         dev = ops["cat_off"].device
@@ -135,7 +289,7 @@ class IngestAccumulator:
             index = torch.cuda.current_device() if dev.index is None \
                 else dev.index
             self._launch = (
-                _build.plan("fused_ingest", index, *shape, VARIANTS[_FORCED])
+                device_plan(index, shape, *_FORCED)
                 if launch is None else pinned_plan(index, shape, *launch)
             )
 
@@ -214,36 +368,47 @@ def plan_shape(ops: dict) -> tuple[int, ...]:
 
 
 def pinned_plan(index: int, shape: tuple, variant: str, warps: int,
-                max_blocks: int) -> tuple[int, int, int, int]:
+                max_blocks: int) -> Plan:
     """The launch plan of a pinned geometry on device ``index``.
 
     Checked, never clamped: a geometry the card cannot run raises
     ``ValueError`` with the reason.  The shared kernel's bytes are the
-    aggregates plus one 32-row tile a warp; the shape's own plan
-    (``fused_ingest_plan``, forced shared) gives the most warps that fit.
+    aggregates plus one 32-row tile a warp; the cluster kernel, which
+    takes only trees whose aggregates do not fit one block, keeps its
+    plan's cluster size and leaf split, and its warps' tiles must fit
+    beside a block's slice.  The global kernel sizes its own grid.
     """
-    if variant not in ("shared", "global"):
-        raise ValueError(f"variant must be 'shared' or 'global', not "
-                         f"{variant!r}")
+    if variant not in ("shared", "cluster", "global"):
+        raise ValueError(f"variant must be 'shared', 'cluster' or "
+                         f"'global', not {variant!r}")
     warps, max_blocks = int(warps), int(max_blocks)
     if not 1 <= warps <= MAX_WARPS:
         raise ValueError(f"{warps} warps a block: the kernels take 1 to "
                          f"{MAX_WARPS}")
     if variant == "global":
-        return (VARIANTS["global"], warps, 0, 0)
-    if max_blocks < 1:
+        return Plan(VARIANTS["global"], warps, 0)
+    if variant == "shared" and max_blocks < 1:
         raise ValueError(f"a grid cap of {max_blocks} blocks")
-    try:
-        kernel, fit, smem, _ = _build.plan("fused_ingest", index, *shape,
-                                           VARIANTS["shared"])
-    except RuntimeError as exc:
-        raise ValueError(f"the tree's aggregates do not fit a block's "
-                         f"shared memory ({exc})") from None
+    optin = optin_bytes(index)
+    fit = shared_warps_fit(shape, optin)
+    if variant == "cluster":
+        if fit >= MIN_WARPS:
+            raise ValueError("the tree's aggregates fit one block's shared "
+                             "memory: the shared kernel takes it")
+        p = layout_plan(shape, optin, "cluster", warps)
+        if p.smem > optin:
+            raise ValueError(f"{warps} warps do not fit beside a block's "
+                             f"{p.per_block} leaves ({p.smem} of {optin} "
+                             f"shared bytes)")
+        return device_plan(index, shape, "cluster", warps=warps)
+    if fit < 1:
+        raise ValueError("the tree's aggregates do not fit a block's shared "
+                         "memory")
     if warps > fit:
         raise ValueError(f"{warps} warps do not fit beside the aggregates: "
                          f"at most {fit} fit a block's shared memory")
-    tile = 4 * 32 * shape[1]
-    return (kernel, warps, smem - (fit - warps) * tile, max_blocks)
+    p = device_plan(index, shape, "shared", warps=warps)
+    return p._replace(most=max_blocks)
 
 
 def pack_bits(present: torch.Tensor, n_words: int) -> torch.Tensor:

@@ -140,4 +140,4 @@ def test_pinned_geometry_is_checked():
     with pytest.raises(ValueError, match="grid cap"):
         tfk.pinned_plan(0, (1, 1, 1, 1, 0, 0), "shared", 8, 0)
     assert tfk.pinned_plan(0, (1, 1, 1, 1, 0, 0), "global", 16, 0) == (
-        tfk.VARIANTS["global"], 16, 0, 0)
+        tfk.Plan(tfk.VARIANTS["global"], 16, 0))

@@ -24,7 +24,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.core import predicates as preds  # noqa: E402
 from repro_torch.core import query as qry  # noqa: E402
-from repro_torch.core.qdtree import singleton_tree  # noqa: E402
+from repro_torch.core.qdtree import random_layout, singleton_tree  # noqa: E402
 from repro_torch.engine import LayoutEngine  # noqa: E402
 from repro_torch.engine import plan as tplan  # noqa: E402
 from repro_torch.kernels import fused_ingest as tfk  # noqa: E402
@@ -425,10 +425,11 @@ def wide_case(seed, d=160, m=4000, leaves=200):
     return tree.freeze(), records
 
 
-def _fold_both(ops, batches, variant):
-    """Fold the same batches with the kernel and with the plain version;
-    the block ids of each, and the two accumulators."""
-    with tfk._forced(variant):
+def _fold_both(ops, batches, variant, *split):
+    """Fold the same batches with the kernel (``variant`` forced, the
+    cluster kernel's ``split`` (blocks a cluster, ranges) too) and with the
+    plain version; the block ids of each, and the two accumulators."""
+    with tfk._forced(variant, *split):
         acc_k = tfk.IngestAccumulator(ops)
     acc_p = tfk.IngestAccumulator(ops)
     got = [acc_k.fold(b, bids=True) for b in batches]
@@ -453,7 +454,7 @@ def test_fused_ingest_kernel_matches_plain(seed):
     _assert_same(acc_k, acc_p)
 
 
-@pytest.mark.parametrize("variant", ["shared", "global"])
+@pytest.mark.parametrize("variant", ["shared", "cluster", "global"])
 @pytest.mark.parametrize("seed", SEEDS)
 def test_fused_variants_match_plain(seed, variant):
     from repro_torch.kernels import _build
@@ -473,10 +474,8 @@ def test_fused_variants_match_plain(seed, variant):
 
 
 def test_shared_plan_takes_every_warp_that_fits():
-    from repro_torch.kernels import _build
-
     def _plan(index, shape, variant):
-        return _build.plan("fused_ingest", index, *shape, variant)
+        return tfk.device_plan(index, shape, variant)[:4]
 
     dev = _cuda()
     optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
@@ -486,17 +485,17 @@ def test_shared_plan_takes_every_warp_that_fits():
         L, d, cw, aw, n_cat, n_adv = shape
         fixed = 4 * L * (1 + 2 * d + cw + 2 * aw) + 4 * (n_cat + d + 3 * n_adv)
         warps = min(32, (optin - fixed) // (4 * 32 * d))
-        kernel, got_warps, smem, most = _plan(dev.index, shape, 0)
+        kernel, got_warps, smem, most = _plan(dev.index, shape, None)
         if warps < 4:
-            assert kernel == 2
+            assert kernel == 3
             continue
         assert (kernel, got_warps, smem) == (1, warps, fixed + warps * 128 * d)
         assert most >= torch.cuda.get_device_properties(dev).multi_processor_count
     if optin >= 232448:  # an H100's 227 KB: every warp fits at tpch-40M
-        assert _plan(dev.index, (724, 21, 5, 1, 11, 3), 0)[1] == 32
+        assert _plan(dev.index, (724, 21, 5, 1, 11, 3), None)[1] == 32
 
 
-@pytest.mark.parametrize("variant", [None, "shared", "global"])
+@pytest.mark.parametrize("variant", [None, "shared", "cluster", "global"])
 def test_running_fold_over_uneven_batches(variant):
     dev = _cuda()
     frozen, records, _ = random_case(1)
@@ -526,8 +525,10 @@ def test_tree_too_large_for_shared_memory():
     before = _build.launch_counts()
     got, want, acc_k, acc_p = _fold_both(ops, [rec[:1], rec[1:]], None)
     after = _build.launch_counts()
-    assert after["fused_ingest_global"] == before["fused_ingest_global"] + 2
-    assert after["fused_ingest_shared"] == before["fused_ingest_shared"]
+    # the plan's kernel: a cluster of two does not hold 200 leaves of 160
+    # columns beside 4 warps' tiles either
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 2 * (k == "fused_ingest_global") for k in after}
     assert torch.equal(got, want)
     _assert_same(acc_k, acc_p)
     # forcing the shared kernel raises: the request is refused, and
@@ -537,10 +538,230 @@ def test_tree_too_large_for_shared_memory():
             tfk.IngestAccumulator(ops)
     assert _build.launch_counts() == after
     # the refusal leaves no error behind for the next launch
-    with tfk._forced("global"):
-        acc = tfk.IngestAccumulator(ops)
+    acc = tfk.IngestAccumulator(ops)
     acc.fold(rec)
     torch.cuda.synchronize()
+
+
+def tpch_case(n_leaves, m, seed=0):
+    """A tree of ``n_leaves`` leaves over the TPC-H-like schema and the
+    tpch workload's cuts (tpch-40M's), grown by random legal splits of a
+    sample, and ``m`` other records."""
+    from repro_torch.data.datagen import make_tpch_like
+    from repro_torch.data.workload import make_tpch_workload
+
+    schema, sample = make_tpch_like(4 * n_leaves, seed=seed)
+    work, _ = make_tpch_workload(schema, n_per_template=10, seed=seed)
+    frozen = random_layout(work.candidate_cuts(), sample, n_leaves, seed)
+    assert frozen.n_leaves == n_leaves
+    return frozen, make_tpch_like(m, seed=seed + 1)[1]
+
+
+def _assert_oracle(frozen, records, bids, acc):
+    want_bids, want = fused_ingest_ref(frozen, records)
+    np.testing.assert_array_equal(bids.cpu().numpy(), want_bids)
+    part = acc.partial(frozen)
+    for f in ("counts", "lo", "hi", "cat", "adv"):
+        np.testing.assert_array_equal(getattr(part, f), getattr(want, f), f)
+
+
+# the cluster kernel's (blocks a cluster, ranges): each size, and a tree
+# split over two and three ranges of one launch
+CLUSTER_SPLITS = [(2, 1), (4, 1), (8, 1), (16, 1), (2, 3), (16, 2)]
+SPLIT_IDS = [f"c{c}r{r}" for c, r in CLUSTER_SPLITS]
+
+
+@pytest.mark.parametrize("m", ROUTE_SIZES)
+@pytest.mark.parametrize("split", CLUSTER_SPLITS, ids=SPLIT_IDS)
+def test_cluster_kernel_matches_plain_and_oracle(split, m):
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    frozen, records, _ = random_case(m % 7)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    host = np.resize(records, (m + 1, records.shape[1]))
+    full = torch.from_numpy(host).to(dev)
+    # a batch at the allocation's start, and one 4 bytes into a row
+    for rec, want_host in ((full[:m], host[:m]), (full[1:], host[1:])):
+        before = _build.launch_counts()
+        got, want, acc_k, acc_p = _fold_both(ops, [rec], "cluster", *split)
+        after = _build.launch_counts()
+        assert (acc_k._launch.cluster, acc_k._launch.ranges) == split
+        assert {k: after[k] - before[k] for k in after} == {
+            k: int(m > 0 and k == "fused_ingest_cluster") for k in after}
+        assert torch.equal(got, want)
+        _assert_same(acc_k, acc_p)
+        _assert_oracle(frozen, want_host, got, acc_k)
+
+
+@pytest.mark.parametrize("split", CLUSTER_SPLITS, ids=SPLIT_IDS)
+def test_cluster_running_fold_over_uneven_batches(split):
+    dev = _cuda()
+    frozen, records, _ = random_case(1)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(records).to(dev)
+    bounds = [0, 1, 700, 701, 2048, 2999, records.shape[0]]
+    batches = [rec[s:e] for s, e in zip(bounds, bounds[1:])]
+    got, want, acc_k, acc_p = _fold_both(ops, batches, "cluster", *split)
+    assert torch.equal(got, want)
+    _assert_same(acc_k, acc_p)
+    _assert_oracle(frozen, records, got, acc_k)
+
+
+@pytest.mark.parametrize("variant", [None, "cluster"])
+@pytest.mark.parametrize("case", ["wide", "tpch_1300", "tpch_20000"])
+def test_trees_past_one_block_take_the_plans_kernel(case, variant):
+    """One launch a batch of the plan's kernel and no other fused kernel,
+    for 160 columns x 200 leaves, and for 1,300 and 20,000 leaves over
+    tpch-40M's schema and cuts: the cluster kernel where two blocks of 32
+    warps hold the tree (1,300 leaves), else the global kernel; and the
+    same with the cluster kernel forced (a cluster of 4, of 2, and of 16
+    in two ranges)."""
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    frozen, records = (wide_case(0) if case == "wide"
+                       else tpch_case(int(case[5:]), 5000))
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(records).to(dev)
+    shape = tfk.plan_shape(ops)
+    optin = tfk.optin_bytes(dev.index)
+    assert tfk.shared_warps_fit(shape, optin) < 4
+    plan = tfk.layout_plan(shape, optin, variant)
+    name = tfk.KERNEL_NAMES[plan.kernel]
+    assert name == ("fused_ingest_cluster"
+                    if variant or case == "tpch_1300"
+                    else "fused_ingest_global")
+    before = _build.launch_counts()
+    got, want, acc_k, acc_p = _fold_both(ops, [rec[:1], rec[1:777],
+                                               rec[777:]], variant)
+    after = _build.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 3 * (k == name) for k in after}
+    assert acc_k._launch == plan._replace(most=acc_k._launch.most)
+    if variant:
+        assert acc_k._launch.warps >= 4 and acc_k._launch.most >= 1
+        assert acc_k._launch.cluster == {"wide": 4, "tpch_1300": 2,
+                                         "tpch_20000": 16}[case]
+        assert (acc_k._launch.ranges > 1) == (case == "tpch_20000")
+    assert torch.equal(got, want)
+    _assert_same(acc_k, acc_p)
+    _assert_oracle(frozen, records, got, acc_k)
+
+
+@pytest.mark.parametrize("split", [(4, 1), (16, 2)], ids=["c4r1", "c16r2"])
+def test_cluster_kernel_folds_rows_past_a_full_inbox(split):
+    """Every row owned by one block: each other block of its range sends it
+    all its rows, more a round than its inbox holds (two entries a peer
+    lane), so the rest (a third at 4 blocks, 13 of 15 at 16) are folded by
+    their senders straight into the owner's slice."""
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    frozen, records, _ = random_case(3)
+    c, r = split
+    leaf = frozen.route(records)
+    owner = (leaf % r) * c + (leaf // r) % c  # (range, block), as one
+    busiest = np.bincount(owner).argmax()
+    host = np.resize(records[owner == busiest], ((1 << 16) + 5,
+                                                 records.shape[1]))
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    before = _build.launch_counts()
+    got, want, acc_k, acc_p = _fold_both(
+        ops, [torch.from_numpy(host).to(dev)], "cluster", *split)
+    after = _build.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == "fused_ingest_cluster") for k in after}
+    # the cluster's first round fills every warp's tile
+    assert host.shape[0] >= 32 * c * acc_k._launch.warps
+    assert torch.equal(got, want)
+    _assert_same(acc_k, acc_p)
+    _assert_oracle(frozen, host, got, acc_k)
+
+
+def test_cluster_plans_on_the_card():
+    """The card takes the cluster kernel's plan at every cluster size the
+    shapes reach, a cluster of 16 (past the portable 8) and two ranges
+    included; unforced, the plan takes it only where two blocks of 32
+    warps hold the tree."""
+    dev = _cuda()
+    optin = tfk.optin_bytes(dev.index)
+    for L in (1250, 3000, 7500, 8000, 20000):
+        shape = (L, 21, 5, 1, 11, 3)
+        plan = tfk.device_plan(dev.index, shape, "cluster")
+        assert plan._replace(most=0) == tfk.layout_plan(shape, optin,
+                                                        "cluster")
+        assert plan.kernel == 3 and plan.most >= 1
+        assert tfk.device_plan(dev.index, shape).kernel == (
+            3 if L == 1250 else 2)
+
+
+def test_a_refused_cluster_raises_and_leaves_no_error():
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    frozen, records = wide_case(0)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(records).to(dev)
+    before = _build.launch_counts()
+    # a cluster past what the card schedules: CUDA refuses it
+    with pytest.raises(RuntimeError, match="fused_ingest kernel launch"):
+        with tfk._forced("cluster", 32):
+            tfk.IngestAccumulator(ops)
+    # warps whose tiles do not fit beside a block's slice
+    with pytest.raises(ValueError, match="do not fit"):
+        tfk.IngestAccumulator(ops, launch=("cluster", 32, 0))
+    # a tree that fits one block is the shared kernel's
+    small, _, _ = random_case(0)
+    with pytest.raises(ValueError, match="shared kernel takes it"):
+        tfk.IngestAccumulator(
+            tplan.to_device(tplan.pack_route_constants(small), dev),
+            launch=("cluster", 8, 0))
+    assert _build.launch_counts() == before
+    # nothing is left behind for the next launch
+    got, want, acc_k, acc_p = _fold_both(ops, [rec], None)
+    assert torch.equal(got, want)
+    _assert_same(acc_k, acc_p)
+
+
+def test_autotune_pins_a_cluster_geometry(tmp_path, monkeypatch):
+    """The default grid holds shared, cluster and global candidates; on a
+    tree past one block the shared candidates are skipped, a cluster one
+    is chosen from a grid of cluster ones, and the engine's accumulator
+    launches it."""
+    from repro_torch.engine import autotune
+    from repro_torch.engine import backends as tbe
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_STORE", str(tmp_path / "a.json"))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = autotune.default_grid(sms)
+    variants = {v for v, _, _ in grid}
+    assert variants == {"shared", "cluster", "global"}
+    frozen, records = wide_case(1)
+    rec = torch.from_numpy(records).to(dev)
+    eng = LayoutEngine(frozen)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    most = tfk.layout_plan(tfk.plan_shape(ops), tfk.optin_bytes(dev.index),
+                           "cluster")
+    assert most.warps > 4  # the most warps that fit
+    out = autotune.autotune_fused(
+        frozen, rec, engine=eng, reps=2,
+        grid=[("shared", 8, sms), ("cluster", 4, 0),
+              ("cluster", most.warps, 0), ("cluster", most.warps + 1, 0)])
+    status = {(r["variant"], r["warps"]): r["status"] for r in out["rows"]}
+    assert status == {("shared", 8): "skipped", ("cluster", 4): "ok",
+                      ("cluster", most.warps): "ok",
+                      ("cluster", most.warps + 1): "skipped"}
+    chosen = autotune.lookup("cuda", autotune.geometry_key(frozen))
+    assert chosen.variant == "cluster"
+    acc = tbe.get_backend("torch").accumulator(frozen, tplan.PlanCache(), dev)
+    assert acc.launch == chosen.launch
+    assert acc.acc._launch.warps == chosen.warps
+    before = _build.launch_counts()["fused_ingest_cluster"]
+    acc.fold(rec)
+    assert _build.launch_counts()["fused_ingest_cluster"] == before + 1
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -715,8 +936,7 @@ def test_thread_shards_on_streams_match_one_stream(k):
     counts = _build.launch_counts()
     assert rep.n_batches == sum(
         -(-p.shape[0] // 777) for p in sharded.shard_slices(rec, k))
-    assert counts["fused_ingest_shared"] + counts["fused_ingest_global"] == (
-        rep.n_batches)
+    assert sum(counts[k] for k in tfk.KERNEL_NAMES.values()) == rep.n_batches
     for a, b in zip(_leaf_arrays(tree), _leaf_arrays(one)):
         np.testing.assert_array_equal(a, b)
 

@@ -436,6 +436,142 @@ def test_running_accumulator_matches_fused_ingest_ref(seed, n_batches):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f), f)
 
 
+def grown_tpch_case(n_leaves, m, seed=0):
+    """A JAX-package tree of ``n_leaves`` leaves over the TPC-H-like schema
+    and the tpch workload's cuts (tpch-40M's), grown by random legal
+    splits of a sample, and ``m`` other records."""
+    from repro.core import predicates as rpreds
+    from repro.core.qdtree import singleton_tree as r_singleton
+    from repro.data import datagen as rdatagen
+    from repro.data import workload as rwl
+    from repro_torch.core.qdtree import grow_random
+
+    schema, sample = rdatagen.make_tpch_like(4 * n_leaves, seed=seed)
+    work, _ = rwl.make_tpch_workload(schema, n_per_template=10, seed=seed)
+    cuts = work.candidate_cuts()
+    tree = r_singleton(schema, cuts, np.arange(sample.shape[0]))
+    frozen = grow_random(tree, rpreds.eval_cuts(sample, cuts), n_leaves,
+                         seed)
+    assert frozen.n_leaves == n_leaves
+    return frozen, rdatagen.make_tpch_like(m, seed=seed + 1)[1]
+
+
+@pytest.fixture(scope="module")
+def tpch_1300():
+    return grown_tpch_case(1300, 3000)
+
+
+# ≈ 4 s (1,300 leaves, the tree's growth included) and 4 s (8,000) on a
+# CPU of this suite's
+@pytest.mark.parametrize("n_leaves", [1300, 8000])
+def test_fused_ingest_plain_matches_ref_past_one_block(n_leaves, tpch_1300):
+    """Trees whose aggregates do not fit one block (the cluster or the
+    global kernel's, on the card): the plain version equals ``repro``'s
+    numpy oracle."""
+    from repro.kernels.ref import fused_ingest_ref
+
+    frozen, records = (tpch_1300 if n_leaves == 1300
+                       else grown_tpch_case(n_leaves, 3000))
+    shape = tfk.plan_shape(port_operands(frozen))
+    assert shape[0] == n_leaves and tfk.shared_warps_fit(shape, OPTIN) < 4
+    acc = tfk.IngestAccumulator(port_operands(frozen))
+    bids = tfk.fused_ingest_plain(torch.from_numpy(records), acc)
+    want_bids, want = fused_ingest_ref(frozen, records)
+    np.testing.assert_array_equal(bids.numpy(), want_bids)
+    got = acc.partial(carry_tree(frozen))
+    for f in ("counts", "lo", "hi", "cat", "adv"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_fused_ingest_plain_matches_pallas_past_one_block(tpch_1300):
+    """The Pallas kernel (interpret mode) on 1,300 leaves, ≈ 2 s."""
+    frozen, records = tpch_1300
+    k, rec, valid = pallas_operands(frozen, records)
+    bids, counts, lo, hi, cat, advt, advf = (np.asarray(x) for x in (
+        rfk.fused_ingest_pallas(
+            rec, valid, *(jnp.asarray(k[n]) for n in (
+                "dim_onehot", "cutpoint", "in_mask_t", "is_cat", "cat_off",
+                "adv_cols", "adv_sel", "kind", "pathpos", "pathneg",
+                "leafid",
+            )),
+            tile_m=TILE_M, tile_l=rplan.LANE, n_cat_bits=k["n_cat_bits"],
+            n_adv=k["n_adv"], interpret=True,
+        )
+    ))
+    acc = tfk.IngestAccumulator(port_operands(frozen))
+    got_bids = tfk.fused_ingest_plain(torch.from_numpy(records), acc)
+    m, L = records.shape[0], frozen.n_leaves
+    bits, na = frozen.leaf_cat.shape[1], frozen.cuts.n_adv
+    np.testing.assert_array_equal(got_bids.numpy(), bids[:m, 0] - 1)
+    np.testing.assert_array_equal(acc.counts.numpy(), counts[0, :L])
+    ne = counts[0, :L] > 0
+    np.testing.assert_array_equal(acc.lo.numpy()[ne], lo[:L][ne])
+    np.testing.assert_array_equal(acc.hi.numpy()[ne], hi[:L][ne])
+    np.testing.assert_array_equal(
+        tops.unpack_words(acc.cat.numpy(), bits), cat[:L, :bits] != 0)
+    np.testing.assert_array_equal(
+        tops.unpack_words(acc.advt.numpy(), na), advt[:L, :na] != 0)
+    np.testing.assert_array_equal(
+        tops.unpack_words(acc.advf.numpy(), na), advf[:L, :na] != 0)
+
+
+OPTIN = 232_448  # an H100's opt-in shared bytes a block
+TPCH_SHAPE = (21, 5, 1, 11, 3)  # columns, cat and adv words, cat columns, adv
+
+
+def cluster_owner(plan, leaf):
+    """(range, block, leaf slot) of ``leaf`` in the cluster kernel's split,
+    as ``csrc/fused_ingest.cu::fused_ingest_cluster`` maps it."""
+    r = leaf % plan.ranges
+    rest = leaf // plan.ranges
+    return r, rest % plan.cluster, rest // plan.cluster
+
+
+@pytest.mark.parametrize("shape", [
+    (724, *TPCH_SHAPE), (1250, *TPCH_SHAPE), (1800, *TPCH_SHAPE),
+    (7500, *TPCH_SHAPE), (20_000, *TPCH_SHAPE),
+    (200, 160, 2, 1, 1, 1),  # the last: wide_case
+], ids=["724", "1250", "1800", "7500", "20000", "wide"])
+def test_layout_plan_splits_every_leaf_once(shape):
+    L = shape[0]
+    planned = tfk.layout_plan(shape, OPTIN)
+    if L == 724:  # tpch-40M's main layout fits one block
+        assert planned.kernel == tfk.VARIANTS["shared"]
+        assert tfk.shared_warps_fit(shape, OPTIN) == planned.warps == 32
+        assert planned.smem <= OPTIN
+        return
+    assert tfk.shared_warps_fit(shape, OPTIN) < tfk.MIN_WARPS
+    # the cluster kernel's split, which the plan takes or a caller forces
+    plan = tfk.layout_plan(shape, OPTIN, "cluster")
+    assert plan.smem <= OPTIN and plan.warps >= tfk.MIN_WARPS
+    # unforced, the cluster kernel only at two blocks of 32 warps (the
+    # finer layout's 1,250 leaves); past that the global kernel, which was
+    # as fast or faster on an H100 (1,800 leaves leave a block 17 warps)
+    if L == 1250:
+        assert planned == plan and (plan.cluster, plan.warps) == (2, 32)
+    else:
+        assert planned == tfk.Plan(tfk.VARIANTS["global"], 8, 0)
+        assert (plan.cluster, plan.warps) != (2, 32)
+    owners = {cluster_owner(plan, leaf) for leaf in range(L)}
+    assert len(owners) == L  # one (range, block, slot) a leaf
+    assert all(r < plan.ranges and b < plan.cluster and s < plan.per_block
+               for r, b, s in owners)
+    # the smallest cluster that holds the tree, else the fewest ranges
+    cap = tfk.block_leaves(shape, OPTIN, plan.cluster)
+    assert plan.cluster * cap * plan.ranges >= L
+    smaller = [c for c in tfk.CLUSTER_SIZES if c < plan.cluster]
+    assert all(c * tfk.block_leaves(shape, OPTIN, c) < L for c in smaller)
+    if plan.ranges > 1:
+        assert plan.cluster == tfk.CLUSTER_SIZES[-1]
+        assert plan.cluster * cap * (plan.ranges - 1) < L
+    # the bytes a block asks for: its slice, the tables, its warps' tiles
+    # and inbox shares, the inboxes' counts
+    assert plan.smem == (
+        plan.per_block * tfk.leaf_bytes(shape) + tfk.table_bytes(shape) + 8
+        + plan.warps * (tfk.tile_bytes(shape[1])
+                        + tfk.inbox_bytes(plan.cluster)))
+
+
 def _query_case(seed):
     schema, records, cuts = small_setup(seed)
     rng = np.random.default_rng(seed)
