@@ -9,17 +9,19 @@ points a user calls — ``LayoutEngine(tree)`` on the GPU: ``warm_ingest``
 + ``ingest`` (one ``fused_ingest`` launch a batch into a running
 accumulator on the device), ``route`` (one ``route_descend`` launch),
 ``route_queries``, ``route_query`` and ``skip_stats``
-(``query_intersect``).  The main path also ingests the table into a finer
-layout (1,250 blocks learned from an 8,000-row sample, built in a second
-process while the rest runs), whose aggregates do not fit a block's
-shared memory, so ``fused_ingest`` takes its cluster kernel there (a
-thread block cluster splits the aggregates over its blocks' shared
-memory).
+(``query_intersect``).  The main path also ingests and routes the table
+into a finer layout (1,250 blocks learned from an 8,000-row sample, built
+in a second process while the rest runs), whose aggregates do not fit a
+block's shared memory, so ``fused_ingest`` takes its cluster kernel there
+(a thread block cluster splits the aggregates over its blocks' shared
+memory), and ``route`` its prefix kernel (the tree's BFS prefix in shared
+memory, the deeper levels through L1 and L2).
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` first,
 and checks:
 
-* each kernel (the three ``fused_ingest`` kernels, each forced too, and
-  both ``route_descend`` kernels) equals its plain PyTorch version on the
+* each kernel (the three ``fused_ingest`` kernels and the three
+  ``route_descend`` kernels, each forced too) equals its plain PyTorch
+  version on the
   card, exactly: on small random trees with every cut kind, on the finer
   layout, and at the main path's shapes; ``eval_cuts`` →
   ``locate_leaf``, off the main path since ``route`` descends directly,
@@ -35,9 +37,9 @@ and checks:
   layouts; ``route_query`` equals ``route_queries``, and the query hits
   and per-conjunct scan counts equal the numpy backend's;
 * each path of the main path (ingest, route, query), counted from 0 just
-  before it, launched its kernels; ``route`` launched ``route_descend``
-  once a call and nothing else, by the counters and in a trace; a warm
-  engine builds no plan;
+  before it, launched its kernels; ``route`` launched its layout's planned
+  ``route_descend`` kernel once a call and nothing else, by the counters
+  and in a trace; a warm engine builds no plan;
 * a traced ingest runs exactly one ``fused_ingest`` kernel a batch and
   copies aggregates to the host once, not once a batch.
 
@@ -50,7 +52,12 @@ table and layout:
   warps, else the global one, a counted path a tree; the cluster kernel
   forced (2 or 16 blocks, in two ranges at 20,000 leaves, one launch a
   batch) and the global kernel forced, each equal to the plain version
-  and timed in turn;
+  and timed in turn; at 8,000 and 20,000 leaves (``BIG_ROUTE_TREES``)
+  ``LayoutEngine.route`` of one batch a counted path of its own
+  (``big_tree_route_<leaves>``, one launch of the planned prefix kernel),
+  each route kernel forced, equal to the plain version and the fold's
+  block ids and timed in turn, and at 20,000 the whole table routed
+  batch by batch, equal to the global kernel's ids;
 * sharded ingest (``sharded_ingest``, batches of 2**20): thread shards at
   k = 1, 2, 4, 8 (each on its own CUDA stream) and process shards at
   k = 4, 2 (spawned workers on the card, the table staged once); each
@@ -428,23 +435,35 @@ KERNEL_SOURCES = {
                   "src/repro/kernels/route_records.py:114"),
     "locate_leaf": ("src/repro_torch/kernels/csrc/locate_leaf.cu",
                     "src/repro/kernels/route_records.py:198"),
-    # computes what the two Pallas kernels compose: records → block ids
-    "route_descend": ("src/repro_torch/kernels/csrc/route_descend.cu",
-                      "src/repro/kernels/route_records.py:114; "
-                      "src/repro/kernels/route_records.py:198"),
+    # each computes what the two Pallas kernels compose: records → block ids
+    **{name: ("src/repro_torch/kernels/csrc/route_descend.cu",
+              "src/repro/kernels/route_records.py:114; "
+              "src/repro/kernels/route_records.py:198")
+       for name in ("route_descend_shared", "route_descend_global",
+                    "route_descend_prefix")},
     "fused_ingest_shared": (FUSED, FUSED_REF),
     "fused_ingest_cluster": (FUSED, FUSED_REF),
     "fused_ingest_global": (FUSED, FUSED_REF),
     "query_intersect": ("src/repro_torch/kernels/csrc/query_intersect.cu",
                         "src/repro/kernels/query_intersect.py:94"),
 }
-VARIANTS = ("shared", "global")  # route_descend's, eval_cuts', locate_leaf's
+VARIANTS = ("shared", "global")  # eval_cuts' and locate_leaf's
 FUSED_VARIANTS = ("shared", "cluster", "global")
-# kernels off the main path: ``route`` no longer goes through them, and
-# fused_ingest_global takes only trees past a cluster of two blocks, which
-# no layout of the main path reaches (the big trees' paths and the
-# autotuner's candidates launch it)
-OFF_PATH = ("eval_cuts", "locate_leaf", "fused_ingest_global")
+# route_descend's kernels forced, (variant, warps, staged nodes): the prefix
+# kernel also with the root alone staged, so every level but the first
+# reads the node array through L1 and L2
+ROUTE_FORCED = (("shared",), ("global",), ("prefix",), ("prefix", None, 1))
+# kernels off the main path: ``route`` no longer goes through eval_cuts and
+# locate_leaf; fused_ingest_global takes only trees past a cluster of two
+# blocks, which no layout of the main path reaches (the big trees' paths
+# and the autotuner's candidates launch it), and route_descend_global is
+# forced only
+OFF_PATH = ("eval_cuts", "locate_leaf", "fused_ingest_global",
+            "route_descend_global")
+# the big trees routed too: a counted path each through the plan's kernel
+# (route_descend_prefix), each route kernel forced and timed in turn, and
+# the whole table routed through the last
+BIG_ROUTE_TREES = (8_000, 20_000)
 
 
 def fused_launches(counts: dict) -> int:
@@ -499,6 +518,27 @@ def time_ms(fn, reps: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def stream_ms(fn, calls: int = 10, reps: int = 10) -> float:
+    """Device ms a call of ``fn``: ``calls`` calls back to back between two
+    CUDA events (the host enqueues ahead of the card, so a wrapper's host
+    side hides behind the kernels before it), the median over ``reps``,
+    after a warm-up."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
 
 
@@ -584,8 +624,9 @@ def traced_kernel_sample(fn, name: str, reps: int) -> dict:
     for attempt in range(TRACE_TRIES):
         before = _build.launch_counts()
         spans = traced_kernels(fn, reps)
-        launched = {k: v - before[k] for k, v in _build.launch_counts().items()
-                    if v != before[k]}
+        after = _build.launch_counts()
+        launched = {k: after[k] - before[k] for k in _build.LAUNCH_NAMES
+                    if after[k] != before[k]}
         require(launched == {name: reps},
                 f"{reps} calls launched {launched}; expected {reps} {name}")
         if spans:
@@ -692,22 +733,23 @@ def fused_err(ops, batches, variant) -> float:
     return max_abs_err([bids, *acc.tensors()], [want, *plain.tensors()])
 
 
-def route_forced(rec, ops, variant):
-    """Block ids by one ``route_descend`` kernel, ``variant`` forced."""
+def route_forced(rec, ops, variant, warps=None, prefix=None):
+    """Block ids by one ``route_descend`` kernel, ``variant`` forced (at
+    ``warps`` a block and ``prefix`` staged nodes where given)."""
     from repro_torch.kernels import route_records as rk
 
-    with rk._forced(variant):
+    with rk._forced(variant, warps, prefix):
         plan = rk.route_plan(ops)
-    require(plan[0] == 1 + VARIANTS.index(variant),
-            f"route_descend planned kernel {plan[0]} for {variant}")
+    require(plan.kernel == rk.VARIANTS[variant],
+            f"route_descend planned kernel {plan.kernel} for {variant}")
     return rk.route(rec, {**ops, "route_plan": plan})
 
 
 def compare_kernels(tree, rec, wt, dev, ctx: str,
                     variants=FUSED_VARIANTS) -> dict[str, float]:
     """Each kernel against its plain version on the same inputs (exact):
-    both kernels of ``eval_cuts``, ``locate_leaf`` and ``route_descend``,
-    the last also against the two-kernel form."""
+    both kernels of ``eval_cuts`` and ``locate_leaf``, and each of
+    ``route_descend``'s (ROUTE_FORCED), also against the two-kernel form."""
     from repro_torch.kernels import query_intersect as qk
     from repro_torch.kernels import route_records as rk
 
@@ -723,14 +765,13 @@ def compare_kernels(tree, rec, wt, dev, ctx: str,
         errs["locate_leaf"] = max(errs["locate_leaf"],
                                   max_abs_err([two_kernel], [two_plain]))
     want = rk.route_plain(rec, ops)
-    errs["route_descend"] = 0.0
-    for v in VARIANTS:
-        got = route_forced(rec, ops, v)
+    for forced in ROUTE_FORCED:
+        got = route_forced(rec, ops, *forced)
         require(max_abs_err([got], [two_kernel]) == 0.0,
-                f"{ctx}: route_descend ({v}) differs from eval_cuts → "
+                f"{ctx}: route_descend {forced} differs from eval_cuts → "
                 f"locate_leaf")
-        errs["route_descend"] = max(errs["route_descend"],
-                                    max_abs_err([got], [want]))
+        name = rk.ROUTE_KERNELS[rk.VARIANTS[forced[0]]]
+        errs[name] = max(errs.get(name, 0.0), max_abs_err([got], [want]))
     for v in variants:
         errs[f"fused_ingest_{v}"] = fused_err(ops, [rec], v)
     qargs = query_args(tree, wt, dev)
@@ -872,7 +913,8 @@ def big_tree_phase(ctx, cuts, x, counted) -> dict:
     path of its own (``big_tree_<leaves>``) with one launch of that
     kernel; then the cluster kernel (its own split, in ranges past the
     largest cluster) and the one-thread-a-record kernel, each forced,
-    equal to the plain version too and timed in turn; and the bound."""
+    equal to the plain version too and timed in turn; and the bound.  The
+    BIG_ROUTE_TREES are routed too (:func:`big_tree_route`)."""
     import torch
 
     from repro_torch.core.qdtree import random_layout
@@ -931,6 +973,111 @@ def big_tree_phase(ctx, cuts, x, counted) -> dict:
             f"{times['global']} ms, bound {bound_ms:.6f} ms")
         del acc, acc_c, acc_g, plain, want
         torch.cuda.empty_cache()
+        if n_leaves in BIG_ROUTE_TREES:
+            out[n_leaves]["route"] = big_tree_route(
+                ctx, tree, ops, x, bids, counted,
+                whole=n_leaves == BIG_ROUTE_TREES[-1])
+            torch.cuda.empty_cache()
+    return out
+
+
+def big_route_row(r: dict, name: str) -> dict:
+    """Route kernel ``name`` on a big tree, from :func:`big_tree_route`'s
+    result: medians of its times (None where it was not run: the shared
+    kernel past a warp's fit), launches on the tree's counted path, the
+    bound and the plain version's ms."""
+    t = r["times"].get(name)
+    return {"ms": t and float(np.median(t["ms"])),
+            "stream_ms": t and float(np.median(t["stream_ms"])),
+            "launches": r["launches"][name], "max_abs_err":
+            r["max_abs_err"].get(name), "bound_ms": r["bound_ms"],
+            "plain_ms": r["plain_ms"]}
+
+
+def route_bound(tree, ops, bids: np.ndarray, m: int, d: int):
+    """Least time of one route of ``m`` records: the records, the nodes and
+    in_mask read once, 4 bytes of id a record written; one operation per
+    cut on each record's path."""
+    return bound(m * d * 4 + 16 * tree.n_nodes + int(ops["in_mask"].numel())
+                 + m * 4, int(leaf_depths(tree)[bids].sum()))
+
+
+def big_tree_route(ctx, tree, ops, x, bids, counted, whole: bool) -> dict:
+    """A tree past the shared kernel's reach routed: ``LayoutEngine.route``
+    of the batch ``x`` a counted path (``big_tree_route_<leaves>``) with one
+    launch of the plan's kernel and nothing else; each route kernel forced
+    (the prefix one, the global one, the shared one where a warp's tile
+    fits beside the tree), each equal to the plain version and to the fold
+    plan's block ids ``bids``, and timed in turns (each kernel, then each
+    again in reverse: 20 single calls between CUDA events, and
+    :func:`stream_ms`); the plain version's time and the bound.  With
+    ``whole``, the whole table routed through the engine, batch by batch,
+    equal to the global kernel's ids forced on the same batches."""
+    import torch
+
+    from repro_torch.engine import LayoutEngine
+    from repro_torch.kernels import route_records as rk
+
+    dev = ctx["dev"]
+    m, d = x.shape
+    optin = rk.optin_bytes(dev.index)
+    planned = rk.descend_plan(tree.n_nodes, d, optin)
+    name = rk.ROUTE_KERNELS[planned.kernel]
+    engine = LayoutEngine(tree, device=dev)
+    engine.route(x[:5])  # the tree plan, with the route plan in it
+    path = f"big_tree_route_{tree.n_leaves}"
+    got = counted(path, lambda: engine.route(x))
+    launched = ctx["path_launches"][path]
+    require(launched == {k: int(k in (name, "route_descend"))
+                         for k in launched},
+            f"{tree.n_leaves} leaves: engine.route launched {launched}; "
+            f"expected one {name}")
+    want = rk.route_plain(x, ops)
+    require(np.array_equal(got, want.cpu().numpy())
+            and torch.equal(want, bids),
+            f"{tree.n_leaves} leaves: engine.route, the plain route and the "
+            f"fold's block ids differ")
+    forced = [("prefix",), ("global",)] + [("shared",)] * (
+        rk.shared_fit(tree.n_nodes, d, optin) >= 1)
+    runs, err, plans = {}, {}, {}
+    for f in forced:
+        with rk._forced(*f):
+            plan = rk.route_plan(ops)
+        kernel = rk.ROUTE_KERNELS[plan.kernel]
+        o = {**ops, "route_plan": plan}
+        err[kernel] = max_abs_err([rk.route(x, o)], [want])
+        plans[kernel] = plan._asdict()
+        runs[kernel] = (lambda o=o: rk.route(x, o))
+    require(all(e == 0.0 for e in err.values()),
+            f"{tree.n_leaves} leaves: route kernels differ from the plain "
+            f"version by {err}")
+    times = {k: {"ms": [], "stream_ms": []} for k in runs}
+    for k in [*runs, *reversed(runs)]:  # A, B, B, A
+        times[k]["ms"].append(time_ms(runs[k], 20))
+        times[k]["stream_ms"].append(stream_ms(runs[k]))
+    plain_ms = time_ms(lambda: rk.route_plain(x, ops), 1)
+    bound_ms, bound_by = route_bound(tree, ops, want.cpu().numpy(), m, d)
+    out = {"kernel": name, "plan": planned._asdict(), "forced_plans": plans,
+           "max_abs_err": err, "times": times, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "launches": launched}
+    log(f"{tree.n_leaves} leaves: route plan {planned} ({name}); {times} "
+        f"ms; plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms")
+    if whole:
+        t0 = time.perf_counter()
+        n = 0
+        for s in ctx["slices"]:
+            ids = engine.route(s)
+            old = route_forced(s, ops, "global").cpu().numpy()
+            require(np.array_equal(ids, old),
+                    f"{tree.n_leaves} leaves: the whole table's route "
+                    f"differs from the global kernel's at row {n}")
+            n += s.shape[0]
+        require(n == ctx["n_rows"], "the whole table was not routed")
+        out["whole_table"] = {"rows": n, "batches": len(ctx["slices"]),
+                              "wall_s": time.perf_counter() - t0}
+        log(f"{tree.n_leaves} leaves: the whole table ({n} rows) routed "
+            f"through engine.route equals the global kernel's ids")
     return out
 
 
@@ -3930,10 +4077,19 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
             require(n == 0, f"kernel {name} launched on the main path")
         else:
             require(n > 0, f"kernel {name} never launched on the main path")
+    # one launch of each layout's planned route kernel: the shared one on
+    # the main layout, the prefix one on the finer layout (whose nodes
+    # would leave the shared kernel two blocks of 28 warps)
+    planned = [rk.ROUTE_KERNELS[rk.descend_plan(
+        t.n_nodes, schema.ndims, rk.optin_bytes(dev.index)).kernel]
+        for t in (tree, fine)]
+    require(planned == ["route_descend_shared", "route_descend_prefix"],
+            f"route plans {planned}")
     require(path_launches["route"] == {
-        k: 2 if k == "route_descend" else 0 for k in _build.LAUNCH_NAMES
+        k: 2 if k == "route_descend" else planned.count(k)
+        for k in path_launches["route"]
     }, f"two route calls launched {path_launches['route']}; expected one "
-       f"route_descend each and nothing else")
+       f"of {planned} each and nothing else")
 
     # -- what came out is right ----------------------------------------------
     require(np.array_equal(route_bids, fused_bids),
@@ -4008,7 +4164,8 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     queries_ms = host_ms(lambda: engine.route_queries(work), LAT_REPS)
     query_ms = host_ms(lambda: engine.route_query(work.queries[0]), LAT_REPS)
     route_kernel_ms = traced_kernel_sample(lambda: engine.route(slices[0]),
-                                           "route_descend", LAT_REPS)["ms"]
+                                           "route_descend_shared",
+                                           LAT_REPS)["ms"]
     engine.fused_step(slices[-1], return_bids=False)
     require(tplan.build_counts() == warm, "a warm engine built a plan")
 
@@ -4068,9 +4225,9 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
         refused = True
     require(refused, "a shared-memory request past the card's limit must "
                      "raise")
-    for v in ("cluster", "global"):
-        errs[f"fused_ingest_{v}"] = max(errs[f"fused_ingest_{v}"],
-                                        fine_errs[f"fused_ingest_{v}"])
+    for k in ("fused_ingest_cluster", "fused_ingest_global",
+              *rk.ROUTE_KERNELS.values()):
+        errs[k] = max(errs[k], fine_errs[k])
     n_run = min(n_rows, 3 * BATCH // 2)
     bounds = sorted({0, 1, 1000, min(BATCH - 3, n_run), n_run})
     running_fold(tree, rec_dev, records, bounds, dev, "main path shapes",
@@ -4093,8 +4250,6 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
                       lambda: rk.eval_cuts_plain(x, ops)),
         "locate_leaf": (lambda: rk.locate_leaf(m_mat, ops),
                         lambda: rk.locate_leaf_plain(m_mat, ops)),
-        "route_descend": (lambda: rk.route(x, ops),
-                          lambda: rk.route_plain(x, ops)),
         # as the ingest folds a batch: no block ids
         "fused_ingest_shared": (
             lambda: acc_s.fold(x),
@@ -4114,11 +4269,27 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     # one); the host side of one fold (wrapper and launch, no sync) and
     # the shared kernel's plan
     global_on_main_ms = time_ms(lambda: acc_gm.fold(x), 20)
-    # route_descend's global kernel on the main layout, and its planned
-    # kernel on the finer layout
-    route_global_on_main_ms = time_ms(lambda: route_forced(x, ops, "global"),
-                                      20)
-    route_fine_ms = time_ms(lambda: rk.route(x, fops), 20)
+    # route_descend's kernels on the main and the finer layout, each forced,
+    # in turns (each, then each again in reverse): 20 single calls between
+    # CUDA events, and back to back (stream_ms); the plain version's time
+    route_runs = {}
+    for lay, o in (("main", ops), ("fine", fops)):
+        for f in ROUTE_FORCED[:3]:
+            with rk._forced(*f):
+                plan = rk.route_plan(o)
+            route_runs[f"{lay} {rk.ROUTE_KERNELS[plan.kernel]}"] = (
+                lambda o={**o, "route_plan": plan}: rk.route(x, o))
+    route_times = {k: {"ms": [], "stream_ms": []} for k in route_runs}
+    for k in [*route_runs, *reversed(route_runs)]:
+        route_times[k]["ms"].append(time_ms(route_runs[k], 20))
+        route_times[k]["stream_ms"].append(stream_ms(route_runs[k]))
+    route_plain_ms = time_ms(lambda: rk.route_plain(x, ops), 3)
+    for name in rk.ROUTE_KERNELS.values():
+        times[name] = (float(np.median(route_times[f"main {name}"]["ms"])),
+                       route_plain_ms)
+    route_global_on_main_ms = times["route_descend_global"][0]
+    route_fine_ms = float(np.median(route_times[
+        f"fine {rk.ROUTE_KERNELS[rk.route_plan(fops).kernel]}"]["ms"]))
     torch.cuda.synchronize()
     fold_host_ms = host_ms(lambda: acc_s.fold(x), FOLD_HOST_REPS)
     torch.cuda.synchronize()
@@ -4271,8 +4442,8 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
         "eval_cuts": bound(m * d * 4 + eval_table_bytes(ops) + m * C,
                            m * C),
         "locate_leaf": bound(32 * sectors + nodes + m * 4, path),
-        "route_descend": bound(
-            m * d * 4 + nodes + int(ops["in_mask"].numel()) + m * 4, path),
+        **dict.fromkeys(rk.ROUTE_KERNELS.values(),
+                        route_bound(tree, ops, route_bids, m, d)),
         "fused_ingest_shared": fused_bound(tree, ops, route_bids, m, d),
         "fused_ingest_cluster": fused_bound(fine, fops, fine_route_bids, m,
                                             d),
@@ -4303,6 +4474,12 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+        if name in rk.ROUTE_KERNELS.values():  # and on the big trees
+            kernels[-1]["stream_ms"] = float(np.median(
+                route_times[f"main {name}"]["stream_ms"]))
+            kernels[-1]["by_leaves"] = {
+                n: big_route_row(big[n]["route"], name)
+                for n in BIG_ROUTE_TREES}
     n_batches = len(slices)
     fold_med = float(np.median(fold_ms))
     metrics = {
@@ -4330,6 +4507,7 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
         "fold_ms_per_ingest_over_batches": fold_med / n_batches,
         "fused_global_on_main_layout_ms": global_on_main_ms,
         "route_global_on_main_layout_ms": route_global_on_main_ms,
+        "route_times": route_times,
         "route_descend_fine_ms": route_fine_ms,
         "eval_cuts_batch": eval_cuts_batch,
         "locate_leaf_trace": locate_trace,
@@ -4348,8 +4526,8 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
         # back (host clock around .cpu() of a batch's ids)
         "route_kernel_ms": route_kernel_ms,
         "route_copy_ms": route_copy_ms,
-        "route_plan": dict(zip(plan_keys, rk.route_plan(ops))),
-        "route_plan_fine": dict(zip(plan_keys, rk.route_plan(fops))),
+        "route_plan": rk.route_plan(ops)._asdict(),
+        "route_plan_fine": rk.route_plan(fops)._asdict(),
         "route_queries_ms": queries_ms,
         "route_query_ms": query_ms,
         "scanned_fraction": stats.scanned_fraction,

@@ -61,6 +61,7 @@ _ARGTYPES = {
         P, I64, I32, P, I32, I32,  # records, nodes, depth
         P, I32, P,  # in_mask, bits, bids
         I32, I32, I32, I32,  # the plan: kernel, warps, smem, most blocks
+        I32,  # ... the prefix kernel's staged nodes
         P,  # stream
     ],
     "fused_ingest": [
@@ -89,7 +90,8 @@ _EXTRA = {
         "locate_leaf_plan": [I32] * 3 + [ctypes.POINTER(I32)],  # plan
     },
     "route_descend": {
-        "route_descend_plan": [I32] * 3 + [ctypes.POINTER(I32)],  # plan
+        # nodes, columns, kernel, warps, smem, staged nodes
+        "route_descend_plan": [I32] * 6 + [ctypes.POINTER(I32)],
     },
     "fused_ingest": {
         # kernel, warps, smem, cluster, ranges, leaves a block, n_leaves
@@ -97,9 +99,11 @@ _EXTRA = {
     },
 }
 
-# the kernels each launch counter stands for: fused_ingest.cu's three count
-# apart, route_descend.cu's two together
-LAUNCH_NAMES = ("eval_cuts", "locate_leaf", "route_descend",
+# the kernels each launch counter stands for: fused_ingest.cu's three and
+# route_descend.cu's three count apart
+ROUTE_KERNELS = ("route_descend_shared", "route_descend_global",
+                 "route_descend_prefix")
+LAUNCH_NAMES = ("eval_cuts", "locate_leaf", *ROUTE_KERNELS,
                 "fused_ingest_shared", "fused_ingest_cluster",
                 "fused_ingest_global", "query_intersect")
 
@@ -119,8 +123,13 @@ def count_launch(name: str) -> None:
 
 
 def launch_counts() -> dict[str, int]:
+    """Launches by kernel (:data:`LAUNCH_NAMES`), then "route_descend",
+    the total of :data:`ROUTE_KERNELS`: a sum over the dict counts those
+    launches twice, a sum over LAUNCH_NAMES once."""
     with _COUNT_LOCK:
-        return {k: LAUNCHES.get(k, 0) for k in LAUNCH_NAMES}
+        out = {k: LAUNCHES.get(k, 0) for k in LAUNCH_NAMES}
+    out["route_descend"] = sum(out[k] for k in ROUTE_KERNELS)
+    return out
 
 
 def reset_launch_counts() -> None:
@@ -212,8 +221,8 @@ def library(name: str) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def plan(name: str, device_index: int, *args: int) -> tuple:
     """``<name>_plan(*args)``'s launch plan (kernel, warps a block, shared
-    bytes, most blocks) on device ``device_index``, made once a tree shape:
-    a batch's launch then makes no host query of the card."""
+    bytes, most blocks) on device ``device_index``, made or checked once a
+    tree shape: a batch's launch then makes no host query of the card."""
     import torch
 
     out = (ctypes.c_int * 4)()

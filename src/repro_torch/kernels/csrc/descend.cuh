@@ -1,6 +1,6 @@
-// The test of a packed cut, the descent of a packed tree and the cp.async
-// staging of record tiles, shared by eval_cuts.cu, fused_ingest.cu and
-// route_descend.cu.
+// The test of a packed cut, the descent of a packed tree, the cp.async
+// staging of record tiles and the L2 eviction policies, shared by
+// eval_cuts.cu, fused_ingest.cu and route_descend.cu.
 #pragma once
 
 #include "common.cuh"
@@ -82,6 +82,71 @@ __device__ __forceinline__ int descend(const int32_t* rec,
 }
 
 // ---------------------------------------------------------------------------
+// L2 eviction policies (createpolicy) and the loads and copies that take one
+// ---------------------------------------------------------------------------
+// Lines read under evict_last stay in L2 past lines read under evict_first:
+// a kernel that streams a batch once keeps the small arrays it reads again.
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
+// A 16-byte load through the read-only path under the L2 policy `policy`.
+__device__ __forceinline__ int4 ldg_hint(const int4* p, uint64_t policy) {
+  int4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, [%4], %5;\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "l"(policy));
+  return v;
+}
+
+// The descent of descend<> over a tree whose first `prefix` nodes (at least
+// the root) are staged in shared memory at `s_nodes`; `nodes` holds the
+// whole tree in global memory.  Shared loads while the path stays in the
+// prefix, then the rest of the path from `nodes` through the read-only path
+// under the L2 policy `keep`.  In BFS order (core/qdtree.py::freeze) a
+// child's index is greater than its parent's, so a path that leaves the
+// prefix never comes back to it, and the second loop does not ask where a
+// node lies; in any other order the nodes past the exit are still read from
+// `nodes`, so the block id does not depend on the order.  Level for level
+// the same walk as descend<>, so the same block id.
+__device__ __forceinline__ int descend_prefix(
+    const int32_t* rec, const int4* s_nodes, int prefix,
+    const int4* __restrict__ nodes, int depth,
+    const uint8_t* __restrict__ in_mask, int bits, uint64_t keep) {
+  int4 n = s_nodes[0];
+  int level = 0;
+  while (level < depth && n.z >= 0) {
+    const int next =
+        packed_cut((unsigned)n.x, n.w, rec, ByteMask{in_mask}, bits) ? n.y
+                                                                     : n.z;
+    ++level;
+    if (next >= prefix) {  // out of the prefix: the rest through L2
+      n = ldg_hint(nodes + next, keep);
+      for (; level < depth && n.z >= 0; ++level) {
+        const int after =
+            packed_cut((unsigned)n.x, n.w, rec, ByteMask{in_mask}, bits)
+                ? n.y
+                : n.z;
+        n = ldg_hint(nodes + after, keep);
+      }
+      break;
+    }
+    n = s_nodes[next];
+  }
+  return n.y;
+}
+
+// ---------------------------------------------------------------------------
 // cp.async staging of a warp's tile of 32 rows
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -96,6 +161,25 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                "l"(src));
 }
 
+// The same copies under the L2 policy `policy` (l2_evict_first, ...).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           uint64_t policy) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(
+          s),
+      "l"(src), "l"(policy));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          uint64_t policy) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile(
+      "cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;\n" ::"r"(
+          s),
+      "l"(src), "l"(policy));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -108,12 +192,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // `records`) into `dst`.  A tile starts 4 * kRows * d bytes after the
 // previous one, so with a 16-byte aligned batch (`vec`) and kRows a
 // multiple of 4 every 16-byte chunk is aligned; a ragged tail or an
-// unaligned batch goes 4 bytes at a time.
-template <int kRows = 32>
+// unaligned batch goes 4 bytes at a time.  kHint copies under the L2 policy
+// `policy`.
+template <int kRows = 32, bool kHint = false>
 __device__ __forceinline__ void stage_tile(int32_t* dst,
                                            const int32_t* records, int64_t m,
                                            int d, int64_t tile, int lane,
-                                           bool vec) {
+                                           bool vec, uint64_t policy = 0) {
   const int64_t row0 = tile * kRows;
   const int rows = (int)min((int64_t)kRows, m - row0);
   const int n = rows * d;
@@ -121,8 +206,18 @@ __device__ __forceinline__ void stage_tile(int32_t* dst,
   int done = 0;
   if (vec) {
     const int nv = n >> 2;
-    for (int i = lane; i < nv; i += 32) cp_async16(dst + 4 * i, src + 4 * i);
+    for (int i = lane; i < nv; i += 32) {
+      if constexpr (kHint)
+        cp_async16(dst + 4 * i, src + 4 * i, policy);
+      else
+        cp_async16(dst + 4 * i, src + 4 * i);
+    }
     done = nv << 2;
   }
-  for (int i = done + lane; i < n; i += 32) cp_async4(dst + i, src + i);
+  for (int i = done + lane; i < n; i += 32) {
+    if constexpr (kHint)
+      cp_async4(dst + i, src + i, policy);
+    else
+      cp_async4(dst + i, src + i);
+  }
 }

@@ -6,12 +6,19 @@
 no predicate matrix is built.  ``eval_cuts`` (the predicate matrix) and
 ``locate_leaf`` (block ids from it) are the port's counterparts of the
 reference's two Pallas kernels, whose composition ``route`` computes;
-its plain version is that composition.  Each function has two CUDA
-kernels, one that stages its tiles in shared memory and one that reads
-global memory, chosen by shape in a launch plan made once a shape, and a
-plain PyTorch version beside them.  The wrapper launches a kernel for a
-CUDA tensor and raises if the launch fails; it takes the plain version
-only for a tensor on the CPU.
+its plain version is that composition.  ``eval_cuts`` and
+``locate_leaf`` have two CUDA kernels each, one that stages its tiles in
+shared memory and one that reads global memory, chosen by shape in a
+launch plan made once a shape.  ``route`` has three: the whole tree in
+shared memory, the tree's BFS prefix in shared memory and the deeper
+levels through L1 and L2 (for trees the first would hold only beside
+fewer warps, and past 7,000 nodes), and one thread a record over global
+memory (forced only);
+:func:`descend_plan` chooses by shape, in arithmetic, and the card
+checks it.  Each function has a plain PyTorch version beside its
+kernels.  The wrapper launches a kernel for a CUDA tensor and raises if
+the launch fails; it takes the plain version only for a tensor on the
+CPU.
 
 ``ops`` is the dict of route operands from
 :func:`repro_torch.engine.plan.pack_route_constants`, uploaded to the
@@ -24,7 +31,8 @@ from __future__ import annotations
 # qdlint: deterministic-module
 
 import contextlib
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -74,21 +82,27 @@ def _require_records(records: torch.Tensor, ops: dict, name: str) -> None:
 # ---------------------------------------------------------------------------
 # launch plans: the kernel of each function is chosen by shape
 # ---------------------------------------------------------------------------
-# the ``variant`` argument of the plan functions; each function's two
-# kernels move its one launch counter
-VARIANTS = {None: 0, "shared": 1, "global": 2}
+# the ``variant`` argument of the plan functions: eval_cuts' and
+# locate_leaf's two kernels move their function's one launch counter;
+# route_descend's three ("prefix" is route's alone) count apart
+VARIANTS = {None: 0, "shared": 1, "global": 2, "prefix": 3}
+ROUTE_KERNELS = {1: "route_descend_shared", 2: "route_descend_global",
+                 3: "route_descend_prefix"}
 
-# The kernel that plans made under :func:`_forced` take; None chooses by
-# shape.  For tests and measurement only.
-_FORCED: Optional[str] = None
+# The kernel that plans made under :func:`_forced` take, with route's warps
+# a block and staged nodes where given; None chooses by shape.  For tests
+# and measurement only.
+_FORCED: tuple = (None, None, None)
 
 
 @contextlib.contextmanager
-def _forced(variant: Optional[str]):
-    """Plans made inside take ``variant`` ("shared" or "global"); forcing
-    the shared kernel on a shape too large for it raises."""
+def _forced(variant: Optional[str], warps: Optional[int] = None,
+            prefix: Optional[int] = None):
+    """Plans made inside take ``variant`` ("shared" or "global"; route also
+    "prefix"), route's at ``warps`` a block and ``prefix`` staged nodes
+    where given.  Forcing a kernel on a shape too large for it raises."""
     global _FORCED
-    before, _FORCED = _FORCED, variant
+    before, _FORCED = _FORCED, (variant, warps, prefix)
     try:
         yield
     finally:
@@ -99,9 +113,14 @@ def _plan(name: str, t: torch.Tensor, *shape: int) -> tuple:
     """``<name>_plan``'s launch plan for ``shape`` on ``t``'s CUDA device:
     (kernel, warps a block, shared bytes, most blocks), made once a shape
     and variant (:func:`repro_torch.kernels._build.plan`)."""
-    index = torch.cuda.current_device() if t.device.index is None \
+    if _FORCED[0] == "prefix":
+        raise ValueError(f"{name}: the prefix kernel is route_descend's")
+    return _build.plan(name, _index(t), *shape, VARIANTS[_FORCED[0]])
+
+
+def _index(t: torch.Tensor) -> int:
+    return torch.cuda.current_device() if t.device.index is None \
         else t.device.index
-    return _build.plan(name, index, *shape, VARIANTS[_FORCED])
 
 
 # ---------------------------------------------------------------------------
@@ -207,13 +226,138 @@ def locate_leaf(m_mat: torch.Tensor, ops: dict) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # route: one descent a record (route_descend)
 # ---------------------------------------------------------------------------
-def route_plan(ops: dict) -> tuple:
+MAX_WARPS = 32  # csrc/route_descend.cu's kMaxWarps: 1024 threads a block
+MIN_WARPS = 4  # fewer warps a block: the next kernel
+GLOBAL_WARPS = 8  # the global kernel's 256 threads a block
+# The shared kernel where its plan fills blocks of MAX_WARPS warps and the
+# tree has at most SHARED_MAX_NODES nodes, else the prefix kernel: PREFIX_WARPS
+# warps a block and PREFIX_BYTES of dynamic shared memory, its tiles and as
+# many nodes as fit beside them (632 at 21 columns).  At 38 registers a
+# thread an SM holds two such blocks, which with their reserves take 132 KB
+# of its 256 KB of shared memory and L1, leaving L1 124 KB for the deeper
+# levels and in_mask.  The crossover and the shape were measured on an H100
+# (PERF.md §6): fewer warps, a larger prefix or a smaller L1 were slower.
+SHARED_MAX_NODES = 7_000
+PREFIX_WARPS = 21
+PREFIX_BYTES = 66_560
+# what an SM holds (an H100's): 2,048 threads, 32 blocks, and a block's
+# opt-in shared bytes plus this many reserved a block (233,472 in all)
+SM_THREADS = 2048
+SM_BLOCKS = 32
+RESERVED_BYTES = 1024
+
+
+class RoutePlan(NamedTuple):
+    """route_descend's launch plan: the kernel (:data:`VARIANTS`), warps a
+    block, dynamic shared bytes, the most blocks resident on the card (0
+    until the card is asked), and the nodes the prefix kernel stages (0
+    otherwise)."""
+
+    kernel: int
+    warps: int
+    smem: int
+    most: int = 0
+    prefix: int = 0
+
+
+def tile_bytes(d: int) -> int:
+    """One warp's staging buffer: 32 rows of ``d`` int32 columns."""
+    return 4 * 32 * d
+
+
+def blocks_per_sm(warps: int, smem: int, optin: int) -> int:
+    """Blocks of ``warps`` warps and ``smem`` dynamic shared bytes one SM
+    holds, by its threads, its blocks and its shared bytes.  The shared
+    kernel's launch bounds leave registers for all of them; the prefix
+    kernel's registers allow fewer, which the card reports (``most``)."""
+    return min(SM_THREADS // (32 * warps), SM_BLOCKS,
+               (optin + RESERVED_BYTES) // (smem + RESERVED_BYTES))
+
+
+def shared_fit(n_nodes: int, d: int, optin: int) -> int:
+    """Warps whose tiles fit beside the whole tree in one block (at most
+    MAX_WARPS, 0 when none does)."""
+    return max(0, min(MAX_WARPS, (optin - 16 * n_nodes) // tile_bytes(d)))
+
+
+def descend_plan(n_nodes: int, d: int, optin: int,
+                 variant: Optional[str] = None, warps: Optional[int] = None,
+                 prefix: Optional[int] = None) -> RoutePlan:
+    """route_descend's launch plan for a tree of ``n_nodes`` nodes and
+    records of ``d`` columns, on a card whose blocks may opt in to
+    ``optin`` shared bytes; ``most`` is left 0 for the card to fill.  Pure
+    arithmetic, no card asked.
+
+    ``variant`` None takes the shared kernel where its plan fills blocks of
+    MAX_WARPS warps and the tree has at most SHARED_MAX_NODES nodes, else
+    the prefix kernel where MIN_WARPS warps' tiles fit beside the root,
+    else the global kernel.  The shared kernel takes the warps a block
+    that put the most warps on an SM, the larger on a tie.  The prefix
+    kernel takes PREFIX_WARPS warps a block and stages as many nodes as fit
+    beside their tiles in PREFIX_BYTES, at most the tree; where not even
+    MIN_WARPS warps' tiles (or the ``warps`` forced) fit there, as many
+    warps (at most PREFIX_WARPS) and nodes as fit ``optin``.  ``warps``
+    and ``prefix`` force those.  A prefix kernel without room for one
+    warp's tile and the root, or asked to stage more nodes than the tree
+    has or none, raises ``ValueError``; a shared plan past ``optin`` goes
+    to the card, which refuses it.
+    """
+    tile = tile_bytes(d)
+    fit = shared_fit(n_nodes, d, optin)
+    room = min(PREFIX_BYTES, optin)
+    if (warps or MIN_WARPS) * tile + 16 > room:
+        room = optin
+    prefix_warps = min(PREFIX_WARPS, (room - 16) // tile)
+    if variant is None:
+        shared = descend_plan(n_nodes, d, optin, "shared")
+        variant = ("shared" if shared.warps == MAX_WARPS
+                   and n_nodes <= SHARED_MAX_NODES
+                   else "prefix" if prefix_warps >= MIN_WARPS else "global")
+    if variant == "global":
+        return RoutePlan(VARIANTS["global"], warps or GLOBAL_WARPS, 0)
+    if variant == "shared":
+        if warps is None:
+            best = (0, 1)  # (warps on an SM, warps a block)
+            for w in range(1, fit + 1):
+                per = blocks_per_sm(w, 16 * n_nodes + w * tile, optin)
+                best = max(best, (w * per, w))
+            warps = best[1]
+        return RoutePlan(VARIANTS["shared"], warps,
+                         16 * n_nodes + warps * tile)
+    if variant != "prefix":
+        raise ValueError(f"unknown route_descend variant {variant!r}")
+    warps = warps or prefix_warps
+    if warps < 1 or 16 + warps * tile > room:
+        raise ValueError(
+            f"route_descend_prefix: {max(warps, 1)} warps' tiles of {d} "
+            f"columns and the root do not fit {optin} shared bytes")
+    k = prefix or min(n_nodes, (room - warps * tile) // 16)
+    if not 1 <= k <= n_nodes:
+        raise ValueError(f"route_descend_prefix: cannot stage {k} of "
+                         f"{n_nodes} nodes")
+    return RoutePlan(VARIANTS["prefix"], warps, 16 * k + warps * tile, 0, k)
+
+
+@functools.lru_cache(maxsize=None)
+def optin_bytes(index: int) -> int:
+    """Shared bytes a block of device ``index`` may opt in to."""
+    return int(torch.cuda.get_device_properties(
+        index).shared_memory_per_block_optin)
+
+
+def route_plan(ops: dict) -> RoutePlan:
     """route_descend's launch plan for the tree of ``ops`` (on a CUDA
-    device): (kernel, warps a block, shared bytes, most blocks), made once
-    a tree shape.  The engine keeps it in its tree plan as
+    device): :func:`descend_plan` (or the kernel :func:`_forced`), checked
+    by the card (``route_descend_plan``), with the most blocks resident;
+    raises ``RuntimeError`` with CUDA's error where the card refuses it.
+    Made once a tree shape: the engine keeps it in its tree plan as
     ``ops["route_plan"]``, so a batch makes no host query of the card."""
-    return _plan("route_descend", ops["nodes"], int(ops["nodes"].shape[0]),
-                 int(ops["cat_off"].shape[0]))
+    index = _index(ops["nodes"])
+    n_nodes, d = int(ops["nodes"].shape[0]), int(ops["cat_off"].shape[0])
+    p = descend_plan(n_nodes, d, optin_bytes(index), *_FORCED)
+    out = _build.plan("route_descend", index, n_nodes, d, p.kernel, p.warps,
+                      p.smem, p.prefix)
+    return p._replace(most=out[3])
 
 
 def route_plain(records: torch.Tensor, ops: dict) -> torch.Tensor:
@@ -223,9 +367,9 @@ def route_plain(records: torch.Tensor, ops: dict) -> torch.Tensor:
 
 
 def route(records: torch.Tensor, ops: dict) -> torch.Tensor:
-    """(m,) int32 block id of each record: one ``route_descend`` launch
-    on a CUDA tensor, with the plan ``ops["route_plan"]`` where the
-    engine made one."""
+    """(m,) int32 block id of each record: on a CUDA tensor one launch of
+    the kernel of the plan ``ops["route_plan"]`` where the engine made one,
+    else of :func:`route_plan`."""
     on_card = _kernel_device(records, "route_descend")
     _require_records(records, ops, "route_descend")
     if not on_card:
@@ -243,5 +387,5 @@ def route(records: torch.Tensor, ops: dict) -> torch.Tensor:
         p(out), *plan, _build.stream_ptr(records.device),
     )
     _build.check(rc, "route_descend")
-    _build.count_launch("route_descend")
+    _build.count_launch(ROUTE_KERNELS[plan[0]])
     return out

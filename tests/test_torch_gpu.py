@@ -139,9 +139,15 @@ def test_route_kernels_match_plain(seed):
 ROUTE_SIZES = [0, 1, 31, 33, 2**16 + 5]
 
 
-@pytest.mark.parametrize("variant", [None, "global"])
+# route_descend's forced kernels: (variant, warps, staged nodes)
+ROUTE_FORCED = [(None, None, None), ("global", None, None),
+                ("prefix", None, None), ("prefix", 4, 3)]
+
+
+@pytest.mark.parametrize("forced", ROUTE_FORCED,
+                         ids=["plan", "global", "prefix", "prefix_w4_k3"])
 @pytest.mark.parametrize("m", ROUTE_SIZES)
-def test_route_descend_matches_plain(m, variant):
+def test_route_descend_matches_plain(m, forced):
     from repro_torch.kernels import _build
 
     dev = _cuda()
@@ -150,10 +156,13 @@ def test_route_descend_matches_plain(m, variant):
     # the tree's records, repeated, past m + 1 rows
     host = np.resize(records, (m + 1, records.shape[1]))
     full = torch.from_numpy(host).to(dev)
-    with trk._forced(variant):
+    with trk._forced(*forced):
         plan = trk.route_plan(ops)
-    assert plan[0] == (2 if variant == "global" else 1)
+    assert plan.kernel == trk.VARIANTS[forced[0] or "shared"]
+    if forced[2]:
+        assert (plan.warps, plan.prefix) == forced[1:]
     ops["route_plan"] = plan
+    name = trk.ROUTE_KERNELS[plan.kernel]
     # a batch at the allocation's start, and one 4 bytes into a row
     for rec, want_host in ((full[:m], host[:m]), (full[1:], host[1:])):
         assert rec.shape[0] == m
@@ -161,6 +170,33 @@ def test_route_descend_matches_plain(m, variant):
         got = trk.route(rec, ops)
         after = _build.launch_counts()
         assert after["route_descend"] == before["route_descend"] + (m > 0)
+        assert after[name] == before[name] + (m > 0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, trk.route_plain(rec, ops))
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      frozen.route(want_host))
+
+
+@pytest.mark.parametrize("prefix", [1, 3])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_prefix_kernel_tests_every_cut_kind_past_the_prefix(seed, prefix):
+    """The prefix kernel with only the root (or three nodes) staged, so
+    that range, IN and advanced cuts are read through L2: equal to the
+    plain version and the numpy route on a ragged batch, aligned and 4
+    bytes into a row (16-byte copies and 4-byte ones)."""
+    dev = _cuda()
+    frozen, records, _ = random_case(seed, m=4001, splits=80)
+    internal = np.flatnonzero(frozen.cut_id >= 0)
+    past = internal[internal >= prefix]
+    assert set(frozen.cuts.kind[frozen.cut_id[past]].tolist()) == {0, 1, 2}
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    with trk._forced("prefix", None, prefix):
+        ops["route_plan"] = trk.route_plan(ops)
+    assert ops["route_plan"].prefix == prefix
+    full = torch.from_numpy(records).to(dev)
+    for rec, want_host in ((full[:3999], records[:3999]),
+                           (full[1:], records[1:])):
+        got = trk.route(rec, ops)
         torch.cuda.synchronize()
         assert torch.equal(got, trk.route_plain(rec, ops))
         np.testing.assert_array_equal(got.cpu().numpy(),
@@ -168,24 +204,38 @@ def test_route_descend_matches_plain(m, variant):
 
 
 def test_route_descend_plan_by_shape():
-    from repro_torch.kernels import _build
-
-    def _plan(*args):
-        return _build.plan("route_descend", *args)
-
     dev = _cuda()
     props = torch.cuda.get_device_properties(dev)
     optin = props.shared_memory_per_block_optin
-    # tpch-40M's 1,447 nodes at 21 columns: nodes and 32 warps' tiles
-    kernel, warps, smem, most = _plan(dev.index, 1447, 21, 0)
-    assert (kernel, smem) == (1, 16 * 1447 + warps * 128 * 21)
-    assert most >= props.multi_processor_count
-    # nodes past what fits beside four warps' tiles: the global kernel,
-    # and forcing the shared one past the card's limit raises
-    too_many = (optin - 4 * 128 * 21) // 16 + 1
-    assert _plan(dev.index, too_many, 21, 0)[0] == 2
+    assert trk.optin_bytes(dev.index) == optin
+
+    def _plan(n_nodes, d, forced=(None,)):
+        with trk._forced(*forced):
+            return trk.route_plan({
+                "nodes": torch.zeros((n_nodes, 4), dtype=torch.int32,
+                                     device=dev),
+                "cat_off": torch.zeros(d, dtype=torch.int32, device=dev)})
+
+    # tpch-40M's 1,447 nodes at 21 columns: the nodes and 32 warps' tiles,
+    # two blocks an SM, as the arithmetic says
+    plan = _plan(1447, 21)
+    assert plan._replace(most=0) == trk.descend_plan(1447, 21, optin)
+    assert (plan.kernel, plan.warps, plan.smem) == (1, 32,
+                                                    16 * 1447 + 32 * 2688)
+    assert plan.most == 2 * props.multi_processor_count
+    # past the shared kernel's reach: the prefix kernel, at least two
+    # blocks of 21 warps an SM (its registers allow two); forced to fill a
+    # block, one
+    for n_nodes, forced, per_sm in ((15_999, (None,), 2), (39_999, (None,), 2),
+                                    (39_999, ("prefix", 32), 1)):
+        plan = _plan(n_nodes, 21, forced)
+        assert plan._replace(most=0) == trk.descend_plan(n_nodes, 21, optin,
+                                                         *forced)
+        assert plan.kernel == 3
+        assert plan.most >= per_sm * props.multi_processor_count
+    # forcing the shared kernel past the card's limit raises
     with pytest.raises(RuntimeError, match="route_descend kernel launch"):
-        _plan(dev.index, optin // 16, 21, 1)
+        _plan(optin // 16, 21, ("shared",))
 
 
 def cut_table(seed, n_cuts):
@@ -390,8 +440,39 @@ def test_engine_route_is_one_route_descend_launch(seed):
     got = eng.route(records)
     after = _build.launch_counts()
     delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    assert delta == {"route_descend": 1}
+    assert delta == {"route_descend": 1, "route_descend_shared": 1}
     np.testing.assert_array_equal(got, frozen.route(records))
+
+
+@pytest.mark.parametrize("n_leaves", [8000, 20_000])
+def test_engine_route_past_the_shared_kernel_is_one_planned_launch(n_leaves):
+    """``LayoutEngine.route`` on a tree whose nodes do not fit beside four
+    warps' tiles: one launch of the planned kernel and nothing else, equal
+    to the numpy route; and each kernel forced equal to it too."""
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    frozen, records = tpch_case(n_leaves, 5000)
+    optin = trk.optin_bytes(dev.index)
+    assert trk.shared_fit(frozen.n_nodes, 21, optin) < trk.MIN_WARPS
+    name = trk.ROUTE_KERNELS[trk.descend_plan(frozen.n_nodes, 21,
+                                              optin).kernel]
+    eng = LayoutEngine(frozen)
+    eng.route(records[:5])  # the tree plan, with the route plan in it
+    before = _build.launch_counts()
+    got = eng.route(records)
+    after = _build.launch_counts()
+    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert delta == {"route_descend": 1, name: 1}
+    want = frozen.route(records)
+    np.testing.assert_array_equal(got, want)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(records).to(dev)
+    for variant in ("prefix", "global"):
+        with trk._forced(variant):
+            plan = trk.route_plan(ops)
+        got = trk.route(rec, {**ops, "route_plan": plan})
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
 def wide_case(seed, d=160, m=4000, leaves=200):

@@ -136,33 +136,63 @@ def test_locate_leaf_plain_matches_pallas(seed):
     np.testing.assert_array_equal(got.numpy(), frozen.route(records))
 
 
-def packed_descent(nodes, in_mask, records, depth):
-    """Block ids by a numpy descent over ``plan.pack_nodes``, decoding
-    ``meta`` and ``w`` as its docstring states."""
-    meta = nodes[:, 0].view(np.uint32).astype(np.int64)
-    left, right = nodes[:, 1].astype(np.int64), nodes[:, 2].astype(np.int64)
-    w = nodes[:, 3].astype(np.int64)
+def _next_node(nd, cur, rec, rows, flat, bits):
+    """Each row's next node from its current node ``cur``, whose packed row
+    (``plan.pack_nodes``) is ``nd``, decoding ``meta`` and ``w`` as its
+    docstring states; a leaf is its own next node."""
+    meta = nd[:, 0].view(np.uint32).astype(np.int64)
+    left, right = nd[:, 1].astype(np.int64), nd[:, 2].astype(np.int64)
+    w = nd[:, 3].astype(np.int64)
     kind, col = meta >> 30, meta & 0xFFF
     off, col_b, op = (meta >> 12) & 0x3FFFF, (meta >> 12) & 0xFFF, meta >> 24
-    bits = in_mask.shape[1]
+    v = rec[rows, col]
+    # col_b and op are fields of advanced nodes only
+    vb = rec[rows, np.where(kind == 2, col_b, 0)]
+    o = np.where(kind == 2, op & 0x3F, 0)
+    pos = np.clip(v + off, 0, bits - 1)
+    in_set = flat[np.where(kind == 1, w + pos, -1)] != 0
+    adv = np.select([o == 0, o == 1, o == 2, o == 3, o == 4],
+                    [v < vb, v <= vb, v > vb, v >= vb, v == vb], v != vb)
+    go_left = np.select([kind == 0, kind == 1], [v < w, in_set], adv)
+    return np.where(right >= 0, np.where(go_left, left, right), cur)
+
+
+def packed_descent(nodes, in_mask, records, depth):
+    """Block ids by a numpy descent over ``plan.pack_nodes``."""
     flat = np.append(in_mask.reshape(-1), 0)  # non-IN nodes read the pad
     rec = records.astype(np.int64)
     rows = np.arange(rec.shape[0])
     cur = np.zeros(rec.shape[0], np.int64)
     for _ in range(depth):
-        k, v = kind[cur], rec[rows, col[cur]]
-        # col_b and op are fields of advanced nodes only
-        vb = rec[rows, np.where(k == 2, col_b[cur], 0)]
-        o = np.where(k == 2, op[cur] & 0x3F, 0)
-        pos = np.clip(v + off[cur], 0, bits - 1)
-        in_set = flat[np.where(k == 1, w[cur] + pos, -1)] != 0
-        adv = np.select([o == 0, o == 1, o == 2, o == 3, o == 4],
-                        [v < vb, v <= vb, v > vb, v >= vb, v == vb], v != vb)
-        go_left = np.select([k == 0, k == 1], [v < w[cur], in_set], adv)
-        cur = np.where(right[cur] >= 0,
-                       np.where(go_left, left[cur], right[cur]), cur)
-    assert (right[cur] == -1).all(), "a record did not reach a leaf"
-    return left[cur].astype(np.int32)
+        cur = _next_node(nodes[cur], cur, rec, rows, flat, in_mask.shape[1])
+    assert (nodes[cur, 2] == -1).all(), "a record did not reach a leaf"
+    return nodes[cur, 1].astype(np.int32)
+
+
+def packed_descent_prefix(nodes, in_mask, records, depth, k):
+    """:func:`packed_descent` as ``csrc/descend.cuh::descend_prefix`` walks
+    it: the first ``k`` nodes from a staged copy while the path stays in
+    them, then the rest from the node array, whose first ``k`` rows are
+    overwritten here by a leaf of block -7, so a path that came back into
+    the prefix would end there."""
+    staged = nodes[:k].copy()
+    deep = nodes.copy()
+    deep[:k] = (0, -7, -1, 0)
+    flat = np.append(in_mask.reshape(-1), 0)
+    rec = records.astype(np.int64)
+    rows = np.arange(rec.shape[0])
+    cur = np.zeros(rec.shape[0], np.int64)
+    out = np.zeros(rec.shape[0], bool)  # the path has left the prefix
+
+    def node():
+        return np.where(out[:, None], deep[cur], staged[np.minimum(cur, k - 1)])
+
+    for _ in range(depth):
+        cur = _next_node(node(), cur, rec, rows, flat, in_mask.shape[1])
+        out |= cur >= k
+    nd = node()
+    assert (nd[:, 2] == -1).all(), "a record did not reach a leaf"
+    return nd[:, 1].astype(np.int32)
 
 
 def assert_packed_descent_routes(frozen, records):
@@ -185,6 +215,78 @@ def test_packed_node_descent_matches_numpy_route_on_tpch(tpch_tree,
     records = tpch_small[1]
     assert_packed_descent_routes(frozen, records)
     np.testing.assert_array_equal(frozen.route(records), bids)
+
+
+def node_levels(tree) -> np.ndarray:
+    """(n_nodes,) each node's level, the root's 0."""
+    level = np.zeros(tree.n_nodes, np.int64)
+    for node in range(tree.n_nodes):  # BFS order: parents come first
+        if tree.cut_id[node] >= 0:
+            level[tree.left[node]] = level[tree.right[node]] = level[node] + 1
+    return level
+
+
+def grown_port_tree(n_leaves):
+    """The port's ``random_layout`` over a TPC-H-like sample (four rows a
+    leaf) and the tpch workload's cuts, and 2,000 other records."""
+    from repro_torch.core.qdtree import random_layout
+    from repro_torch.data.datagen import make_tpch_like
+    from repro_torch.data.workload import make_tpch_workload
+
+    schema, sample = make_tpch_like(4 * n_leaves, seed=0)
+    work, _ = make_tpch_workload(schema, n_per_template=10, seed=0)
+    tree = random_layout(work.candidate_cuts(), sample, n_leaves, 0)
+    return tree, make_tpch_like(2000, seed=1)[1]
+
+
+# ≈ 1 s for the tree of 2,000 leaves on a CPU of this suite's
+@pytest.mark.parametrize("case", [1, 50, 724, 2000, "tpch"])
+def test_pack_nodes_puts_children_after_their_parent(case, request):
+    """``pack_nodes`` keeps ``freeze``'s BFS order: every child's index is
+    greater than its parent's, which ``route_descend_prefix``'s two-loop
+    descent rests on (a path that leaves the BFS prefix never returns)."""
+    if case == "tpch":
+        tree = carry_tree(request.getfixturevalue("tpch_tree")[0])
+    else:
+        tree = grown_port_tree(case)[0]
+        assert tree.n_leaves == case
+    nodes = tplan.pack_nodes(tree)
+    parent = np.flatnonzero(nodes[:, 2] >= 0)
+    assert parent.size == tree.n_leaves - 1
+    assert (nodes[parent, 1] > parent).all()
+    assert (nodes[parent, 2] > parent).all()
+    # each node but the root is one parent's child
+    children = np.sort(np.concatenate([nodes[parent, 1], nodes[parent, 2]]))
+    np.testing.assert_array_equal(children, np.arange(1, tree.n_nodes))
+
+
+@pytest.mark.parametrize("case", SEEDS + ["tpch", "grown"])
+def test_prefix_descent_matches_numpy_route(case, request):
+    """The descent split at a prefix of K nodes (the root alone, a K that
+    ends in the middle of a level, every node) equals the numpy route and
+    the descent over one node array."""
+    if case == "tpch":
+        frozen, records = (request.getfixturevalue("tpch_tree")[0],
+                           request.getfixturevalue("tpch_small")[1])
+        tree = carry_tree(frozen)
+    elif case == "grown":
+        tree, records = grown_port_tree(2000)
+        frozen = tree
+    else:
+        frozen, records = setup_case(case)
+        tree = carry_tree(frozen)
+    ops = tplan.pack_route_constants(tree)
+    nodes, in_mask, depth = ops["nodes"], ops["in_mask"], ops["depth"]
+    want = frozen.route(records)
+    np.testing.assert_array_equal(
+        packed_descent(nodes, in_mask, records, depth), want)
+    level = node_levels(tree)
+    mid = int(np.searchsorted(level, depth // 2))  # first node of that level
+    mid += int((level == depth // 2).sum()) // 2  # ... and half of it
+    assert 1 < mid < tree.n_nodes
+    for k in (1, mid, tree.n_nodes):
+        np.testing.assert_array_equal(
+            packed_descent_prefix(nodes, in_mask, records, depth, k), want)
 
 
 def packed_eval(cut_pack, in_mask, records):
@@ -517,6 +619,74 @@ def test_fused_ingest_plain_matches_pallas_past_one_block(tpch_1300):
 
 OPTIN = 232_448  # an H100's opt-in shared bytes a block
 TPCH_SHAPE = (21, 5, 1, 11, 3)  # columns, cat and adv words, cat columns, adv
+
+
+# (kernel, warps, shared bytes, staged nodes) of route_descend's plan at
+# tpch-40M's 21 columns, by leaves (2 L - 1 nodes)
+ROUTE_PLANS = {
+    724: ("shared", 32, 16 * 1447 + 32 * 2688, 0),  # the main layout
+    # the finer layout: the shared kernel would take two blocks of 28 warps
+    1250: ("prefix", 21, 66_560, 632),
+    3000: ("shared", 32, 16 * 5999 + 32 * 2688, 0),  # one block of 32
+    6000: ("prefix", 21, 66_560, 632),  # past SHARED_MAX_NODES
+    8000: ("prefix", 21, 66_560, 632),
+    20_000: ("prefix", 21, 66_560, 632),
+}
+
+
+@pytest.mark.parametrize("n_leaves", sorted(ROUTE_PLANS))
+def test_descend_plan_by_shape(n_leaves):
+    n_nodes = 2 * n_leaves - 1
+    plan = trk.descend_plan(n_nodes, 21, OPTIN)
+    kernel, warps, smem, prefix = ROUTE_PLANS[n_leaves]
+    assert plan == trk.RoutePlan(trk.VARIANTS[kernel], warps, smem, 0,
+                                 prefix)
+    assert plan.smem <= OPTIN
+    shared = trk.descend_plan(n_nodes, 21, OPTIN, "shared")
+    if kernel == "shared":
+        assert shared == plan and n_nodes <= trk.SHARED_MAX_NODES
+        # two blocks of 32 warps an SM on the main layout, one past it
+        assert trk.blocks_per_sm(plan.warps, plan.smem, OPTIN) == (
+            2 if n_leaves == 724 else 1)
+    else:  # two blocks and their reserves leave L1 124 KB of 256
+        assert (shared.warps < trk.MAX_WARPS
+                or n_nodes > trk.SHARED_MAX_NODES)
+        assert plan.prefix < n_nodes
+        assert 2 * (plan.smem + trk.RESERVED_BYTES) <= 132 * 1024
+        assert trk.descend_plan(n_nodes, 21, OPTIN, "prefix") == plan
+    # forced, the other kernels: the global one always, the shared one
+    # where a warp's tile fits beside the tree, the prefix one staging it
+    assert trk.descend_plan(n_nodes, 21, OPTIN, "global") == trk.RoutePlan(
+        trk.VARIANTS["global"], trk.GLOBAL_WARPS, 0)
+    fit = trk.shared_fit(n_nodes, 21, OPTIN)
+    assert shared.smem == 16 * n_nodes + shared.warps * 2688
+    assert (shared.smem <= OPTIN) == (fit >= 1)
+    small = trk.descend_plan(n_nodes, 21, OPTIN, "prefix", 16, 100)
+    assert small == trk.RoutePlan(trk.VARIANTS["prefix"], 16,
+                                  1600 + 16 * 2688, 0, 100)
+    # 32 warps' tiles do not fit PREFIX_BYTES: the prefix fills the block
+    assert trk.descend_plan(n_nodes, 21, OPTIN, "prefix", 32) == \
+        trk.RoutePlan(trk.VARIANTS["prefix"], 32,
+                      16 * min(n_nodes, 9152) + 32 * 2688, 0,
+                      min(n_nodes, 9152))
+
+
+def test_descend_plan_refuses_a_prefix_kernel_that_cannot_fit():
+    """Forced, the prefix kernel raises where one warp's tile and the root
+    do not fit, or it would stage no node or more than the tree has;
+    unforced, such a shape takes the global kernel."""
+    wide = 232_448 // 128  # one warp's tile of this many columns is optin
+    with pytest.raises(ValueError, match="do not fit"):
+        trk.descend_plan(100, wide, OPTIN, "prefix")
+    with pytest.raises(ValueError, match="do not fit"):
+        trk.descend_plan(100, 100, OPTIN, "prefix", warps=32)  # 410 KB
+    with pytest.raises(ValueError, match="cannot stage"):
+        trk.descend_plan(100, 21, OPTIN, "prefix", prefix=101)
+    assert trk.descend_plan(100, wide - 1, OPTIN, "prefix").warps == 1
+    assert trk.descend_plan(100_000, wide - 1, OPTIN).kernel == \
+        trk.VARIANTS["global"]
+    with pytest.raises(ValueError, match="unknown"):
+        trk.descend_plan(100, 21, OPTIN, "cluster")
 
 
 def cluster_owner(plan, leaf):
