@@ -12,14 +12,14 @@ accumulator on the device), ``route`` (one ``route_descend`` launch),
 (``query_intersect``).  The main path also ingests and routes the table
 into a finer layout (1,250 blocks learned from an 8,000-row sample, built
 in a second process while the rest runs), whose aggregates do not fit a
-block's shared memory, so ``fused_ingest`` takes its cluster kernel there
-(a thread block cluster splits the aggregates over its blocks' shared
-memory), and ``route`` its prefix kernel (the tree's BFS prefix in shared
-memory, the deeper levels through L1 and L2).
+block's shared memory, so ``fused_ingest`` takes its leafwise design
+there (route once, sort the rows by leaf, fold each leaf's rows with one
+owner: four kernels), and ``route`` its prefix kernel (the tree's BFS
+prefix in shared memory, the deeper levels through L1 and L2).
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` first,
 and checks:
 
-* each kernel (the three ``fused_ingest`` kernels and the three
+* each kernel (the four ``fused_ingest`` designs and the three
   ``route_descend`` kernels, each forced too) equals its plain PyTorch
   version on the
   card, exactly: on small random trees with every cut kind, on the finer
@@ -48,11 +48,15 @@ table and layout:
 
 * trees past one block's shared memory (``BIG_TREES``: 1,300 to 20,000
   leaves grown by random legal splits of the 1% sample): one batch
-  through the plan's kernel, the cluster kernel at two blocks of 32
-  warps, else the global one, a counted path a tree; the cluster kernel
-  forced (2 or 16 blocks, in two ranges at 20,000 leaves, one launch a
-  batch) and the global kernel forced, each equal to the plain version
-  and timed in turn; at 8,000 and 20,000 leaves (``BIG_ROUTE_TREES``)
+  through the plan's design (the leafwise one, each of its four kernels
+  once), a counted path a tree; the leafwise design, the global kernel
+  and the cluster kernel forced (2 or 16 blocks, in two ranges at 20,000
+  leaves, one launch a batch), each equal to the plain version and timed
+  in turns, and each leafwise stage held to its plain version; at 8,000
+  leaves a batch all in one leaf through the leafwise design; at 20,000
+  the whole table
+  ingested through ``LayoutEngine.ingest``, equal to the first draft's
+  accumulators over the same batches; at 8,000 and 20,000 leaves (``BIG_ROUTE_TREES``)
   ``LayoutEngine.route`` of one batch a counted path of its own
   (``big_tree_route_<leaves>``, one launch of the planned prefix kernel),
   each route kernel forced, equal to the plain version and the fold's
@@ -217,8 +221,9 @@ calls, host clock; route split into its kernel, from a trace, and the
 ids' copy back), whole-table ingests on fresh trees, one ingest under
 ``torch.profiler`` (the device's busy share), the fold of the running
 accumulator into the tightener (once an ingest), and each kernel against
-its plain version (``fused_ingest_cluster`` on the finer layout, and
-``fused_ingest_global``, off the main path, forced on the same layout).
+its plain version (the leafwise design, the finer layout's plan, in turns
+with ``fused_ingest_cluster`` and ``fused_ingest_global``, forced there,
+and its four kernels' own device times from a trace).
 It exits non-zero on the first failure, without a CUDA device, and when
 the package is not beside it.  Output, before the
 last line: the card's name and power limit, build seconds, one
@@ -227,7 +232,10 @@ last line: the card's name and power limit, build seconds, one
 ``lm_shard``, ``dryrun``, ``big_trees``, and ``phase_s`` for every
 phase)
 and one ``{"kernels": [...]}`` JSON line (launches, median CUDA-event
-time, bound, plain-version time, max difference per kernel).  The last line is ``{"ok": true, "device":
+time, bound, plain-version time, max difference per kernel; for each of
+the leafwise design's four kernels, which one wrapper call launches
+together, its device time from a trace, its stage's own bound and plain
+version, and ``torch.cumsum``'s time beside the scan).  The last line is ``{"ok": true, "device":
 {...}}``.  ``--rows`` cuts the row count (the only cut allowed; it is
 printed).
 """
@@ -256,11 +264,14 @@ MIN_BLOCK = 400  # in sample records: ~40k rows a block at full size
 FINE_SAMPLE = 8_000  # TPC-H-like rows the finer layout is learned from
 FINE_MIN_BLOCK = 5  # ... giving 1,250 blocks, 250 KB of aggregates
 # trees past one block's shared memory, grown by random legal splits of
-# the 1% sample: the plan takes the cluster kernel for the first (two
-# blocks of 32 warps) and the global kernel for the others; forced, the
-# cluster kernel takes two blocks of 17 warps, 16 blocks, and 16 blocks
-# in two ranges
+# the 1% sample: the plan takes the leafwise design on each; forced, the
+# cluster kernel takes two blocks of 32 warps, two of 17, 16
+# blocks, and 16 blocks in two ranges
 BIG_TREES = (1_300, 1_800, 8_000, 20_000)
+# the designs forced on each big tree, timed in turns in this order and back
+BIG_FORCED = ("leafwise", "global", "cluster")
+# the big tree a batch all in one leaf is folded on by the leafwise design
+ONE_LEAF_TREE = 8_000
 ORACLE_ROWS = 1 << 18
 ORACLE_CHUNK = 1 << 18  # rows a host thread routes at a time
 ROUTE_QUERY_N = 10  # queries routed one at a time on the main path
@@ -429,6 +440,10 @@ SCALAR_OPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989.4e12  # dense bf16 on the tensor cores
 
 FUSED = "src/repro_torch/kernels/csrc/fused_ingest.cu"
+# kernels/_build.py::FUSED_KERNELS[4], the leafwise design's, in launch order
+LEAFWISE_KERNELS = ("fused_ingest_leafwise_route", "fused_ingest_leafwise_scan",
+                    "fused_ingest_leafwise_scatter",
+                    "fused_ingest_leafwise_fold")
 FUSED_REF = "src/repro/kernels/fused_ingest.py:213"
 KERNEL_SOURCES = {
     "eval_cuts": ("src/repro_torch/kernels/csrc/eval_cuts.cu",
@@ -444,22 +459,23 @@ KERNEL_SOURCES = {
     "fused_ingest_shared": (FUSED, FUSED_REF),
     "fused_ingest_cluster": (FUSED, FUSED_REF),
     "fused_ingest_global": (FUSED, FUSED_REF),
+    # the leafwise design's four kernels compute, in turn, the same fold
+    **{name: (FUSED, FUSED_REF) for name in LEAFWISE_KERNELS},
     "query_intersect": ("src/repro_torch/kernels/csrc/query_intersect.cu",
                         "src/repro/kernels/query_intersect.py:94"),
 }
 VARIANTS = ("shared", "global")  # eval_cuts' and locate_leaf's
-FUSED_VARIANTS = ("shared", "cluster", "global")
+FUSED_VARIANTS = ("shared", "cluster", "leafwise", "global")
 # route_descend's kernels forced, (variant, warps, staged nodes): the prefix
 # kernel also with the root alone staged, so every level but the first
 # reads the node array through L1 and L2
 ROUTE_FORCED = (("shared",), ("global",), ("prefix",), ("prefix", None, 1))
 # kernels off the main path: ``route`` no longer goes through eval_cuts and
-# locate_leaf; fused_ingest_global takes only trees past a cluster of two
-# blocks, which no layout of the main path reaches (the big trees' paths
-# and the autotuner's candidates launch it), and route_descend_global is
-# forced only
+# locate_leaf; fused_ingest_global takes only trees past the leafwise
+# design's reach (the autotuner's candidates launch it), and
+# fused_ingest_cluster and route_descend_global are forced only
 OFF_PATH = ("eval_cuts", "locate_leaf", "fused_ingest_global",
-            "route_descend_global")
+            "fused_ingest_cluster", "route_descend_global")
 # the big trees routed too: a counted path each through the plan's kernel
 # (route_descend_prefix), each route kernel forced and timed in turn, and
 # the whole table routed through the last
@@ -467,9 +483,11 @@ BIG_ROUTE_TREES = (8_000, 20_000)
 
 
 def fused_launches(counts: dict) -> int:
-    """``fused_ingest`` launches in a launch count, of any of its kernels."""
-    return (counts["fused_ingest_shared"] + counts["fused_ingest_cluster"]
-            + counts["fused_ingest_global"])
+    """Batches ``fused_ingest`` folded in a launch count, by any of its
+    designs (the leafwise design's four kernels count once a batch)."""
+    from repro_torch.kernels import fused_ingest as fk
+
+    return fk.batches_folded(counts)
 
 
 def log(msg: str) -> None:
@@ -561,10 +579,14 @@ def host_ms(fn, reps: int) -> dict:
 
 def trace_counts(prof) -> dict:
     """From a profiler trace: the union of all device activity (kernels,
-    copies, fills) in ms, the ``fused_ingest`` kernels' ms and count, and
-    the device-to-host copies."""
+    copies, fills) in ms, the ``fused_ingest`` kernels' ms, the batches
+    they folded (each design's first kernel runs once a batch), and the
+    device-to-host copies."""
     import torch
 
+    from repro_torch.kernels import fused_ingest as fk
+
+    firsts = [names[0] for names in fk.KERNEL_NAMES.values()]
     spans, kernel_ms, kernels, d2h = [], 0.0, 0, 0
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -572,7 +594,7 @@ def trace_counts(prof) -> dict:
         spans.append((ev.time_range.start, ev.time_range.end))
         if "fused_ingest" in ev.name:
             kernel_ms += (ev.time_range.end - ev.time_range.start) / 1e3
-            kernels += 1
+            kernels += any(name in ev.name for name in firsts)
         if "DtoH" in ev.name:
             d2h += 1
     busy, end = 0.0, float("-inf")
@@ -748,8 +770,10 @@ def route_forced(rec, ops, variant, warps=None, prefix=None):
 def compare_kernels(tree, rec, wt, dev, ctx: str,
                     variants=FUSED_VARIANTS) -> dict[str, float]:
     """Each kernel against its plain version on the same inputs (exact):
-    both kernels of ``eval_cuts`` and ``locate_leaf``, and each of
-    ``route_descend``'s (ROUTE_FORCED), also against the two-kernel form."""
+    both kernels of ``eval_cuts`` and ``locate_leaf``, each of
+    ``route_descend``'s (ROUTE_FORCED), also against the two-kernel form,
+    and each design of ``fused_ingest`` in ``variants``."""
+    from repro_torch.kernels import fused_ingest as fk
     from repro_torch.kernels import query_intersect as qk
     from repro_torch.kernels import route_records as rk
 
@@ -773,7 +797,9 @@ def compare_kernels(tree, rec, wt, dev, ctx: str,
         name = rk.ROUTE_KERNELS[rk.VARIANTS[forced[0]]]
         errs[name] = max(errs.get(name, 0.0), max_abs_err([got], [want]))
     for v in variants:
-        errs[f"fused_ingest_{v}"] = fused_err(ops, [rec], v)
+        e = fused_err(ops, [rec], v)
+        for name in fk.KERNEL_NAMES[fk.VARIANTS[v]]:
+            errs[name] = e
     qargs = query_args(tree, wt, dev)
     errs["query_intersect"] = max_abs_err(qk.query_intersect(*qargs),
                                           qk.query_intersect_plain(*qargs))
@@ -906,14 +932,62 @@ def fused_bound(tree, ops, bids, m: int, d: int):
                  path + m * (2 * d + n_cat + int(ops["n_adv"]) + 1))
 
 
+def leafwise_stage_err(acc, bids, n_leaves: int) -> dict:
+    """Each stage of the leafwise design against its plain version, from
+    the scratch one batch left in ``acc`` (forced leafwise, one fold of the
+    rows whose block ids are ``bids``): the route's ids are ``bids`` (the
+    caller holds them to the plain version); the scan's per-leaf counts are
+    zero again and its offsets are the exclusive cumulative sum of
+    ``torch.bincount``; the scatter's leaf order, each leaf's rows sorted,
+    is ``torch.argsort(bids, stable=True)``.  The fold's output is the
+    accumulators, held by the caller."""
+    import torch
+
+    (s,) = acc._scratch.values()
+    m = bids.shape[0]
+    hist = torch.bincount(bids.long(), minlength=n_leaves)
+    first = torch.cat([torch.cumsum(hist, 0) - hist, hist.new_tensor([m])])
+    ent = torch.sort(s["entries"][:m]).values  # (leaf, row) order
+    return {
+        "scan": max_abs_err([s["hist"], s["offsets"].long()],
+                            [torch.zeros_like(s["hist"]), first]),
+        "scatter": max_abs_err(
+            [ent >> 32, ent & 0xFFFFFFFF],
+            [torch.sort(bids).values.long(),
+             torch.argsort(bids, stable=True)]),
+    }
+
+
+def one_leaf_batch(x, bids):
+    """``x``'s rows of its busiest leaf (by ``bids``), repeated to as many
+    rows as ``x``: every row of the batch lands in one leaf."""
+    import torch
+
+    busiest = int(torch.bincount(bids.long()).argmax())
+    idx = torch.nonzero(bids == busiest).flatten()
+    reps = -(-x.shape[0] // idx.shape[0])
+    return x[idx.repeat(reps)[:x.shape[0]]].contiguous()
+
+
 def big_tree_phase(ctx, cuts, x, counted) -> dict:
     """Trees past one block's shared memory (BIG_TREES leaves over the
     main path's schema and cuts, grown by random legal splits of the 1%
-    sample): one batch folded by the plan's kernel, each tree a counted
-    path of its own (``big_tree_<leaves>``) with one launch of that
-    kernel; then the cluster kernel (its own split, in ranges past the
-    largest cluster) and the one-thread-a-record kernel, each forced,
-    equal to the plain version too and timed in turn; and the bound.  The
+    sample): one batch folded by the plan's design, each tree a counted
+    path of its own (``big_tree_<leaves>``) with one launch of each of its
+    kernels; then the leafwise design, the cluster kernel (its own split,
+    in ranges past the largest cluster) and the one-thread-a-record
+    kernel, each forced, equal to the plain version too (block ids and all
+    six accumulators) and timed in turns (BIG_FORCED, then again in
+    reverse: 20 single calls between CUDA events, and :func:`stream_ms`),
+    the leafwise stages each held to its plain version
+    (:func:`leafwise_stage_err`), and each leafwise kernel's device ms
+    from a trace beside its own bound (:func:`leafwise_stage_bounds`); the
+    plain version's time and the function's bound.
+    On ONE_LEAF_TREE leaves a batch all in one leaf through the leafwise
+    design.  On
+    the last tree the whole table ingested through ``LayoutEngine.ingest``
+    (a counted path, ``big_tree_ingest_<leaves>``) equal to the first
+    draft's accumulators, forced, over the same batches.  The
     BIG_ROUTE_TREES are routed too (:func:`big_tree_route`)."""
     import torch
 
@@ -937,48 +1011,265 @@ def big_tree_phase(ctx, cuts, x, counted) -> dict:
                 f"{n_leaves} leaves: plan {plan}, not {want_plan}")
         path = f"big_tree_{n_leaves}"
         bids = counted(path, lambda: acc.fold(x, bids=True))
-        name = fk.KERNEL_NAMES[plan.kernel]
+        names = fk.KERNEL_NAMES[plan.kernel]
         require(ctx["path_launches"][path]
-                == {k: int(k == name) for k in ctx["path_launches"][path]},
+                == {k: int(k in names) for k in ctx["path_launches"][path]},
                 f"{n_leaves} leaves: one batch launched "
-                f"{ctx['path_launches'][path]}; expected one {name}")
-        with fk._forced("cluster"):
-            acc_c = fk.IngestAccumulator(ops)
-        require((acc_c._launch.ranges > 1) == (n_leaves == BIG_TREES[-1]),
-                f"{n_leaves} leaves: cluster plan {acc_c._launch}")
-        with fk._forced("global"):
-            acc_g = fk.IngestAccumulator(ops)
+                f"{ctx['path_launches'][path]}; expected one of each of "
+                f"{names}")
+        accs = {}
+        for v in BIG_FORCED:
+            with fk._forced(v):
+                accs[v] = fk.IngestAccumulator(ops)
+        require((accs["cluster"]._launch.ranges > 1)
+                == (n_leaves == BIG_TREES[-1]),
+                f"{n_leaves} leaves: cluster plan {accs['cluster']._launch}")
         plain = fk.IngestAccumulator(ops)
         want = [fk.fused_ingest_plain(x, plain), *plain.tensors()]
         err = {"plan": max_abs_err([bids, *acc.tensors()], want)}
-        for v, a in (("cluster", acc_c), ("global", acc_g)):
+        for v, a in accs.items():
             err[v] = max_abs_err([a.fold(x, bids=True), *a.tensors()], want)
-        require(all(e == 0.0 for e in err.values()),
+        stage_err = leafwise_stage_err(accs["leafwise"], want[0], n_leaves)
+        require(all(e == 0.0 for e in (*err.values(), *stage_err.values())),
                 f"{n_leaves} leaves: the kernels differ from the plain "
-                f"version by {err}")
-        times = {"cluster": [], "global": []}
-        turns = (("cluster", acc_c), ("global", acc_g))
-        for v, a in turns + turns[::-1]:  # cluster, global, global, ...
-            times[v].append(time_ms(lambda: a.fold(x), 20))
-        bound_ms, bound_by = fused_bound(tree, ops, bids.cpu().numpy(), m, d)
+                f"version by {err}, the leafwise stages by {stage_err}")
+        times = {v: {"ms": [], "stream_ms": []} for v in accs}
+        for v in [*accs, *reversed(accs)]:  # A, B, C, C, B, A
+            times[v]["ms"].append(time_ms(lambda a=accs[v]: a.fold(x), 20))
+            times[v]["stream_ms"].append(
+                stream_ms(lambda a=accs[v]: a.fold(x)))
+        plain_ms = time_ms(lambda: fk.fused_ingest_plain(x, plain,
+                                                         bids=False), 1)
+        bids_np = bids.cpu().numpy()
+        bound_ms, bound_by = fused_bound(tree, ops, bids_np, m, d)
+        stage_bounds = leafwise_stage_bounds(tree, ops, bids_np, m, d)
+        stages = {k: {**v, "bound_ms": stage_bounds[k][0],
+                      "bound_by": stage_bounds[k][1]}
+                  for k, v in leafwise_stages(accs["leafwise"], x).items()}
         out[n_leaves] = {
-            "grow_s": grow_s, "depth": tree.depth, "kernel": name,
-            "plan": plan._asdict(), "cluster_plan": acc_c._launch._asdict(),
-            "max_abs_err": max(err.values()), "cluster_ms": times["cluster"],
-            "global_ms": times["global"], "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "grow_s": grow_s, "depth": tree.depth, "kernels": list(names),
+            "plan": plan._asdict(),
+            "forced_plans": {v: a._launch._asdict() for v, a in accs.items()},
+            "max_abs_err": max(err.values()), "stage_err": stage_err,
+            "stages": stages,
+            "times": times, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "launches": {k: c for k, c in ctx["path_launches"][path].items()
+                         if c}}
         log(f"{n_leaves} leaves (grown in {grow_s:.1f}s, depth "
-            f"{tree.depth}): plan {plan} ({name}); cluster "
-            f"{acc_c._launch} {times['cluster']} ms, global "
-            f"{times['global']} ms, bound {bound_ms:.6f} ms")
-        del acc, acc_c, acc_g, plain, want
+            f"{tree.depth}): plan {plan} ({names}); forced {times} ms; "
+            f"plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms")
+        if n_leaves == ONE_LEAF_TREE:
+            out[n_leaves]["one_leaf"] = leafwise_one_leaf(ops, x, bids)
+        del acc, accs, plain, want
         torch.cuda.empty_cache()
         if n_leaves in BIG_ROUTE_TREES:
             out[n_leaves]["route"] = big_tree_route(
                 ctx, tree, ops, x, bids, counted,
                 whole=n_leaves == BIG_ROUTE_TREES[-1])
             torch.cuda.empty_cache()
+        if n_leaves == BIG_TREES[-1]:
+            out[n_leaves]["whole_table"] = big_tree_ingest(ctx, tree, ops,
+                                                           counted)
+            torch.cuda.empty_cache()
     return out
+
+
+def leafwise_stages(acc, x) -> dict:
+    """Each leafwise kernel's device ms (median of the events a trace of
+    LAT_REPS folds kept, and their count), the folds counted by the
+    wrappers: LAT_REPS launches of each of the four and of nothing else.
+    A trace that kept no event of one of them is taken again, at most
+    TRACE_TRIES traces in all; fails if the last still kept none."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_ingest as fk
+
+    names = fk.KERNEL_NAMES[fk.VARIANTS["leafwise"]]
+    for attempt in range(TRACE_TRIES):
+        before = _build.launch_counts()
+        spans = traced_kernels(lambda: acc.fold(x), LAT_REPS)
+        after = _build.launch_counts()
+        launched = {k: after[k] - before[k] for k in _build.LAUNCH_NAMES
+                    if after[k] != before[k]}
+        require(launched == dict.fromkeys(names, LAT_REPS),
+                f"{LAT_REPS} leafwise folds launched {launched}")
+        require(set(spans) <= set(names), f"the trace shows {set(spans)}")
+        if set(spans) == set(names):
+            break
+        log(f"trace {attempt + 1} of the leafwise folds kept no "
+            f"{set(names) - set(spans)}")
+    require(set(spans) == set(names),
+            f"no trace kept every leafwise kernel: {set(spans)}")
+    return {k: {"ms": float(np.median(spans[k])), "events": len(spans[k])}
+            for k in names}
+
+
+def leafwise_stage_bounds(tree, ops, bids: np.ndarray, m: int,
+                          d: int) -> dict:
+    """Each leafwise kernel's own bound on a fold of ``m`` rows whose
+    block ids are ``bids``: the bytes its function must move (each input
+    read once, each output written once) and its operations.  Route: the
+    records, nodes and in_mask in, a row's id and slot and a leaf's count
+    out; a cut a path level and a histogram add a row.  Scan: the counts
+    in, the offsets out; an add a leaf.  Scatter: the ids, slots, offsets
+    and counts in, the leaf order, the running counts (read and written)
+    and the zeroed counts out; a store a row and an add a leaf.  Fold: the
+    leaf order and the records in, the running min, max and bits read and
+    written; as the function's bound, an operation an aggregate a row."""
+    L, n_cat, n_adv = tree.n_leaves, int(ops["cat_dims"].shape[0]), \
+        int(ops["n_adv"])
+    words = L * 4 * (2 * d + int(ops["cw"]) + 2 * int(ops["aw"]))
+    table = sum(int(v.numel() * v.element_size()) for k, v in ops.items()
+                if k in ("cat_off", "adv", "cat_dims"))
+    names = LEAFWISE_KERNELS
+    return dict(zip(names, (
+        bound(m * d * 4 + 16 * tree.n_nodes + int(ops["in_mask"].numel())
+              + 8 * m + 4 * L, int(leaf_depths(tree)[bids].sum()) + m),
+        bound(4 * L + 4 * (L + 1), L),
+        bound(8 * m + 4 * (L + 1) + 4 * L + 8 * m + 16 * L + 4 * L, m + L),
+        bound(8 * m + m * d * 4 + table + 2 * words,
+              m * (2 * d + n_cat + n_adv)),
+    )))
+
+
+def leafwise_stage_plain(acc, x) -> dict:
+    """Each leafwise kernel's plain PyTorch version, on the inputs one fold
+    of ``x`` (no block ids) left in ``acc``'s scratch, held to what the
+    kernel left there: its ms (median of 3 CUDA-event calls), its
+    ``max_abs_err`` and, for the scan, the ms of the one PyTorch call that
+    computes it (``torch.cumsum``; none computes another stage alone).
+    Route: the ids and the per-leaf counts (its slots are the atomics'
+    order: not compared); scan: the offsets; scatter, from the kernel's
+    slots: the leaf order, exactly; fold, from the kernel's leaf order:
+    the min, max and bits, which a repeated fold leaves as they are."""
+    import torch
+
+    from repro_torch.kernels import fused_ingest as fk
+    from repro_torch.kernels import route_records as rk
+
+    (s,) = acc._scratch.values()
+    ops, dev = acc.ops, x.device
+    m, L = x.shape[0], acc.lo.shape[0]
+    ids, slots = s["ids"][:m], s["slots"][:m]
+    offsets, entries = s["offsets"], s["entries"][:m]
+    hist = torch.bincount(ids.long(), minlength=L).to(torch.int32)
+    rows = torch.arange(m, device=dev)
+    plain = fk.IngestAccumulator(ops)  # its tensors only: never folded
+
+    def route():
+        b = rk.route_plain(x, ops)
+        h = torch.bincount(b.long(), minlength=L)
+        order = torch.argsort(b, stable=True)
+        sl = torch.empty_like(b)
+        sl[order] = (rows - (torch.cumsum(h, 0) - h)[b[order]]).to(sl.dtype)
+        return b, sl, h
+
+    def scan():
+        return torch.cat([hist.new_zeros(1),
+                          torch.cumsum(hist, 0, dtype=torch.int32)])
+
+    def scatter():
+        ent = torch.empty(m, dtype=torch.int64, device=dev)
+        ent[offsets[ids.long()].long() + slots.long()] = \
+            (ids.long() << 32) | rows
+        plain.counts.add_(hist)
+        h = hist.clone()
+        h.zero_()
+        return ent
+
+    def fold():
+        fk.fold_plain(x[entries & 0xFFFFFFFF], (entries >> 32).int(), plain)
+
+    b, _, h = route()
+    fold()
+    got = {
+        "route": max_abs_err([b, h.int()], [ids, hist]),
+        "scan": max_abs_err([scan()], [offsets]),
+        "scatter": max_abs_err([scatter()], [entries]),
+        "fold": max_abs_err(acc.tensors()[1:], plain.tensors()[1:]),
+    }
+    out = {}
+    for name, stage, fn in zip(LEAFWISE_KERNELS, got, (route, scan, scatter,
+                                                      fold)):
+        out[name] = {"plain_ms": time_ms(fn, 3), "max_abs_err": got[stage],
+                     "library_ms": None}
+    out[LEAFWISE_KERNELS[1]]["library_ms"] = time_ms(
+        lambda: torch.cumsum(hist, 0), 20)
+    require(all(r["max_abs_err"] == 0.0 for r in out.values()),
+            f"a leafwise stage differs from its plain version: {got}")
+    return out
+
+
+def leafwise_one_leaf(ops, x, bids) -> dict:
+    """A batch of ``x``'s size, every row in one leaf, folded by the
+    leafwise design (forced): equal to the plain version; and its ms."""
+    from repro_torch.kernels import fused_ingest as fk
+
+    skew = one_leaf_batch(x, bids)
+    with fk._forced("leafwise"):
+        acc = fk.IngestAccumulator(ops)
+    plain = fk.IngestAccumulator(ops)
+    want = [fk.fused_ingest_plain(skew, plain), *plain.tensors()]
+    got = acc.fold(skew, bids=True)
+    require(int(want[0].unique().numel()) == 1, "the batch spans leaves")
+    err = max_abs_err([got, *acc.tensors()], want)
+    require(err == 0.0, f"a batch in one leaf: the leafwise design differs "
+                        f"from the plain version by {err}")
+    ms = time_ms(lambda: acc.fold(skew), 20)
+    log(f"a batch of {skew.shape[0]} rows in one leaf: leafwise {ms:.6f} ms")
+    return {"rows": skew.shape[0], "max_abs_err": err, "ms": ms}
+
+
+def big_tree_ingest(ctx, tree, ops, counted) -> dict:
+    """The whole table ingested through ``LayoutEngine.ingest`` on the
+    tree (a counted path, ``big_tree_ingest_<leaves>``: each of the plan's
+    kernels once a batch, nothing else), its tightened descriptions equal
+    to those of the first draft's accumulators, forced, over the same
+    batches."""
+    from repro_torch.core.qdtree import FrozenQdTree, IncrementalTightener
+    from repro_torch.engine import LayoutEngine
+    from repro_torch.kernels import fused_ingest as fk
+
+    dev, slices = ctx["dev"], ctx["slices"]
+    engine = LayoutEngine(FrozenQdTree.from_arrays(tree.to_arrays()),
+                          device=dev)
+    engine.warm_ingest(ctx["sizes"])
+    path = f"big_tree_ingest_{tree.n_leaves}"
+    rep = counted(path, lambda: engine.ingest(slices))
+    names = fk.KERNEL_NAMES[fk.layout_plan(fk.plan_shape(ops), fk.optin_bytes(
+        dev.index)).kernel]
+    launched = ctx["path_launches"][path]
+    require(rep.n_batches == len(slices) and launched == {
+        k: len(slices) * (k in names) for k in launched},
+        f"{path}: {rep.n_batches} batches launched {launched}; expected "
+        f"each of {names} once a batch")
+    with fk._forced("global"):
+        acc_g = fk.IngestAccumulator(ops)
+    for s in slices:
+        acc_g.fold(s)
+    ref = FrozenQdTree.from_arrays(tree.to_arrays())
+    tightener = IncrementalTightener(ref)
+    tightener.merge(acc_g.partial(ref))
+    tightener.apply()
+    require(leaves_equal(engine.tree, ref),
+            f"{path}: the ingest's descriptions differ from the first "
+            f"draft's over the same batches")
+    log(f"{path}: {rep.n_records} rows in {rep.n_batches} batches, "
+        f"{rep.wall_s:.3f}s, equal to the first draft's")
+    return {"rows": rep.n_records, "batches": rep.n_batches,
+            "wall_s": rep.wall_s, "launches": launched}
+
+
+def big_fused_row(r: dict, variant: str, name: str) -> dict:
+    """Kernel ``name`` of the fused design ``variant`` on a big tree, from
+    :func:`big_tree_phase`'s result: medians of the design's times forced,
+    launches on the tree's counted path, the error, bound and plain ms."""
+    t = r["times"][variant]
+    return {"ms": float(np.median(t["ms"])),
+            "stream_ms": float(np.median(t["stream_ms"])),
+            "launches": r["launches"].get(name, 0),
+            "max_abs_err": r["max_abs_err"], "bound_ms": r["bound_ms"],
+            "plain_ms": r["plain_ms"]}
 
 
 def big_route_row(r: dict, name: str) -> dict:
@@ -4209,14 +4500,14 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     # large for shared memory; the running fold over uneven batches -------
     errs = compare_kernels(tree, slices[0], wt, dev, "main path shapes")
     fine_errs = compare_kernels(fine, slices[0], wt, dev, "finer layout",
-                                variants=("cluster", "global"))
+                                variants=("cluster", "leafwise", "global"))
     fops = route_ops(fine, dev)
     before = _build.launch_counts()
     fk.IngestAccumulator(fops).fold(slices[0])
     after = _build.launch_counts()
     require({k: after[k] - before[k] for k in after}
-            == {k: int(k == "fused_ingest_cluster") for k in after},
-            "the finer layout's aggregates should take the cluster kernel")
+            == {k: int(k in LEAFWISE_KERNELS) for k in after},
+            "the finer layout's aggregates should take the leafwise design")
     try:
         with fk._forced("shared"):
             fk.IngestAccumulator(fops).fold(slices[0])
@@ -4226,7 +4517,7 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     require(refused, "a shared-memory request past the card's limit must "
                      "raise")
     for k in ("fused_ingest_cluster", "fused_ingest_global",
-              *rk.ROUTE_KERNELS.values()):
+              *LEAFWISE_KERNELS, *rk.ROUTE_KERNELS.values()):
         errs[k] = max(errs[k], fine_errs[k])
     n_run = min(n_rows, 3 * BATCH // 2)
     bounds = sorted({0, 1, 1000, min(BATCH - 3, n_run), n_run})
@@ -4240,7 +4531,9 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     ops = route_ops(tree, dev)
     leaf, conj, layout = query_args(tree, wt, dev)
     m_mat = rk.eval_cuts(x, ops)
-    acc_s, acc_c = fk.IngestAccumulator(ops), fk.IngestAccumulator(fops)
+    acc_s = fk.IngestAccumulator(ops)
+    with fk._forced("cluster"):  # forced only, on the layout it was made for
+        acc_c = fk.IngestAccumulator(fops)
     acc_p, acc_cp = fk.IngestAccumulator(ops), fk.IngestAccumulator(fops)
     acc_gp = fk.IngestAccumulator(fops)
     with fk._forced("global"):  # the old kernel, on the same layouts
@@ -4265,6 +4558,18 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
                                                              layout)),
     }
     times = {n: (time_ms(k, 20), time_ms(p, 3)) for n, (k, p) in runs.items()}
+    # the finer layout's planned design (leafwise) against the cluster
+    # kernel and the first draft, forced, in turns (each, then each again
+    # in reverse): single calls and stream ms
+    fine_turns = {"leafwise": fk.IngestAccumulator(fops), "cluster": acc_c,
+                  "global": acc_g}
+    fine_times = {v: {"ms": [], "stream_ms": []} for v in fine_turns}
+    for v in [*fine_turns, *reversed(fine_turns)]:
+        fold = (lambda a=fine_turns[v]: a.fold(x))
+        fine_times[v]["ms"].append(time_ms(fold, 20))
+        fine_times[v]["stream_ms"].append(stream_ms(fold))
+    leafwise_trace = leafwise_stages(fine_turns["leafwise"], x)
+    leafwise_plain = leafwise_stage_plain(fine_turns["leafwise"], x)
     # the global kernel on the main layout (the same work as the shared
     # one); the host side of one fold (wrapper and launch, no sync) and
     # the shared kernel's plan
@@ -4464,6 +4769,18 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
     times["eval_cuts"] = (wb_eval["ms"], wb_eval["plain_ms"])
     bounds_ms["eval_cuts"] = (wb_eval["bound_ms"], wb_eval["bound_by"])
     errs["eval_cuts"] = wb_eval["max_abs_err"]
+    # the leafwise design's rows, a kernel each, on the finer layout (the
+    # plan's design there): its device ms from a trace (one wrapper call
+    # launches the four), its stage's plain version and the stage's own
+    # bound on the same inputs; the design's whole-fold times are the
+    # metrics' fused_fine_times and big_trees
+    bounds_ms.update(leafwise_stage_bounds(fine, fops, fine_route_bids, m,
+                                           d))
+    for name in LEAFWISE_KERNELS:
+        times[name] = (leafwise_trace[name]["ms"],
+                       leafwise_plain[name]["plain_ms"])
+        errs[name] = max(errs[name], leafwise_plain[name]["max_abs_err"],
+                         *(r["max_abs_err"] for r in big.values()))
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         ms, plain_ms = times[name]
@@ -4472,7 +4789,9 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": (leafwise_plain[name]["library_ms"]
+                           if name in LEAFWISE_KERNELS else None),
         })
         if name in rk.ROUTE_KERNELS.values():  # and on the big trees
             kernels[-1]["stream_ms"] = float(np.median(
@@ -4480,6 +4799,19 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
             kernels[-1]["by_leaves"] = {
                 n: big_route_row(big[n]["route"], name)
                 for n in BIG_ROUTE_TREES}
+        if name in LEAFWISE_KERNELS:  # its own numbers on the big trees
+            kernels[-1]["ms_from"] = "trace"
+            kernels[-1]["trace_events"] = leafwise_trace[name]["events"]
+            kernels[-1]["by_leaves"] = {
+                n: {**big[n]["stages"][name],
+                    "launches": big[n]["launches"].get(name, 0),
+                    "stage_err": big[n]["stage_err"]} for n in BIG_TREES}
+        elif name in ("fused_ingest_global", "fused_ingest_cluster"):
+            variant = name[len("fused_ingest_"):]
+            kernels[-1]["by_leaves"] = {
+                n: big_fused_row(big[n], variant, name) for n in BIG_TREES}
+            kernels[-1]["stream_ms"] = float(np.median(
+                fine_times[variant]["stream_ms"]))  # on the finer layout
     n_batches = len(slices)
     fold_med = float(np.median(fold_ms))
     metrics = {
@@ -4516,9 +4848,13 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
         "locate_leaf_plan": dict(zip(plan_keys, rk.locate_leaf_plan(ops))),
         "fused_fold_host_ms": fold_host_ms,
         "fused_shared_plan": shared_plan,
-        # the finer layout's plan (fused_ingest_cluster), and the trees past
+        # the cluster kernel's plan on the finer layout (forced), and the trees past
         # one block grown from the sample
         "fused_cluster_plan": acc_c._launch._asdict(),
+        "fused_fine_plan": fine_turns["leafwise"]._launch._asdict(),
+        "fused_fine_times": fine_times,
+        "fused_leafwise_trace": leafwise_trace,
+        "fused_leafwise_plain": leafwise_plain,
         "big_trees": big,
         "query_intersect_kernel_ms": q_kernel_ms,
         "route_ms_per_batch": route_ms,
@@ -4696,17 +5032,21 @@ def run(args, dev, torch, pool, fine_job, store_root, children) -> int:
           f"{c['compressed']['losses']}); wire {c['wire_bytes']} B against "
           f"{c['f32_bytes']} B in float32")
     print(f"fused_ingest on the finer layout ({fine.n_leaves} leaves, plan "
-          f"{acc_c._launch}): cluster {times['fused_ingest_cluster'][0]:.6f} "
+          f"{fine_turns['leafwise']._launch}; cluster forced "
+          f"{acc_c._launch}), in turns: {fine_times}; cluster "
+          f"{times['fused_ingest_cluster'][0]:.6f} "
           f"ms, the old global kernel {times['fused_ingest_global'][0]:.6f} "
           f"ms; on the main layout: shared "
           f"{times['fused_ingest_shared'][0]:.6f} ms, global "
           f"{global_on_main_ms:.6f} ms")
     for n_leaves, r in big.items():
-        print(f"fused_ingest on {n_leaves} grown leaves (the plan's kernel "
-              f"{r['kernel']}): cluster {r['cluster_ms']} ms (blocks "
-              f"{r['cluster_plan']['cluster']}, ranges "
-              f"{r['cluster_plan']['ranges']}), global {r['global_ms']} ms, "
-              f"bound {r['bound_ms']:.6f} ms")
+        cp = r["forced_plans"]["cluster"]
+        print(f"fused_ingest on {n_leaves} grown leaves (the plan's kernels "
+              f"{r['kernels']}): " + "; ".join(
+                  f"{v} ms {t['ms']} stream {t['stream_ms']}"
+                  for v, t in r["times"].items())
+              + f" (cluster blocks {cp['cluster']}, ranges {cp['ranges']}); "
+              f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms")
     print(f"phase seconds: {phase_s}")
     print(json.dumps({"metrics": metrics}))
     print(json.dumps({"kernels": kernels}))

@@ -2,10 +2,12 @@
 
 The JAX package tunes the Pallas kernel's tiles; here the knob is the
 CUDA kernel's launch geometry (``csrc/fused_ingest.cu``): which of its
-kernels runs (the shared-memory kernel, the cluster kernel past one
+designs runs (the shared-memory kernel, the cluster kernel past one
 block's shared memory, whose cluster size and leaf split stay the plan's,
-or the one-thread-a-record global kernel), the warps a block and, for
-the shared-memory kernel, the cap on its persistent grid.
+the leafwise design past it, whose staged nodes stay the plan's, or the
+one-thread-a-record global kernel), the warps a block (the leafwise route
+kernel's) and, for the shared-memory kernel, the cap on its persistent
+grid.
 ``kernels/fused_ingest.py::layout_plan`` picks them analytically (as many
 warps as fit beside the aggregates, the most blocks resident); this
 module measures instead:
@@ -43,12 +45,14 @@ DEFAULT_STORE = _ROOT / "results" / "autotune_cuda.json"
 BACKEND = "cuda"
 
 # default sweep: warps a block of the shared kernel, its grid cap in
-# blocks per SM, the cluster kernel's warps a block and the global
-# kernel's.  A shared candidate on a tree past one block, or a cluster one
-# on a tree that fits one, is skipped with its reason.
+# blocks per SM, the cluster kernel's warps a block, the leafwise route
+# kernel's and the global kernel's.  A shared candidate on a tree past one
+# block, or a cluster or leafwise one on a tree that fits one, is skipped
+# with its reason.
 SHARED_WARPS = (8, 12, 16, 20, 24, 28, 32)
 SHARED_BLOCKS_PER_SM = (1, 2)
 CLUSTER_WARPS = (8, 12, 16, 20, 24, 28, 32)
+LEAFWISE_WARPS = (16, 21, 32)
 GLOBAL_WARPS = (4, 8, 16, 32)
 
 
@@ -56,7 +60,7 @@ GLOBAL_WARPS = (4, 8, 16, 32)
 class LaunchConfig:
     """One persisted tuning decision for a geometry."""
 
-    variant: str  # "shared" | "cluster" | "global"
+    variant: str  # "shared" | "cluster" | "leafwise" | "global"
     warps: int  # warps a block
     max_blocks: int  # the shared kernel's grid cap (0 for the others)
     ms: float = 0.0  # median CUDA-event ms of one fold of the sweep batch
@@ -140,6 +144,7 @@ def default_grid(sms: int) -> list[tuple[str, int, int]]:
     grid = [("shared", w, k * sms)
             for w in SHARED_WARPS for k in SHARED_BLOCKS_PER_SM]
     return (grid + [("cluster", w, 0) for w in CLUSTER_WARPS]
+            + [("leafwise", w, 0) for w in LEAFWISE_WARPS]
             + [("global", w, 0) for w in GLOBAL_WARPS])
 
 

@@ -69,8 +69,10 @@ _ARGTYPES = {
         P, P, I32, P, P, I32, I32,  # cut table, cat dims, n_adv
         P, P, P, P, P, P, P,  # bids (or null) + accumulators
         I32, I32, I32,  # n_leaves, cw, aw
+        P, P, P, P, P,  # leafwise scratch: ids, slots, entries, hist, offsets
         I32, I32, I32, I32,  # the plan: kernel, warps, smem, most blocks
         I32, I32, I32,  # ... the cluster's: blocks, ranges, leaves a block
+        I32,  # ... the leafwise design's staged nodes
         P,  # stream
     ],
     "query_intersect": [
@@ -94,18 +96,28 @@ _EXTRA = {
         "route_descend_plan": [I32] * 6 + [ctypes.POINTER(I32)],
     },
     "fused_ingest": {
-        # kernel, warps, smem, cluster, ranges, leaves a block, n_leaves
-        "fused_ingest_plan": [I32] * 7 + [ctypes.POINTER(I32)],
+        # kernel, warps, smem, cluster, ranges, leaves a block, n_leaves,
+        # columns, advanced-cut words, staged nodes
+        "fused_ingest_plan": [I32] * 10 + [ctypes.POINTER(I32)],
     },
 }
 
-# the kernels each launch counter stands for: fused_ingest.cu's three and
-# route_descend.cu's three count apart
-ROUTE_KERNELS = ("route_descend_shared", "route_descend_global",
-                 "route_descend_prefix")
-LAUNCH_NAMES = ("eval_cuts", "locate_leaf", *ROUTE_KERNELS,
-                "fused_ingest_shared", "fused_ingest_cluster",
-                "fused_ingest_global", "query_intersect")
+# The one table of the kernels' launch counters.  route_descend.cu's
+# three kernels count apart, by the plan's kernel id
+# (route_records.VARIANTS); so do fused_ingest.cu's, by the plan's design
+# id (fused_ingest.VARIANTS): each design launches its kernels once a batch,
+# the leafwise one four.
+ROUTE_KERNELS = {1: "route_descend_shared", 2: "route_descend_global",
+                 3: "route_descend_prefix"}
+FUSED_KERNELS = {
+    1: ("fused_ingest_shared",), 3: ("fused_ingest_cluster",),
+    2: ("fused_ingest_global",),
+    4: ("fused_ingest_leafwise_route", "fused_ingest_leafwise_scan",
+        "fused_ingest_leafwise_scatter", "fused_ingest_leafwise_fold"),
+}
+LAUNCH_NAMES = ("eval_cuts", "locate_leaf", *ROUTE_KERNELS.values(),
+                *(k for names in FUSED_KERNELS.values() for k in names),
+                "query_intersect")
 
 LAUNCHES: collections.Counter = collections.Counter()  # guarded by: _COUNT_LOCK
 _COUNT_LOCK = threading.Lock()
@@ -128,7 +140,7 @@ def launch_counts() -> dict[str, int]:
     launches twice, a sum over LAUNCH_NAMES once."""
     with _COUNT_LOCK:
         out = {k: LAUNCHES.get(k, 0) for k in LAUNCH_NAMES}
-    out["route_descend"] = sum(out[k] for k in ROUTE_KERNELS)
+    out["route_descend"] = sum(out[k] for k in ROUTE_KERNELS.values())
     return out
 
 

@@ -15,8 +15,8 @@
 // atomics land in, and folding batch after batch into one set of
 // accumulators equals folding their concatenation.
 //
-// Three kernels; the plan (kernels/fused_ingest.py::layout_plan) picks
-// one by shape once a tree:
+// Four designs; the plan (kernels/fused_ingest.py::layout_plan) picks one
+// by shape once a tree:
 //
 //  * fused_ingest_shared: a persistent grid, about one block per SM.  Each
 //    block keeps the whole tree's aggregates in dynamic shared memory
@@ -29,9 +29,11 @@
 //    end the block folds its aggregates into the running accumulators
 //    with read-checked global atomics, eight reads in flight a thread.
 //
-//  * fused_ingest_cluster: for a tree whose aggregates do not fit one
-//    block (past about 1,100 leaves at 21 columns) but fit a cluster of
-//    two beside 32 warps a block (about 1,380 leaves).  A thread block
+//  * fused_ingest_cluster, forced only (the leafwise design measured
+//    faster where the plan took it, PERF.md section 6): for a tree whose
+//    aggregates do not fit one block (past about 1,100 leaves at 21
+//    columns) but fit a cluster of two beside 32 warps a block (about
+//    1,380 leaves).  A thread block
 //    cluster of C blocks (2 to 16, on neighbouring SMs; past 2 only when
 //    forced) splits the aggregates: each block holds per_block leaves in its shared memory,
 //    the cluster C * per_block.  Records are staged and descended as in
@@ -54,17 +56,90 @@
 //    time, then the round barrier's wait for the slowest warp (popular
 //    leaves make some blocks' inboxes fuller), then the inboxes' drain.
 //
-//  * fused_ingest_global: the first draft, for larger trees: one thread
-//    per record, unstaged loads and read-checked global atomics straight
-//    into the running accumulators.  On an H100 it was as fast as the
+//  * fused_ingest_leafwise: for trees past the cluster kernel's band, whose
+//    aggregates (1.6 MB at 8,000 leaves, 4 MB at 20,000) fit no block or
+//    cluster.  The first draft below folds each record into them with
+//    about 45 dependent read-checked global atomics; this design routes
+//    once, sorts the rows by leaf, and folds each leaf's rows with one
+//    owner, so that the running accumulators take one read-checked atomic
+//    a word per run of a leaf's rows, not one a record.  Four kernels, in
+//    stream order, from the one entry fused_ingest_launch, with no host
+//    work between them:
+//    1. fused_ingest_leafwise_route: route_descend_prefix's descent (the
+//       tree's BFS prefix staged in shared memory under evict_last, 32-row
+//       record tiles a warp under evict_first, descend.cuh::descend_prefix);
+//       each record's leaf id goes to an int32 scratch (the block ids when
+//       asked), and into a per-block histogram of leaf counts in shared
+//       memory beside the prefix and the tiles (4 bytes a leaf: 32 KB at
+//       8,000 leaves, 80 KB at 20,000), whose shared atomic gives the
+//       record its rank among the block's rows of its leaf.  At the end
+//       each count goes to a per-leaf count in global memory with one
+//       returning atomic, which gives the block's first place in the leaf,
+//       and the block adds it to its rows' ranks: each row's slot within
+//       its leaf.  No global atomic runs a record.
+//    2. fused_ingest_leafwise_scan: one block.  The exclusive scan of the
+//       per-leaf counts gives each leaf's first row in leaf order.
+//    3. fused_ingest_leafwise_scatter: each row's (leaf << 32 | row) to its
+//       leaf's first slot plus its own, with no atomic.  The order within
+//       a leaf is the atomics' and does not matter: min, max and or are
+//       commutative.  Each per-leaf count is added to the running counts
+//       (one atomic a leaf, spread over the grid) and zeroed for the next
+//       batch.
+//    4. fused_ingest_leafwise_fold: the leaf-ordered rows cut into chunks
+//       of at most kChunk (64) rows (at every multiple of kChunk and at
+//       every leaf boundary), one warp a chunk of kChunk positions, 32 at a
+//       time (a group; the next group's entries load while one is
+//       folded).  First lane r takes the group's row r and builds its
+//       categorical and advanced-cut words (these loads bring the rows
+//       into L1).  The group falls in segments of one leaf each; for each,
+//       lane j holds column j (in groups of 32 columns, so 160 columns
+//       take five registers of lo and five of hi, and never spill) and
+//       folds the segment's rows' min and max, kFoldRows loads in flight,
+//       and __reduce_or_sync folds the segment's lanes' words.  A run of
+//       one leaf's rows keeps its aggregates across segments; its first
+//       segment issues the plain reads of the leaf's running words, which
+//       have landed by the time the run ends and its words are merged,
+//       each with one read-checked atomic.  The merges stay atomic, so a
+//       leaf split over chunks, or two streams folding into one
+//       accumulator, need no special case; each stream has its own
+//       scratch.
+//    Measured on an H100 (PERF.md section 6): a first fold, one row a step
+//    with its bits through shared lookups and atomics, took twice this
+//    design's time; this one was no faster with the rows prefetched to L1
+//    or L2, more loads in flight, longer or shorter chunks, a lane's words
+//    ored in shared memory, each group's rows gathered into shared memory
+//    by cp.async first, the bits kept by column in registers, the bits
+//    computed by the route kernel, or a lane a row with each column's min
+//    and max reduced over a segment by redux.sync (slower).  The fold is
+//    still most of the design's time; what bounds it past the gather of
+//    random 84-byte rows is not known.
+//    Bound, the function's: bytes, as below (0.0274 to 0.0289 ms at 8,000
+//    to 20,000 leaves).  This design's own floor is higher: it reads the
+//    records twice, coalesced in stage 1 and gathered by row in stage 4
+//    (84 bytes a row spans three or four 32-byte sectors: 88 to 117 MB a
+//    2**20-row batch), and writes and reads the ids, the slots and the
+//    leaf order (16 bytes a row each way, about 34 MB): 0.06 to 0.07 ms at
+//    3.35 TB/s,
+//    about 2.3x the function's bound.  The descent's latency bounds stage
+//    1 as it bounds route_descend_prefix; stage 4 is a gather, bound by
+//    the sectors it reads.  It reaches trees where two blocks, or one of
+//    more warps, of route_descend_prefix's warps fit beside the histogram
+//    (up to about 41,000 leaves at 21 columns), of at most 256 columns and
+//    1,024 advanced cuts; the plan takes it on every such tree.
+//
+//  * fused_ingest_global: the first draft, for trees past the leafwise
+//    design's reach: one thread per record, unstaged loads and
+//    read-checked global atomics straight into the running accumulators.  On an H100 it was as fast as the
 //    cluster kernel at 1,350 leaves and faster on every larger tree (0.23
 //    against 0.34 ms at 1,800, where a block of two keeps 17 warps; 0.27
 //    against 0.42 at 8,000 with 16 blocks; PERF.md section 6): its
 //    atomics spread over more addresses as leaves grow, while the
 //    cluster kernel loses the warps that hide its descent, sends a larger
 //    share of its rows to other blocks, and past 16 blocks descends the
-//    batch once a range.
-//
+//    batch once a range.  Its time varies with the tree far more than the
+//    leafwise design's (a repeated fold skips the atomics whose read
+//    shows no change).
+
 // The descent is latency-bound: a level's node load waits on the last.
 // Each node carries its whole cut (engine/plan.py::pack_nodes), so a level
 // is one 16-byte node load, a shared-memory read of the record and, on an
@@ -481,7 +556,387 @@ __global__ void fused_ingest_global(Ingest in, Acc g) {
   }
 }
 
-enum Variant { kShared = 1, kGlobal = 2, kCluster = 3 };
+// ---------------------------------------------------------------------------
+// fused_ingest_leafwise: route, scan, scatter, fold (the note at the top)
+// ---------------------------------------------------------------------------
+constexpr int kFoldWarps = 8;   // the fold's blocks: 256 threads
+constexpr int kChunk = 64;      // the fold's chunks: positions a warp's each
+constexpr int kFoldRows = 8;    // column loads in flight a lane in the fold
+constexpr int kMaxGroups = 8;   // the fold's columns, 32 a group: at most 256
+constexpr int kCatWords = 8;    // categorical words a lane builds at a time
+constexpr int kScanThreads = 1024;
+constexpr unsigned kAll = 0xffffffffu;
+
+// The leaf id of every row into `ids`, its slot among its leaf's rows
+// into `slots`, and the batch's count of each leaf into `hist` (zero on
+// entry), by way of a per-block histogram in shared memory: [prefix nodes
+// x 16 B][stage: nwarps x 32 rows][histogram: L].  A row's rank among its
+// block's rows of its leaf is what its shared atomic returns; once the
+// block's rows are routed, each leaf's count goes to `hist` with one
+// returning atomic, which gives the block's first slot in the leaf, and
+// each thread adds it to its own rows' ranks (in L2, written by itself).
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+    fused_ingest_leafwise_route(Ingest in, int prefix, int n_leaves,
+                                int32_t* ids, int32_t* slots,
+                                int32_t* hist) {
+  extern __shared__ __align__(16) int32_t smem[];
+  int4* s_nodes = reinterpret_cast<int4*>(smem);
+  const int d = in.d, nwarps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int32_t* cur = smem + 4 * prefix + warp * 32 * d;
+  int32_t* s_hist = smem + 4 * prefix + nwarps * 32 * d;
+  const uint64_t keep = l2_evict_last(), once = l2_evict_first();
+
+  const int64_t tiles = (in.m + 31) / 32;
+  const int64_t stride = (int64_t)gridDim.x * nwarps;
+  const bool vec = (reinterpret_cast<uintptr_t>(in.records) & 15) == 0;
+  const int64_t t0 = (int64_t)blockIdx.x * nwarps + warp;
+  int64_t t = t0;
+  // the first tile's copy and the prefix's copy go out together
+  if (t < tiles) stage_tile<32, true>(cur, in.records, in.m, d, t, lane, vec,
+                                      once);
+  for (int i = threadIdx.x; i < prefix; i += blockDim.x)
+    cp_async16(s_nodes + i, in.nodes + i, keep);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < n_leaves; i += blockDim.x) s_hist[i] = 0;
+  cp_async_wait_all();
+  __syncthreads();  // every node copy has landed, the histogram is zero
+
+  for (; t < tiles; t += stride) {
+    const int64_t row = t * 32 + lane;
+    int leaf = -1;
+    if (row < in.m)
+      leaf = descend_prefix(cur + lane * d, s_nodes, prefix, in.nodes,
+                            in.depth, in.in_mask, in.bits, keep);
+    __syncwarp();  // every lane is done with `cur` before it is refilled
+    if (t + stride < tiles)
+      stage_tile<32, true>(cur, in.records, in.m, d, t + stride, lane, vec,
+                           once);
+    cp_async_commit();
+    if (leaf >= 0) {
+      ids[row] = leaf;
+      slots[row] = atomicAdd(s_hist + leaf, 1);
+    }
+    cp_async_wait_all();  // the next tile's copies have landed (own lane's)
+    __syncwarp();        // ... and every lane's
+  }
+  __syncthreads();
+  // each leaf's count out, its first slot for this block back, four leaves
+  // a thread in flight
+  for (int i0 = threadIdx.x; i0 < n_leaves; i0 += 4 * blockDim.x) {
+    int c[4], base[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + r * blockDim.x;
+      c[r] = i < n_leaves ? s_hist[i] : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      base[r] = c[r] ? atomicAdd(hist + i0 + r * blockDim.x, c[r]) : 0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (c[r]) s_hist[i0 + r * blockDim.x] = base[r];
+  }
+  __syncthreads();
+  // each thread's own rows again, four tiles' loads in flight
+  for (t = t0; t < tiles; t += 4 * stride) {
+    int leaf[4], slot[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int64_t row = (t + r * stride) * 32 + lane;
+      leaf[r] = row < in.m ? ids[row] : -1;
+      slot[r] = row < in.m ? slots[row] : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (leaf[r] >= 0) slots[(t + r * stride) * 32 + lane] = slot[r] + s_hist[leaf[r]];
+  }
+}
+
+// One block of kScanThreads: offsets = the exclusive scan of hist
+// (offsets[L] = the rows).  Tiles of 4 kScanThreads leaves, four
+// consecutive a thread, the running total carried from tile to tile.
+__global__ void __launch_bounds__(kScanThreads)
+    fused_ingest_leafwise_scan(const int32_t* hist, int32_t* offsets,
+                               int n_leaves) {
+  __shared__ int warp_sums[kScanThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int carry = 0;
+  for (int base = 0; base < n_leaves; base += 4 * kScanThreads) {
+    const int first = base + 4 * (int)threadIdx.x;
+    int c[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      c[r] = first + r < n_leaves ? hist[first + r] : 0;
+    const int sum = c[0] + c[1] + c[2] + c[3];
+    int incl = sum;  // the warp's inclusive scan
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kAll, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      int w = warp_sums[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(kAll, w, o);
+        if (lane >= o) w += v;
+      }
+      warp_sums[lane] = w;  // inclusive over warps
+    }
+    __syncthreads();
+    int run = carry + incl - sum + (warp > 0 ? warp_sums[warp - 1] : 0);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (first + r < n_leaves) {
+        offsets[first + r] = run;
+        run += c[r];
+      }
+    }
+    carry += warp_sums[kScanThreads / 32 - 1];
+    __syncthreads();  // warp_sums is the next tile's
+  }
+  if (threadIdx.x == 0) offsets[n_leaves] = carry;
+}
+
+// Each row's (leaf << 32 | row) into `entries` at its leaf's first slot
+// (offsets) plus its slot among the leaf's rows (slots); and each leaf's
+// count added to the running counts (one atomic a leaf, over the whole
+// grid) and zeroed for the next batch.
+__global__ void fused_ingest_leafwise_scatter(
+    const int32_t* ids, const int32_t* slots, int64_t m,
+    const int32_t* offsets, long long* entries, int32_t* hist,
+    unsigned long long* counts, int n_leaves) {
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t r = first; r < m; r += step) {
+    const int leaf = ids[r];
+    entries[__ldg(offsets + leaf) + slots[r]] =
+        ((long long)leaf << 32) | (long long)r;
+  }
+  for (int64_t l = first; l < n_leaves; l += step) {
+    const int c = hist[l];
+    if (c) {
+      atomicAdd(counts + l, (unsigned long long)c);
+      hist[l] = 0;
+    }
+  }
+}
+
+// One warp a chunk of kChunk positions of the leaf order, 32 positions (a
+// group) at a time, the next group's entries loaded while one is folded.
+// First lane r takes the group's row r: its categorical and advanced-cut
+// words (a word of each: cw + 2 aw) go to the warp's lane words in shared
+// memory; these loads bring the rows into L1.  The group's rows fall in
+// segments of one leaf each, and a run of one leaf spans the segments of
+// consecutive groups.  Per segment: the columns' min and max with lane j
+// holding column j (in G groups of 32; d <= 32 G), kFoldRows / G rows'
+// loads in flight; each word of bits, __reduce_or_sync over the segment's
+// lanes, kept for the run (categorical words in shared memory, written by
+// lane 0; advanced-cut word w by lane w).  Shared memory: [the runs'
+// categorical words: kFoldWarps x cw][lane words: kFoldWarps x (cw + 2 aw)
+// x 32][cat_dims][cat_off d][adv 3 x n_adv].
+template <int G>
+__global__ void __launch_bounds__(kFoldWarps * 32)
+    fused_ingest_leafwise_fold(Ingest in, Acc g, const long long* entries) {
+  constexpr int U = kFoldRows / G > 0 ? kFoldRows / G : 1;  // rows a step
+  extern __shared__ __align__(16) int32_t smem[];
+  const int d = in.d, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cw = g.cw, aw = g.aw, nw = cw + 2 * aw;
+  const int n_cat = in.n_cat_dims, n_adv = in.n_adv, bits = in.bits;
+  uint32_t* s_cat = reinterpret_cast<uint32_t*>(smem) + warp * cw;
+  uint32_t* s_lane = reinterpret_cast<uint32_t*>(smem) + kFoldWarps * cw +
+                     warp * nw * 32 + lane;  // word w: s_lane[32 w]
+  int32_t* s_cat_dims = smem + kFoldWarps * (cw + nw * 32);
+  int32_t* s_cat_off = s_cat_dims + n_cat;
+  int32_t* s_adv = s_cat_off + d;
+  for (int i = threadIdx.x; i < kFoldWarps * cw; i += blockDim.x) smem[i] = 0;
+  for (int i = threadIdx.x; i < n_cat; i += blockDim.x)
+    s_cat_dims[i] = in.cat_dims[i];
+  for (int i = threadIdx.x; i < d; i += blockDim.x) s_cat_off[i] = in.cat_off[i];
+  for (int i = threadIdx.x; i < 3 * n_adv; i += blockDim.x) s_adv[i] = in.adv[i];
+  __syncthreads();
+
+  // a run of one leaf's rows: its aggregates (lane j: columns j, 32 + j,
+  // ...; lane w: advanced-cut word w; the categorical words in s_cat), and
+  // its leaf's running words as read when the run opened
+  int32_t lo[G], hi[G], seen_lo[G], seen_hi[G];
+  uint32_t run_t = 0, run_f = 0, seen_cat = 0, seen_t = 0, seen_f = 0;
+  int leaf = -1;
+
+  const auto open_run = [&](int l) {
+    leaf = l;
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      const int j = 32 * q + lane;
+      lo[q] = INT32_MAX;
+      hi[q] = INT32_MIN;
+      if (j < d) {
+        seen_lo[q] = __ldcg(g.lo + (int64_t)l * d + j);
+        seen_hi[q] = __ldcg(g.hi + (int64_t)l * d + j);
+      }
+    }
+    seen_cat = lane < cw ? __ldcg(g.cat + (int64_t)l * cw + lane) : 0u;
+    seen_t = lane < aw ? __ldcg(g.advt + (int64_t)l * aw + lane) : 0u;
+    seen_f = lane < aw ? __ldcg(g.advf + (int64_t)l * aw + lane) : 0u;
+    run_t = run_f = 0;
+  };
+  // merge the run into the running accumulators: one read-checked atomic a
+  // word (the reads open_run issued)
+  const auto close_run = [&]() {
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      const int j = 32 * q + lane;
+      if (j < d) {
+        const int64_t at = (int64_t)leaf * d + j;
+        if (lo[q] < seen_lo[q]) atomicMin(g.lo + at, lo[q]);
+        if (hi[q] > seen_hi[q]) atomicMax(g.hi + at, hi[q]);
+      }
+    }
+    __syncwarp();  // lane 0's categorical words are in s_cat
+    for (int w = lane; w < cw; w += 32) {
+      const uint32_t b = s_cat[w];
+      if (b) {
+        uint32_t* p = g.cat + (int64_t)leaf * cw + w;
+        const uint32_t seen = w < 32 ? seen_cat : __ldcg(p);
+        if ((seen & b) != b) atomicOr(p, b);
+        s_cat[w] = 0;
+      }
+    }
+    __syncwarp();
+    if (lane < aw) {
+      const int64_t at = (int64_t)leaf * aw + lane;
+      if (run_t & ~seen_t) atomicOr(g.advt + at, run_t);
+      if (run_f & ~seen_f) atomicOr(g.advf + at, run_f);
+    }
+  };
+
+  const int64_t n_chunks = (in.m + kChunk - 1) / kChunk;
+  for (int64_t c = (int64_t)blockIdx.x * kFoldWarps + warp; c < n_chunks;
+       c += (int64_t)gridDim.x * kFoldWarps) {
+    const int64_t e = min((c + 1) * kChunk, in.m);
+    long long next =
+        entries[c * kChunk + min((int64_t)lane, e - c * kChunk - 1)];
+    for (int64_t p0 = c * kChunk; p0 < e; p0 += 32) {
+      const int n = (int)min((int64_t)32, e - p0);
+      const long long ent = next;
+      if (p0 + 32 < e)  // warp-uniform
+        next = entries[p0 + 32 + min((int64_t)lane, e - p0 - 33)];
+      const int my_leaf = (int)(ent >> 32);
+      const int my_row = (int)(ent & 0xffffffffLL);
+      const int32_t* my_rec = in.records + (int64_t)my_row * d;
+      // the bits of row `lane` (past n: the last row again, not reduced)
+      for (int q0 = 0; q0 < cw; q0 += kCatWords) {
+        uint32_t word[kCatWords] = {};
+        for (int k = 0; k < n_cat; ++k) {
+          const int dim = s_cat_dims[k];
+          int pos = __ldg(my_rec + dim) + s_cat_off[dim];
+          pos = min(max(pos, 0), bits - 1);
+          const int at = (pos >> 5) - q0;
+#pragma unroll
+          for (int r = 0; r < kCatWords; ++r)
+            if (at == r) word[r] |= 1u << (pos & 31);
+        }
+#pragma unroll
+        for (int r = 0; r < kCatWords; ++r)
+          if (q0 + r < cw) s_lane[32 * (q0 + r)] = word[r];
+      }
+      for (int w = 0; w < aw; ++w) {
+        uint32_t t = 0, f = 0;
+        const int last = min(32 * w + 32, n_adv);
+        for (int a = 32 * w; a < last; ++a) {
+          const int32_t* p = s_adv + 3 * a;
+          const uint32_t bit = 1u << (a & 31);
+          if (adv_true(p[1], __ldg(my_rec + p[0]), __ldg(my_rec + p[2])))
+            t |= bit;
+          else
+            f |= bit;
+        }
+        s_lane[32 * (cw + 2 * w)] = t;
+        s_lane[32 * (cw + 2 * w + 1)] = f;
+      }
+      const int prev = __shfl_up_sync(kAll, my_leaf, 1);
+      unsigned starts =
+          __ballot_sync(kAll, lane < n && (lane == 0 || my_leaf != prev));
+      while (starts) {  // the group's segments; warp-uniform
+        const int s0 = __ffs(starts) - 1;
+        starts &= starts - 1;
+        const int s1 = starts ? __ffs(starts) - 1 : n;
+        const int l = __shfl_sync(kAll, my_leaf, s0);
+        if (l != leaf) {
+          if (leaf >= 0) close_run();
+          open_run(l);
+        }
+        // min and max: U rows' loads, then their folds (past the segment:
+        // its last row again, which changes neither)
+        for (int i = s0; i < s1; i += U) {
+          int32_t v[U][G];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int64_t row = __shfl_sync(kAll, my_row, min(i + u, s1 - 1));
+#pragma unroll
+            for (int q = 0; q < G; ++q) {
+              const int j = 32 * q + lane;
+              v[u][q] = j < d ? __ldg(in.records + row * d + j) : 0;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+#pragma unroll
+            for (int q = 0; q < G; ++q) {
+              lo[q] = min(lo[q], v[u][q]);
+              hi[q] = max(hi[q], v[u][q]);
+            }
+          }
+        }
+        // the bits: each word ored over the segment's lanes
+        const bool mine = lane >= s0 && lane < s1;
+        for (int w = 0; w < cw; ++w) {
+          const uint32_t x = __reduce_or_sync(kAll, mine ? s_lane[32 * w] : 0u);
+          if (lane == 0 && x) s_cat[w] |= x;
+        }
+        for (int w = 0; w < aw; ++w) {
+          const uint32_t t =
+              __reduce_or_sync(kAll, mine ? s_lane[32 * (cw + 2 * w)] : 0u);
+          const uint32_t f =
+              __reduce_or_sync(kAll, mine ? s_lane[32 * (cw + 2 * w + 1)] : 0u);
+          if (lane == w) {
+            run_t |= t;
+            run_f |= f;
+          }
+        }
+      }
+    }
+    if (leaf >= 0) close_run();
+    leaf = -1;
+  }
+}
+
+// The fold's shared bytes: the runs' categorical words, the lane words and
+// the tables.
+size_t fold_smem(int d, int cw, int aw, int n_cat, int n_adv) {
+  return 4 * ((size_t)kFoldWarps * (cw + 32 * ((size_t)cw + 2 * aw)) +
+              n_cat + d + 3 * (size_t)n_adv);
+}
+
+// The fold's column groups for d columns (0: more than it takes).
+int fold_groups(int d) {
+  return d <= 32 ? 1 : d <= 64 ? 2 : d <= 128 ? 4 : d <= 32 * kMaxGroups ? 8 : 0;
+}
+
+const void* fold_kernel(int groups) {
+  switch (groups) {
+    case 1: return (const void*)fused_ingest_leafwise_fold<1>;
+    case 2: return (const void*)fused_ingest_leafwise_fold<2>;
+    case 4: return (const void*)fused_ingest_leafwise_fold<4>;
+    case 8: return (const void*)fused_ingest_leafwise_fold<8>;
+    default: return nullptr;
+  }
+}
+
+enum Variant { kShared = 1, kGlobal = 2, kCluster = 3, kLeafwise = 4 };
 
 cudaLaunchAttribute cluster_attr(int cluster) {
   cudaLaunchAttribute attr;
@@ -495,30 +950,38 @@ cudaLaunchAttribute cluster_attr(int cluster) {
 }  // namespace
 
 // Check the launch plan of a tree, made by kernels/fused_ingest.py::
-// layout_plan, against the card, and prepare its kernel: plan = {kernel,
-// warps a block, dynamic shared bytes, most blocks (shared) or clusters
-// (cluster) resident on the card}.  variant: 1 shared, 2 global (nothing
-// to check), 3 cluster of `cluster` blocks, each holding per_block
-// leaves, in `ranges` ranges.  The kernel's shared-memory limit is raised
-// to all the card offers, so that a plan for a small tree never lowers
-// what a larger tree's launches need; a request past it goes to CUDA,
-// which refuses it.  Returns a cudaError_t: a request the card refuses is
-// returned, never worked around, and cleared.
+// layout_plan, against the card, and prepare its kernels: plan = {kernel,
+// warps a block, dynamic shared bytes, most blocks (shared, leafwise) or
+// clusters (cluster) resident on the card}.  variant: 1 shared, 2 global
+// (nothing to check), 3 cluster of `cluster` blocks, each holding
+// per_block leaves, in `ranges` ranges, 4 leafwise (the route's `warps`
+// and `smem`, staging `prefix` of the tree's 2 L - 1 nodes beside the
+// tiles of d columns and the histogram; the fold takes at most 256
+// columns and 32 advanced-cut words).  The kernel's
+// shared-memory limit is raised to all the card offers, so that a plan for
+// a small tree never lowers what a larger tree's launches need; a request
+// past it goes to CUDA, which refuses it.  Returns a cudaError_t: a request
+// the card refuses is returned, never worked around, and cleared.
 extern "C" int fused_ingest_plan(int variant, int warps, int smem,
                                  int cluster, int ranges, int per_block,
-                                 int n_leaves, int* plan) {
+                                 int n_leaves, int d, int aw, int prefix,
+                                 int* plan) {
   plan[0] = variant;
   plan[1] = warps;
   plan[2] = smem;
   plan[3] = 0;
   if (variant == kGlobal) return 0;
-  if ((variant != kShared && variant != kCluster) || warps < 1 ||
-      warps > kMaxWarps || smem < 0)
+  if ((variant != kShared && variant != kCluster && variant != kLeafwise) ||
+      warps < 1 || warps > kMaxWarps || smem < 0)
     return (int)cudaErrorInvalidValue;
   if (variant == kCluster &&
       (cluster < 1 || ranges < 1 || per_block < 1 ||
        (long long)cluster * ranges * per_block < n_leaves))
     return (int)cudaErrorInvalidValue;  // a leaf no block owns
+  if (variant == kLeafwise &&
+      (prefix < 1 || prefix > 2LL * n_leaves - 1 || fold_groups(d) == 0 || aw > 32 ||
+       smem < 16LL * prefix + 128LL * d * warps + 4LL * n_leaves))
+    return (int)cudaErrorInvalidValue;
   int dev = 0, optin = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (!err)
@@ -527,17 +990,25 @@ extern "C" int fused_ingest_plan(int variant, int warps, int smem,
   if (!err)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err) return (int)err;
-  const void* kernel = variant == kShared
-                           ? (const void*)fused_ingest_shared
-                           : (const void*)fused_ingest_cluster;
+  const void* kernel = variant == kShared ? (const void*)fused_ingest_shared
+                       : variant == kCluster
+                           ? (const void*)fused_ingest_cluster
+                           : (const void*)fused_ingest_leafwise_route;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem > optin ? smem : optin);
-  if (variant == kShared) {
+  if (variant == kShared || variant == kLeafwise) {
     int per_sm = 0;
     if (!err)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, fused_ingest_shared, warps * 32, (size_t)smem);
+          &per_sm, kernel, warps * 32, (size_t)smem);
+    if (variant == kLeafwise) {
+      if (!err && per_sm < 1) err = cudaErrorInvalidConfiguration;
+      if (!err)  // the fold's tables and words, however wide
+        err = cudaFuncSetAttribute(fold_kernel(fold_groups(d)),
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   optin);
+    }
     plan[3] = sms * (per_sm > 0 ? per_sm : 1);
   } else {
     // clusters past the portable 8 blocks need the kernel's consent; the
@@ -566,15 +1037,21 @@ extern "C" int fused_ingest_plan(int variant, int warps, int smem,
 }
 
 // One batch, by the plan fused_ingest_plan checked: no host query of the
-// card.  Returns the launch's error, or cudaGetLastError().
+// card.  The leafwise design's scratch (kernels/fused_ingest.py::
+// IngestAccumulator): ids (m,) int32 (unused when bids are asked for: they
+// take its place), slots (m,) int32, entries (m,) int64, hist (L,) int32,
+// zero between batches, offsets (L + 1,) int32; null for the other
+// designs.  Returns the first launch's error, or cudaGetLastError().
 extern "C" int fused_ingest_launch(
     const int32_t* records, int64_t m, int d, const int32_t* nodes,
     int depth, const int32_t* cat_off, const uint8_t* in_mask, int bits,
     const int32_t* adv, const int32_t* cat_dims, int n_cat_dims, int n_adv,
     int32_t* bids, void* counts, int32_t* lo, int32_t* hi, int32_t* cat,
     int32_t* advt, int32_t* advf, int n_leaves, int cw, int aw,
+    int32_t* ids, int32_t* slots, void* entries, int32_t* hist,
+    int32_t* offsets,
     int variant, int warps, int smem, int most, int cluster, int ranges,
-    int per_block, void* stream) {
+    int per_block, int prefix, void* stream) {
   Ingest in{records, m, d, reinterpret_cast<const int4*>(nodes), depth,
             cat_off, in_mask, bits, adv, cat_dims, n_cat_dims, n_adv, bids};
   Acc g{reinterpret_cast<unsigned long long*>(counts), lo, hi,
@@ -612,6 +1089,53 @@ extern "C" int fused_ingest_launch(
   } else if (variant == kGlobal) {
     const int threads = warps * 32;
     fused_ingest_global<<<grid_for(m, threads), threads, 0, st>>>(in, g);
+  } else if (variant == kLeafwise) {
+    const int groups = fold_groups(d);
+    // row indices and slots are int32; the scratch must be there
+    if (m > INT32_MAX || groups == 0 || aw > 32 || prefix < 1 ||
+        slots == nullptr || entries == nullptr || hist == nullptr ||
+        offsets == nullptr || (bids == nullptr && ids == nullptr))
+      return (int)cudaErrorInvalidValue;
+    int32_t* leaf_of = bids != nullptr ? bids : ids;
+    long long* order = reinterpret_cast<long long*>(entries);
+    int64_t blocks = (tiles + warps - 1) / warps;
+    if (blocks > most) blocks = most;
+    fused_ingest_leafwise_route<<<(unsigned)blocks, warps * 32, (size_t)smem,
+                                  st>>>(in, prefix, n_leaves, leaf_of, slots,
+                                        hist);
+    cudaError_t err = cudaGetLastError();
+    if (err) return (int)err;
+    fused_ingest_leafwise_scan<<<1, kScanThreads, 0, st>>>(hist, offsets,
+                                                           n_leaves);
+    err = cudaGetLastError();
+    if (err) return (int)err;
+    fused_ingest_leafwise_scatter<<<grid_for(m > n_leaves ? m : n_leaves, 256),
+                                    256, 0, st>>>(leaf_of, slots, m, offsets,
+                                                  order, hist, g.counts,
+                                                  n_leaves);
+    err = cudaGetLastError();
+    if (err) return (int)err;
+    // one warp a chunk: grid_for's "threads" are a block's warps here
+    const int64_t chunks = (m + kChunk - 1) / kChunk;
+    const unsigned fold_blocks = grid_for(chunks, kFoldWarps);
+    const size_t fsmem = fold_smem(d, cw, aw, n_cat_dims, n_adv);
+    switch (groups) {
+      case 1:
+        fused_ingest_leafwise_fold<1>
+            <<<fold_blocks, kFoldWarps * 32, fsmem, st>>>(in, g, order);
+        break;
+      case 2:
+        fused_ingest_leafwise_fold<2>
+            <<<fold_blocks, kFoldWarps * 32, fsmem, st>>>(in, g, order);
+        break;
+      case 4:
+        fused_ingest_leafwise_fold<4>
+            <<<fold_blocks, kFoldWarps * 32, fsmem, st>>>(in, g, order);
+        break;
+      default:
+        fused_ingest_leafwise_fold<8>
+            <<<fold_blocks, kFoldWarps * 32, fsmem, st>>>(in, g, order);
+    }
   } else {
     return (int)cudaErrorInvalidValue;
   }

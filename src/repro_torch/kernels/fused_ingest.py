@@ -10,19 +10,19 @@ is copied to the host once, at the end (:meth:`IngestAccumulator.partial`).
 Min, max, add and or are associative, so folding batch after batch equals
 one fold of their concatenation, bit for bit.
 
-On a CUDA tensor ``fold`` launches one kernel of
+On a CUDA tensor ``fold`` launches one design of
 ``csrc/fused_ingest.cu``: the shared-memory kernel when the tree's
-aggregates fit a block's shared memory, else the cluster kernel, whose
-cluster of two blocks splits them, where each block keeps every warp
-beside its half, else the one-thread-a-record global kernel (on an H100
-it was as fast or faster on every larger tree, PERF.md §6; the cluster
-kernel's other sizes, and a cluster's leaves in ranges of one launch,
-run when forced).  The choice, the warps a block, the cluster's
-size and its leaf split are planned once a shape, not once a batch
-(:func:`layout_plan`, pure arithmetic on the shape and the card's
-shared bytes), or pinned by the caller (the autotuner's geometry,
-``engine/autotune.py``), and checked against the card
-(``fused_ingest_plan``).
+aggregates fit a block's shared memory, else the leafwise design (route
+once, sort the rows by leaf, fold each leaf's rows with one owner: four
+kernels in stream order) where its histogram fits beside the route's
+block, else the one-thread-a-record global kernel.  The cluster kernel,
+whose cluster of blocks splits the aggregates, runs when forced (on an
+H100 the leafwise design beat it where it had been planned, PERF.md §6).
+The choice, the warps a block, the cluster's size and its leaf split are
+planned once a shape, not once a batch (:func:`layout_plan`, pure
+arithmetic on the shape and the card's shared bytes), or pinned by the
+caller (the autotuner's geometry, ``engine/autotune.py``), and checked
+against the card (``fused_ingest_plan``).
 The plain PyTorch version beside them evaluates the full predicate
 matrix, locates leaves in path-constraint form and folds with scatters
 into the same accumulator layout; the wrapper takes it only for a tensor
@@ -48,47 +48,58 @@ from repro_torch.core.routing import adv_truth
 from repro_torch.kernels import _build
 from repro_torch.kernels.ops import unpack_words
 from repro_torch.kernels.route_records import (
+    PREFIX_BYTES,
+    PREFIX_WARPS,
     _kernel_device,
     _require,
     _same_device,
+    blocks_per_sm,
     route_plain,
 )
 
 I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
 
-# the plan's kernel, and the launch counter each kernel moves
-VARIANTS = {None: 0, "shared": 1, "global": 2, "cluster": 3}
-KERNEL_NAMES = {1: "fused_ingest_shared", 2: "fused_ingest_global",
-                3: "fused_ingest_cluster"}
+# the plan's design, and the launch counters of the kernels it launches
+# once a batch each (the leafwise design four)
+VARIANTS = {None: 0, "shared": 1, "global": 2, "cluster": 3, "leafwise": 4}
+KERNEL_NAMES = _build.FUSED_KERNELS
 MAX_WARPS = 32  # csrc/fused_ingest.cu's kMaxWarps: 1024 threads a block
-MIN_WARPS = 4  # fewer warps beside the aggregates: the cluster kernel
+MIN_WARPS = 4  # fewer warps beside the aggregates: the leafwise design
 CLUSTER_SIZES = (2, 4, 8, 16)  # 16 past the portable 8, where the card allows
-# the cluster kernel is planned unforced only at PLANNED_CLUSTER blocks of
-# MAX_WARPS warps each (up to about 1,380 leaves at 21 columns); past
-# that the global kernel was as fast or faster on an H100 (PERF.md §6)
-PLANNED_CLUSTER = 2
 # warps a block the cluster's leaf split is sized by; the block then
 # takes as many warps as fit beside its slice
 SPLIT_WARPS = 16
 # inbox entries a peer warp's lane: csrc/fused_ingest.cu's kInboxShare
 INBOX_SHARE = 2
+# The leafwise design (csrc/fused_ingest.cu's note): its route kernel's
+# block is route_descend_prefix's (PREFIX_WARPS warps' tiles beside the
+# tree's BFS prefix in PREFIX_BYTES) plus a 4-byte count a leaf; where two
+# such blocks do not fit an SM, one block takes as many warps as fit, at
+# most MAX_WARPS.  The plan takes it while PREFIX_WARPS warps fit beside
+# the histogram (about 41,000 leaves at 21 columns).  Its fold takes at
+# most LEAFWISE_MAX_COLUMNS columns (csrc's kMaxGroups groups of 32) and
+# LEAFWISE_MAX_ADV_WORDS words of advanced cuts (a lane's each).
+LEAFWISE_MAX_COLUMNS = 256
+LEAFWISE_MAX_ADV_WORDS = 32
+LEAFWISE_FOLD_WARPS = 8  # csrc's kFoldWarps
 
-# The kernel the accumulators made under :func:`_forced` take, with the
-# cluster kernel's split to force; None chooses by shape.  For tests and
-# measurement only.
-_FORCED: tuple = (None, None, None)
+# The design the accumulators made under :func:`_forced` take, with the
+# cluster kernel's split and the warps a block to force; None chooses by
+# shape.  For tests and measurement only.
+_FORCED: tuple = (None, None, None, None)
 
 
 @contextlib.contextmanager
 def _forced(variant: Optional[str], cluster: Optional[int] = None,
-            ranges: Optional[int] = None):
-    """Accumulators made inside take ``variant`` ("shared", "cluster" or
-    "global"), the cluster kernel with ``cluster`` blocks a cluster and
-    ``ranges`` ranges where given; forcing the shared kernel on a tree too
-    large for it, or a cluster the card refuses, raises."""
+            ranges: Optional[int] = None, warps: Optional[int] = None):
+    """Accumulators made inside take ``variant`` ("shared", "cluster",
+    "leafwise" or "global"), the cluster kernel with ``cluster`` blocks a
+    cluster and ``ranges`` ranges, and ``warps`` warps a block where
+    given; forcing the shared kernel on a tree too large for it, a
+    cluster the card refuses or a leafwise shape it cannot run, raises."""
     global _FORCED
-    before, _FORCED = _FORCED, (variant, cluster, ranges)
+    before, _FORCED = _FORCED, (variant, cluster, ranges, warps)
     try:
         yield
     finally:
@@ -96,10 +107,12 @@ def _forced(variant: Optional[str], cluster: Optional[int] = None,
 
 
 class Plan(NamedTuple):
-    """A launch plan: the kernel (:data:`VARIANTS`), warps a block,
-    dynamic shared bytes, the most blocks (shared) or clusters (cluster)
-    resident on the card (0 until the card is asked), and the cluster
-    kernel's blocks a cluster, ranges and leaves a block (0 otherwise)."""
+    """A launch plan: the design (:data:`VARIANTS`), warps a block,
+    dynamic shared bytes, the most blocks (shared, leafwise) or clusters
+    (cluster) resident on the card (0 until the card is asked), the
+    cluster kernel's blocks a cluster, ranges and leaves a block, and the
+    leafwise design's staged nodes (0 otherwise).  The leafwise design's
+    warps, bytes and blocks are its route kernel's."""
 
     kernel: int
     warps: int
@@ -108,6 +121,7 @@ class Plan(NamedTuple):
     cluster: int = 0
     ranges: int = 0
     per_block: int = 0
+    prefix: int = 0
 
 
 def leaf_bytes(shape: tuple) -> int:
@@ -155,6 +169,55 @@ def shared_warps_fit(shape: tuple, optin: int) -> int:
     return max(0, min(MAX_WARPS, (optin - fixed) // tile_bytes(shape[1])))
 
 
+def leafwise_plan(shape: tuple, optin: int,
+                  warps: Optional[int] = None) -> Plan:
+    """The leafwise design's plan (pure arithmetic): its route kernel
+    stages the first nodes of the tree's 2 L - 1 that fit PREFIX_BYTES
+    beside PREFIX_WARPS warps' tiles (632 at 21 columns; at least the
+    root), and takes PREFIX_WARPS warps where two blocks with the
+    histogram fit an SM, else as many as fit one block (at most
+    MAX_WARPS, at least one), or ``warps``.  Raises ``ValueError`` past
+    the fold's columns or advanced-cut words."""
+    L, d, _, aw, _, _ = shape
+    if (d > LEAFWISE_MAX_COLUMNS or aw > LEAFWISE_MAX_ADV_WORDS
+            or fold_bytes(shape) > optin):
+        raise ValueError(
+            f"the leafwise fold takes at most {LEAFWISE_MAX_COLUMNS} columns "
+            f"and {LEAFWISE_MAX_ADV_WORDS} advanced-cut words, and its "
+            f"words a lane fit a block ({fold_bytes(shape)} of {optin} "
+            f"bytes); not {d} and {aw}")
+    tile = tile_bytes(d)
+    prefix = max(1, min(2 * L - 1,
+                        (PREFIX_BYTES - PREFIX_WARPS * tile) // 16))
+    fixed = 16 * prefix + 4 * L
+    if warps is None:
+        two = fixed + PREFIX_WARPS * tile
+        warps = (PREFIX_WARPS if blocks_per_sm(PREFIX_WARPS, two, optin) >= 2
+                 else max(1, min(MAX_WARPS, (optin - fixed) // tile)))
+    return Plan(VARIANTS["leafwise"], warps, fixed + warps * tile, 0, 0, 0,
+                0, prefix)
+
+
+def fold_bytes(shape: tuple) -> int:
+    """The leafwise fold's shared bytes (csrc's fold_smem): each warp's
+    run words and its lanes' categorical and advanced-cut words, and the
+    fold's tables."""
+    _, d, cw, aw, n_cat, n_adv = shape
+    return 4 * (LEAFWISE_FOLD_WARPS * (cw + 32 * (cw + 2 * aw)) + n_cat + d
+                + 3 * n_adv)
+
+
+def leafwise_reaches(shape: tuple, optin: int) -> bool:
+    """Does the plan take the leafwise design for a tree of ``shape`` past
+    the shared and cluster kernels: its fold takes the columns and the
+    advanced cuts, and PREFIX_WARPS warps fit beside the histogram?"""
+    try:
+        p = leafwise_plan(shape, optin)
+    except ValueError:
+        return False
+    return p.warps >= PREFIX_WARPS and p.smem <= optin
+
+
 def layout_plan(shape: tuple, optin: int, variant: Optional[str] = None,
                 warps: Optional[int] = None, cluster: Optional[int] = None,
                 ranges: Optional[int] = None) -> Plan:
@@ -163,9 +226,11 @@ def layout_plan(shape: tuple, optin: int, variant: Optional[str] = None,
     left 0 for the card to fill.  Pure arithmetic, no card asked.
 
     ``variant`` None takes the shared kernel when MIN_WARPS warps' tiles
-    fit beside the aggregates, else the cluster kernel when its split is
-    PLANNED_CLUSTER blocks of MAX_WARPS warps, else the global kernel.  The
-    cluster kernel's leaf split (:func:`block_leaves`) is the smallest
+    fit beside the aggregates, else the leafwise design where it reaches
+    (:func:`leafwise_reaches`), else the global kernel.  The cluster kernel runs only when forced: on an H100
+    the leafwise design beat it on every tree it had been planned on, two
+    blocks of 32 warps (PERF.md §6).
+    The cluster kernel's leaf split (:func:`block_leaves`) is the smallest
     size of CLUSTER_SIZES whose blocks hold the tree, else the largest in
     the fewest ranges; each block then takes ``warps``, or as many as fit
     beside its slice of ``per_block`` leaves.  ``cluster`` and ``ranges``
@@ -178,10 +243,12 @@ def layout_plan(shape: tuple, optin: int, variant: Optional[str] = None,
     fit = shared_warps_fit(shape, optin)
     if variant is None:
         if fit < MIN_WARPS:
-            p = layout_plan(shape, optin, "cluster")
-            return (p if (p.cluster, p.warps) == (PLANNED_CLUSTER, MAX_WARPS)
-                    else layout_plan(shape, optin, "global", warps))
+            leafwise = leafwise_reaches(shape, optin)
+            return layout_plan(shape, optin,
+                               "leafwise" if leafwise else "global", warps)
         variant = "shared"
+    if variant == "leafwise":
+        return leafwise_plan(shape, optin, warps)
     if variant == "global":
         return Plan(VARIANTS["global"], warps or 8, 0)
     if variant == "shared":
@@ -221,8 +288,16 @@ def device_plan(index: int, shape: tuple, variant: Optional[str] = None,
     p = layout_plan(shape, optin_bytes(index), variant, warps, cluster,
                     ranges)
     out = _build.plan("fused_ingest", index, p.kernel, p.warps, p.smem,
-                      p.cluster, p.ranges, p.per_block, shape[0])
+                      p.cluster, p.ranges, p.per_block, shape[0], shape[1],
+                      shape[3], p.prefix)
     return p._replace(most=out[3])
+
+
+def batches_folded(counts: dict) -> int:
+    """Batches folded on the card in a launch count
+    (:func:`repro_torch.kernels._build.launch_counts`): each design's
+    first kernel runs once a batch."""
+    return sum(counts[names[0]] for names in KERNEL_NAMES.values())
 
 
 class IngestAccumulator:
@@ -245,11 +320,16 @@ class IngestAccumulator:
 
     def __init__(self, ops: dict, launch: Optional[tuple] = None):
         """``launch`` pins the geometry, ``(variant, warps a block, grid
-        cap)`` with variant "shared", "cluster" or "global" (the cluster
-        and global kernels size their own grids, so their cap is unused);
-        None plans it by shape.  A pinned geometry the card cannot run
-        raises ``ValueError``.  On the CPU the plain version runs and the
-        geometry is not used.
+        cap)`` with variant "shared", "cluster", "leafwise" or "global"
+        (all but the shared kernel size their own grids, so their cap is
+        unused); None plans it by shape.  A pinned geometry the card
+        cannot run raises ``ValueError``.  On the CPU the plain version
+        runs and the geometry is not used.
+
+        The leafwise design's scratch (leaf ids, the leaf order, the
+        batch's per-leaf counts, zero between batches, and their offsets)
+        is the accumulator's, one set a CUDA stream, sized to the largest
+        batch folded on it: a stream of equal batches allocates nothing.
         """
         self.ops = ops
         dev = ops["cat_off"].device
@@ -284,6 +364,7 @@ class IngestAccumulator:
             *(p(t) for t in self.tensors()), L, cw, aw,
         )
         self._launch = None
+        self._scratch: dict[int, dict] = {}  # by stream: leafwise only
         if dev.type == "cuda":
             shape = plan_shape(ops)
             index = torch.cuda.current_device() if dev.index is None \
@@ -300,8 +381,9 @@ class IngestAccumulator:
              bids: bool = False) -> Optional[torch.Tensor]:
         """Fold one batch in; its (m,) int32 block ids if ``bids``.
 
-        One kernel launch on a CUDA tensor; the plain version only for a
-        tensor on the CPU.
+        On a CUDA tensor, one launch of each kernel of the plan's design
+        (:data:`KERNEL_NAMES`); the plain version only for a tensor on the
+        CPU.
         """
         if not _kernel_device(records, "fused_ingest"):
             return fused_ingest_plain(records, self, bids=bids)
@@ -321,14 +403,50 @@ class IngestAccumulator:
         out = torch.empty(m, dtype=torch.int32, device=dev) if bids else None
         if m == 0:
             return out
+        stream = _build.stream_ptr(dev)
+        scratch = (None,) * 5
+        if self._launch.kernel == VARIANTS["leafwise"]:
+            if m > I32_MAX:
+                raise ValueError(f"fused_ingest: the leafwise design takes "
+                                 f"at most {I32_MAX} rows a batch, not {m}")
+            scratch = tuple(_build.ptr(t) for t in
+                            self.leafwise_scratch(m, stream).values())
         rc = _build.library("fused_ingest").fused_ingest_launch(
             _build.ptr(records), m, d, *self._tree_args,
-            _build.ptr(out) if bids else None, *self._acc_args,
-            *self._launch, _build.stream_ptr(dev),
+            _build.ptr(out) if bids else None, *self._acc_args, *scratch,
+            *self._launch, stream,
         )
+        if rc:
+            # a stage that did not run may leave the batch's per-leaf
+            # counts, which must be zero on entry: the next batch on this
+            # stream takes fresh scratch
+            self._scratch.pop(stream, None)
         _build.check(rc, "fused_ingest")
-        _build.count_launch(KERNEL_NAMES[self._launch[0]])
+        for name in KERNEL_NAMES[self._launch.kernel]:
+            _build.count_launch(name)
         return out
+
+    def leafwise_scratch(self, m: int, stream: int) -> dict:
+        """The leafwise design's scratch on the stream ``stream`` (its CUDA
+        handle), for a batch of ``m`` rows: ``ids`` (m,) int32 (the leaf of
+        each row, unless block ids are asked for), ``slots`` (m,) int32
+        (each row's place among its leaf's rows), ``entries`` (m,) int64
+        (leaf << 32 | row, in leaf order), ``hist`` (L,) int32 (a batch's
+        rows a leaf; the scatter zeroes it for the next batch) and
+        ``offsets`` (L + 1,) int32 (each leaf's first slot; the last, the
+        rows).  Grown to the largest batch, never shrunk."""
+        s = self._scratch.get(stream)
+        if s is None or s["ids"].shape[0] < m:
+            dev, L = self.buf.device, self.lo.shape[0]
+            s = {"ids": torch.empty(m, dtype=torch.int32, device=dev),
+                 "slots": torch.empty(m, dtype=torch.int32, device=dev),
+                 "entries": torch.empty(m, dtype=torch.int64, device=dev),
+                 "hist": torch.zeros(L, dtype=torch.int32, device=dev)
+                 if s is None else s["hist"],
+                 "offsets": torch.empty(L + 1, dtype=torch.int32, device=dev)
+                 if s is None else s["offsets"]}
+            self._scratch[stream] = s
+        return s
 
     def partial(self, tree: FrozenQdTree) -> TightenPartial:
         """The stream's aggregates in the tightener's exchange format.
@@ -373,14 +491,16 @@ def pinned_plan(index: int, shape: tuple, variant: str, warps: int,
 
     Checked, never clamped: a geometry the card cannot run raises
     ``ValueError`` with the reason.  The shared kernel's bytes are the
-    aggregates plus one 32-row tile a warp; the cluster kernel, which
-    takes only trees whose aggregates do not fit one block, keeps its
-    plan's cluster size and leaf split, and its warps' tiles must fit
-    beside a block's slice.  The global kernel sizes its own grid.
+    aggregates plus one 32-row tile a warp; the cluster kernel and the
+    leafwise design take only trees whose aggregates do not fit one
+    block.  The cluster kernel keeps its plan's cluster size and leaf
+    split, and its warps' tiles must fit beside a block's slice; the
+    leafwise route's warps' tiles must fit beside its prefix and
+    histogram.  The global kernel sizes its own grid.
     """
-    if variant not in ("shared", "cluster", "global"):
-        raise ValueError(f"variant must be 'shared', 'cluster' or "
-                         f"'global', not {variant!r}")
+    if variant not in ("shared", "cluster", "leafwise", "global"):
+        raise ValueError(f"variant must be 'shared', 'cluster', 'leafwise' "
+                         f"or 'global', not {variant!r}")
     warps, max_blocks = int(warps), int(max_blocks)
     if not 1 <= warps <= MAX_WARPS:
         raise ValueError(f"{warps} warps a block: the kernels take 1 to "
@@ -391,16 +511,17 @@ def pinned_plan(index: int, shape: tuple, variant: str, warps: int,
         raise ValueError(f"a grid cap of {max_blocks} blocks")
     optin = optin_bytes(index)
     fit = shared_warps_fit(shape, optin)
-    if variant == "cluster":
+    if variant in ("cluster", "leafwise"):
         if fit >= MIN_WARPS:
             raise ValueError("the tree's aggregates fit one block's shared "
                              "memory: the shared kernel takes it")
-        p = layout_plan(shape, optin, "cluster", warps)
+        p = layout_plan(shape, optin, variant, warps)
         if p.smem > optin:
-            raise ValueError(f"{warps} warps do not fit beside a block's "
-                             f"{p.per_block} leaves ({p.smem} of {optin} "
-                             f"shared bytes)")
-        return device_plan(index, shape, "cluster", warps=warps)
+            held = (f"a block's {p.per_block} leaves" if variant == "cluster"
+                    else f"{p.prefix} nodes and {shape[0]} leaves' counts")
+            raise ValueError(f"{warps} warps do not fit beside {held} "
+                             f"({p.smem} of {optin} shared bytes)")
+        return device_plan(index, shape, variant, warps=warps)
     if fit < 1:
         raise ValueError("the tree's aggregates do not fit a block's shared "
                          "memory")
@@ -428,11 +549,20 @@ def fused_ingest_plain(records: torch.Tensor, acc: IngestAccumulator,
                        bids: bool = True) -> Optional[torch.Tensor]:
     """Route (full predicate matrix, path-constraint form), fold by
     scatters into ``acc``."""
+    b32 = route_plain(records, acc.ops)
+    acc.counts += torch.bincount(b32.long(), minlength=acc.lo.shape[0])
+    fold_plain(records, b32, acc)
+    return b32 if bids else None
+
+
+def fold_plain(records: torch.Tensor, leaf: torch.Tensor,
+               acc: IngestAccumulator) -> None:
+    """Fold each row of ``records`` into its leaf ``leaf`` (int32) of
+    ``acc``: min, max, categorical and advanced-cut words, by scatters; the
+    counts are the caller's."""
     ops = acc.ops
-    b32 = route_plain(records, ops)
-    b = b32.long()
+    b = leaf.long()
     L, d = acc.lo.shape
-    acc.counts += torch.bincount(b, minlength=L)
     idx = b[:, None].expand(-1, d)
     acc.lo.scatter_reduce_(0, idx, records, "amin")
     acc.hi.scatter_reduce_(0, idx, records, "amax")
@@ -452,5 +582,4 @@ def fused_ingest_plain(records: torch.Tensor, acc: IngestAccumulator,
             seen = torch.zeros((L, n_adv), dtype=torch.bool, device=b.device)
             seen[b[rows], cols] = True
             flags |= pack_bits(seen, flags.shape[1])
-    return b32 if bids else None
 

@@ -86,8 +86,7 @@ def _require_records(records: torch.Tensor, ops: dict, name: str) -> None:
 # locate_leaf's two kernels move their function's one launch counter;
 # route_descend's three ("prefix" is route's alone) count apart
 VARIANTS = {None: 0, "shared": 1, "global": 2, "prefix": 3}
-ROUTE_KERNELS = {1: "route_descend_shared", 2: "route_descend_global",
-                 3: "route_descend_prefix"}
+ROUTE_KERNELS = _build.ROUTE_KERNELS  # route_descend's kernel by plan id
 
 # The kernel that plans made under :func:`_forced` take, with route's warps
 # a block and staged nodes where given; None chooses by shape.  For tests

@@ -535,7 +535,8 @@ def test_fused_ingest_kernel_matches_plain(seed):
     _assert_same(acc_k, acc_p)
 
 
-@pytest.mark.parametrize("variant", ["shared", "cluster", "global"])
+@pytest.mark.parametrize("variant", ["shared", "cluster", "leafwise",
+                                     "global"])
 @pytest.mark.parametrize("seed", SEEDS)
 def test_fused_variants_match_plain(seed, variant):
     from repro_torch.kernels import _build
@@ -546,10 +547,12 @@ def test_fused_variants_match_plain(seed, variant):
     # an unaligned batch (rows 1..) takes the 4-byte copies
     for rec in (torch.from_numpy(records).to(dev),
                 torch.from_numpy(records).to(dev)[1:]):
-        name = f"fused_ingest_{variant}"
-        before = _build.launch_counts()[name]
+        names = tfk.KERNEL_NAMES[tfk.VARIANTS[variant]]
+        before = _build.launch_counts()
         got, want, acc_k, acc_p = _fold_both(ops, [rec], variant)
-        assert _build.launch_counts()[name] == before + 1
+        after = _build.launch_counts()
+        assert {k: after[k] - before[k] for k in _build.LAUNCH_NAMES} == {
+            k: int(k in names) for k in _build.LAUNCH_NAMES}
         assert torch.equal(got, want)
         _assert_same(acc_k, acc_p)
 
@@ -568,7 +571,7 @@ def test_shared_plan_takes_every_warp_that_fits():
         warps = min(32, (optin - fixed) // (4 * 32 * d))
         kernel, got_warps, smem, most = _plan(dev.index, shape, None)
         if warps < 4:
-            assert kernel == 3
+            assert kernel == 4
             continue
         assert (kernel, got_warps, smem) == (1, warps, fixed + warps * 128 * d)
         assert most >= torch.cuda.get_device_properties(dev).multi_processor_count
@@ -576,7 +579,8 @@ def test_shared_plan_takes_every_warp_that_fits():
         assert _plan(dev.index, (724, 21, 5, 1, 11, 3), None)[1] == 32
 
 
-@pytest.mark.parametrize("variant", [None, "shared", "cluster", "global"])
+@pytest.mark.parametrize("variant", [None, "shared", "cluster", "leafwise",
+                                     "global"])
 def test_running_fold_over_uneven_batches(variant):
     dev = _cuda()
     frozen, records, _ = random_case(1)
@@ -692,12 +696,12 @@ def test_cluster_running_fold_over_uneven_batches(split):
 @pytest.mark.parametrize("variant", [None, "cluster"])
 @pytest.mark.parametrize("case", ["wide", "tpch_1300", "tpch_20000"])
 def test_trees_past_one_block_take_the_plans_kernel(case, variant):
-    """One launch a batch of the plan's kernel and no other fused kernel,
-    for 160 columns x 200 leaves, and for 1,300 and 20,000 leaves over
-    tpch-40M's schema and cuts: the cluster kernel where two blocks of 32
-    warps hold the tree (1,300 leaves), else the global kernel; and the
-    same with the cluster kernel forced (a cluster of 4, of 2, and of 16
-    in two ranges)."""
+    """One launch a batch of each of the plan's kernels and no other fused
+    kernel, for 160 columns x 200 leaves, and for 1,300 and 20,000 leaves
+    over tpch-40M's schema and cuts: the leafwise design (1,300 and 20,000
+    leaves), the global kernel where its route's warps do not fit (160
+    columns); and the same with the cluster kernel forced (a cluster of 4,
+    of 2, and of 16 in two ranges)."""
     from repro_torch.kernels import _build
 
     dev = _cuda()
@@ -709,16 +713,15 @@ def test_trees_past_one_block_take_the_plans_kernel(case, variant):
     optin = tfk.optin_bytes(dev.index)
     assert tfk.shared_warps_fit(shape, optin) < 4
     plan = tfk.layout_plan(shape, optin, variant)
-    name = tfk.KERNEL_NAMES[plan.kernel]
-    assert name == ("fused_ingest_cluster"
-                    if variant or case == "tpch_1300"
-                    else "fused_ingest_global")
+    names = tfk.KERNEL_NAMES[plan.kernel]
+    assert plan.kernel == tfk.VARIANTS[
+        variant or ("global" if case == "wide" else "leafwise")]
     before = _build.launch_counts()
     got, want, acc_k, acc_p = _fold_both(ops, [rec[:1], rec[1:777],
                                                rec[777:]], variant)
     after = _build.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        k: 3 * (k == name) for k in after}
+        k: 3 * (k in names) for k in after}
     assert acc_k._launch == plan._replace(most=acc_k._launch.most)
     if variant:
         assert acc_k._launch.warps >= 4 and acc_k._launch.most >= 1
@@ -763,8 +766,8 @@ def test_cluster_kernel_folds_rows_past_a_full_inbox(split):
 def test_cluster_plans_on_the_card():
     """The card takes the cluster kernel's plan at every cluster size the
     shapes reach, a cluster of 16 (past the portable 8) and two ranges
-    included; unforced, the plan takes it only where two blocks of 32
-    warps hold the tree."""
+    included; unforced, the plan takes the leafwise design at every one
+    of these sizes."""
     dev = _cuda()
     optin = tfk.optin_bytes(dev.index)
     for L in (1250, 3000, 7500, 8000, 20000):
@@ -773,8 +776,7 @@ def test_cluster_plans_on_the_card():
         assert plan._replace(most=0) == tfk.layout_plan(shape, optin,
                                                         "cluster")
         assert plan.kernel == 3 and plan.most >= 1
-        assert tfk.device_plan(dev.index, shape).kernel == (
-            3 if L == 1250 else 2)
+        assert tfk.device_plan(dev.index, shape).kernel == 4
 
 
 def test_a_refused_cluster_raises_and_leaves_no_error():
@@ -819,7 +821,7 @@ def test_autotune_pins_a_cluster_geometry(tmp_path, monkeypatch):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     grid = autotune.default_grid(sms)
     variants = {v for v, _, _ in grid}
-    assert variants == {"shared", "cluster", "global"}
+    assert variants == {"shared", "cluster", "leafwise", "global"}
     frozen, records = wide_case(1)
     rec = torch.from_numpy(records).to(dev)
     eng = LayoutEngine(frozen)
@@ -843,6 +845,246 @@ def test_autotune_pins_a_cluster_geometry(tmp_path, monkeypatch):
     before = _build.launch_counts()["fused_ingest_cluster"]
     acc.fold(rec)
     assert _build.launch_counts()["fused_ingest_cluster"] == before + 1
+
+
+# grown trees over tpch-40M's schema and cuts past one block: the plan
+# folds each with the leafwise design
+LEAFWISE_TREES = [1800, 8000, 20_000]
+
+
+def _assert_leafwise_scratch(acc, n_leaves, ids):
+    """What one batch left in a fresh accumulator's leafwise scratch: the
+    scatter zeroed the per-leaf counts for the next batch, the scan left
+    each leaf's first slot, the slots are each row's place among its leaf's
+    rows, and the leaf order, each leaf's rows sorted, is the stable
+    argsort of the block ids."""
+    (s,) = acc._scratch.values()
+    m = ids.shape[0]
+    hist = torch.bincount(ids.long(), minlength=n_leaves)
+    first = torch.cumsum(hist, 0) - hist
+    assert not s["hist"].any()
+    assert torch.equal(s["offsets"][:n_leaves].long(), first)
+    assert int(s["offsets"][n_leaves]) == m
+    slots = s["slots"][:m].long()
+    assert (slots < hist[ids.long()]).all() and (slots >= 0).all()
+    ent = torch.sort(s["entries"][:m]).values  # (leaf, row) order
+    assert torch.equal(ent >> 32, torch.sort(ids).values.long())
+    assert torch.equal(ent & 0xFFFFFFFF, torch.argsort(ids, stable=True))
+
+
+@pytest.mark.parametrize("case", ["wide", *map(str, LEAFWISE_TREES)])
+def test_leafwise_matches_plain_and_oracle(case):
+    """The leafwise design, forced (on wide_case, 160 columns: five column
+    groups a lane; the plan's on the grown trees), over a
+    one-row batch and two more into one running accumulator: block ids and
+    aggregates equal to the plain version and to the numpy oracle; the
+    scratch after one batch holds each stage's output."""
+    dev = _cuda()
+    frozen, records = (wide_case(0) if case == "wide"
+                       else tpch_case(int(case), 20_000))
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(records).to(dev)
+    shape = tfk.plan_shape(ops)
+    planned = tfk.layout_plan(shape, tfk.optin_bytes(dev.index))
+    takes = case != "wide"
+    assert (planned.kernel == tfk.VARIANTS["leafwise"]) == takes
+    got, want, acc_k, acc_p = _fold_both(
+        ops, [rec[:1], rec[1:7777], rec[7777:]], "leafwise")
+    assert acc_k._launch.kernel == tfk.VARIANTS["leafwise"]
+    if takes:
+        assert acc_k._launch == planned._replace(most=acc_k._launch.most)
+    assert torch.equal(got, want)
+    _assert_same(acc_k, acc_p)
+    _assert_oracle(frozen, records, got, acc_k)
+    with tfk._forced("leafwise"):
+        acc = tfk.IngestAccumulator(ops)
+    ids = acc.fold(rec, bids=True)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, want)
+    _assert_leafwise_scratch(acc, frozen.n_leaves, ids)
+
+
+def test_leafwise_folds_a_batch_in_one_leaf():
+    """2**16 + 5 rows, every one in the busiest leaf of 1,800: the fold
+    splits the leaf over 1,025 chunks of csrc's kChunk (64) rows, the last
+    of five."""
+    dev = _cuda()
+    frozen, records = tpch_case(1800, 5000)
+    ids = frozen.route(records)
+    host = np.resize(records[ids == np.bincount(ids).argmax()],
+                     ((1 << 16) + 5, records.shape[1]))
+    assert np.unique(frozen.route(host)).size == 1
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(host).to(dev)
+    got, want, acc_k, acc_p = _fold_both(ops, [rec], "leafwise")
+    assert torch.equal(got, want)
+    _assert_same(acc_k, acc_p)
+    _assert_oracle(frozen, host, got, acc_k)
+
+
+def test_leafwise_folds_one_row():
+    dev = _cuda()
+    frozen, records, _ = random_case(0)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(records[:1]).to(dev)
+    got, want, acc_k, acc_p = _fold_both(ops, [rec], "leafwise")
+    assert torch.equal(got, want)
+    _assert_same(acc_k, acc_p)
+    _assert_leafwise_scratch(acc_k, frozen.n_leaves, got)
+
+
+@pytest.mark.parametrize("n_leaves", LEAFWISE_TREES)
+def test_engine_ingest_launches_the_plans_kernels_once_a_batch(n_leaves):
+    from repro_torch.engine import sharded
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    frozen, records = tpch_case(n_leaves, 20_000)
+    rec = torch.from_numpy(records).to(dev)
+    oracle = _fresh(frozen)
+    LayoutEngine(oracle, backend="numpy", device="cpu").ingest(
+        sharded.micro_batches(records, 7777))
+    tree = _fresh(frozen)
+    eng = LayoutEngine(tree)
+    _build.reset_launch_counts()
+    rep = eng.ingest(sharded.micro_batches(rec, 7777))
+    counts = _build.launch_counts()
+    names = tfk.KERNEL_NAMES[tfk.VARIANTS["leafwise"]]
+    assert rep.n_batches == 3
+    assert {k: counts[k] for k in _build.LAUNCH_NAMES} == {
+        k: 3 * (k in names) for k in _build.LAUNCH_NAMES}
+    for a, b in zip(_leaf_arrays(tree), _leaf_arrays(oracle)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_a_refused_leafwise_shape_raises_and_leaves_no_error():
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    frozen, records = wide_case(0)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(records).to(dev)
+    before = _build.launch_counts()
+    # 32 warps' tiles of 160 columns are past a block's bytes: CUDA refuses
+    with pytest.raises(RuntimeError, match="fused_ingest kernel launch"):
+        with tfk._forced("leafwise", warps=32):
+            tfk.IngestAccumulator(ops)
+    # pinned, the same geometry is refused before the card is asked
+    with pytest.raises(ValueError, match="do not fit"):
+        tfk.IngestAccumulator(ops, launch=("leafwise", 32, 0))
+    # a tree that fits one block is the shared kernel's
+    small, _, _ = random_case(0)
+    with pytest.raises(ValueError, match="shared kernel takes it"):
+        tfk.IngestAccumulator(
+            tplan.to_device(tplan.pack_route_constants(small), dev),
+            launch=("leafwise", 21, 0))
+    # past the fold's 256 columns
+    wider, _ = wide_case(0, d=257, m=600, leaves=20)
+    with pytest.raises(ValueError, match="leafwise fold takes at most"):
+        with tfk._forced("leafwise"):
+            tfk.IngestAccumulator(
+                tplan.to_device(tplan.pack_route_constants(wider), dev))
+    assert _build.launch_counts() == before
+    # nothing is left behind for the next launch
+    got, want, acc_k, acc_p = _fold_both(ops, [rec], "leafwise")
+    assert torch.equal(got, want)
+    _assert_same(acc_k, acc_p)
+
+
+def test_a_failed_leafwise_launch_drops_its_streams_scratch(monkeypatch):
+    """A launch whose later stage fails may leave the batch's per-leaf
+    counts, zero on entry, in the stream's scratch: the wrapper raises and
+    drops that scratch, so the next batch on the stream folds exactly."""
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    frozen, records = tpch_case(1800, 5000)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(records).to(dev)
+    with tfk._forced("leafwise"):
+        acc = tfk.IngestAccumulator(ops)
+    acc.fold(rec)
+    (scratch,) = acc._scratch.values()
+    lib = _build.library("fused_ingest")
+
+    class FailsAfterTheRoute:
+        def fused_ingest_launch(self, *args):
+            assert lib.fused_ingest_launch(*args) == 0
+            scratch["hist"].fill_(1)  # counts a stage did not clear
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(_build, "library", lambda name: FailsAfterTheRoute())
+    with pytest.raises(RuntimeError, match="fused_ingest kernel launch"):
+        acc.fold(rec)
+    assert not acc._scratch
+    monkeypatch.undo()
+    acc.fold(rec)
+    plain = tfk.IngestAccumulator(ops)
+    for _ in range(3):
+        tfk.fused_ingest_plain(rec, plain)
+    torch.cuda.synchronize()
+    _assert_same(acc, plain)
+
+
+def test_leafwise_folds_from_eight_streams_into_one_accumulator():
+    """Eight threads, each on its own stream, fold their slices into one
+    accumulator: the merges are atomic and each stream has its own
+    scratch, so the result is the plain version's over every slice."""
+    import threading
+
+    dev = _cuda()
+    frozen, records = tpch_case(1800, 40_000)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(records).to(dev)
+    with tfk._forced("leafwise"):
+        acc = tfk.IngestAccumulator(ops)
+    torch.cuda.synchronize()
+    slices = rec.chunk(8)
+
+    def fold(x):
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            for _ in range(3):
+                acc.fold(x)
+            torch.cuda.current_stream(dev).synchronize()
+
+    threads = [threading.Thread(target=fold, args=(x,)) for x in slices]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    plain = tfk.IngestAccumulator(ops)
+    for _ in range(3):
+        tfk.fused_ingest_plain(rec, plain)
+    _assert_same(acc, plain)
+    assert len(acc._scratch) == 8
+
+
+def test_autotune_pins_a_leafwise_geometry(tmp_path, monkeypatch):
+    """On 8,000 grown leaves the leafwise candidates run, and a pinned one
+    folds through the leafwise kernels."""
+    from repro_torch.engine import autotune
+    from repro_torch.engine import backends as tbe
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_STORE", str(tmp_path / "a.json"))
+    frozen, records = tpch_case(8000, 20_000)
+    rec = torch.from_numpy(records).to(dev)
+    eng = LayoutEngine(frozen)
+    out = autotune.autotune_fused(
+        frozen, rec, engine=eng, reps=2,
+        grid=[("leafwise", w, 0) for w in autotune.LEAFWISE_WARPS])
+    assert all(r["status"] == "ok" for r in out["rows"])
+    chosen = autotune.lookup("cuda", autotune.geometry_key(frozen))
+    assert chosen.variant == "leafwise"
+    acc = tbe.get_backend("torch").accumulator(frozen, tplan.PlanCache(), dev)
+    assert acc.launch == chosen.launch
+    assert acc.acc._launch.warps == chosen.warps
+    before = _build.launch_counts()
+    acc.fold(rec)
+    after = _build.launch_counts()
+    names = tfk.KERNEL_NAMES[tfk.VARIANTS["leafwise"]]
+    assert {k: after[k] - before[k] for k in names} == dict.fromkeys(names, 1)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -1017,7 +1259,7 @@ def test_thread_shards_on_streams_match_one_stream(k):
     counts = _build.launch_counts()
     assert rep.n_batches == sum(
         -(-p.shape[0] // 777) for p in sharded.shard_slices(rec, k))
-    assert sum(counts[k] for k in tfk.KERNEL_NAMES.values()) == rep.n_batches
+    assert tfk.batches_folded(counts) == rep.n_batches
     for a, b in zip(_leaf_arrays(tree), _leaf_arrays(one)):
         np.testing.assert_array_equal(a, b)
 
@@ -1032,7 +1274,7 @@ def test_launch_counts_exact_from_eight_threads():
     ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
     rec = torch.from_numpy(records).to(dev)
     accs = [tfk.IngestAccumulator(ops) for _ in range(8)]
-    name = tfk.KERNEL_NAMES[accs[0]._launch[0]]
+    (name,) = tfk.KERNEL_NAMES[accs[0]._launch.kernel]
     _build.reset_launch_counts()
 
     def fold(acc):

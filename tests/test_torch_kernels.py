@@ -617,6 +617,175 @@ def test_fused_ingest_plain_matches_pallas_past_one_block(tpch_1300):
         tops.unpack_words(acc.advf.numpy(), na), advf[:L, :na] != 0)
 
 
+# -- the leafwise design's stages (csrc/fused_ingest.cu), modelled in numpy --
+def leafwise_sort(ids, n_leaves):
+    """Stages 1-3: each leaf's count (the histogram) and each row's slot
+    among its leaf's rows (here in row order, one of the orders the
+    kernels' atomics may give), the counts' exclusive scan (each leaf's
+    first slot; the last entry is the rows), and the scatter of each row to
+    its leaf's first slot plus its own."""
+    m = ids.shape[0]
+    hist = np.bincount(ids, minlength=n_leaves)
+    offsets = np.zeros(n_leaves + 1, np.int64)
+    offsets[1:] = np.cumsum(hist)
+    by_leaf = np.argsort(ids, kind="stable")
+    slots = np.empty(m, np.int64)
+    slots[by_leaf] = np.arange(m) - offsets[ids[by_leaf]]
+    order = np.empty(m, np.int64)
+    order[offsets[ids] + slots] = np.arange(m)
+    return hist, offsets, order
+
+
+def leafwise_fold_model(records, ops, acc, chunk):
+    """The design's four stages over one batch, folded into the running
+    accumulator ``acc`` (a CPU ``IngestAccumulator``, its fields as numpy
+    views): route, sort, then chunks of at most ``chunk`` rows of one leaf
+    (the leaf order cut at every multiple of ``chunk`` and every leaf
+    boundary), each chunk's count, min, max, categorical and advanced-cut
+    bits, merged into the running words.  Returns the block ids."""
+    ids = trk.route_plain(torch.from_numpy(records), ops).numpy()
+    L = acc.lo.shape[0]
+    hist, _, order = leafwise_sort(ids, L)
+    counts, lo, hi = (acc.counts.numpy(), acc.lo.numpy(), acc.hi.numpy())
+    cat, advt, advf = (t.numpy().view(np.uint32)
+                       for t in (acc.cat, acc.advt, acc.advf))
+    counts += hist
+    leaf_of = ids[order]
+    m = ids.shape[0]
+    cuts = np.flatnonzero((np.arange(m) % chunk == 0)
+                          | np.r_[True, leaf_of[1:] != leaf_of[:-1]])
+    cat_dims = ops["cat_dims"].numpy()
+    cat_off = ops["cat_off"].numpy()
+    bits = int(ops["bits"])
+    adv = ops["adv"].numpy()[:int(ops["n_adv"])]
+    for s, e in zip(cuts, np.r_[cuts[1:], m]):
+        rows, leaf = records[order[s:e]], leaf_of[s]
+        assert e - s <= chunk and (leaf_of[s:e] == leaf).all()
+        lo[leaf] = np.minimum(lo[leaf], rows.min(axis=0))
+        hi[leaf] = np.maximum(hi[leaf], rows.max(axis=0))
+        pos = np.clip(rows[:, cat_dims] + cat_off[cat_dims], 0, bits - 1)
+        words = np.zeros(cat.shape[1], np.uint32)
+        np.bitwise_or.at(words, pos >> 5, np.uint32(1) << (pos & 31).astype(
+            np.uint32))
+        cat[leaf] |= words
+        for a, (ca, op, cb) in enumerate(adv):
+            va, vb = rows[:, ca], rows[:, cb]
+            truth = [va < vb, va <= vb, va > vb, va >= vb,
+                     va == vb][op] if op < 5 else va != vb
+            bit = np.uint32(1 << (a & 31))
+            if truth.any():
+                advt[leaf, a >> 5] |= bit
+            if not truth.all():
+                advf[leaf, a >> 5] |= bit
+    return ids
+
+
+@pytest.fixture(scope="module")
+def tpch_1800():
+    return grown_tpch_case(1800, 3000)
+
+
+@pytest.fixture(scope="module")
+def tpch_8000():
+    return grown_tpch_case(8000, 3000)
+
+
+def leafwise_case(case, tpch_1800, tpch_8000):
+    """A grown tree and a batch: 1,800 or 8,000 leaves, or 1,800 leaves
+    with every row of the batch in one leaf (the busiest's rows repeated)."""
+    if case == "8000":
+        return tpch_8000
+    frozen, records = tpch_1800
+    if case == "one_leaf":
+        ids = frozen.route(records)
+        records = np.resize(records[ids == np.bincount(ids).argmax()],
+                            records.shape)
+        assert np.unique(frozen.route(records)).size == 1
+    return frozen, records
+
+
+# chunks of one row, of a prime count, of csrc/fused_ingest.cu's kChunk
+# and longer than most leaves' runs; ≈ 1 s a case once the trees are grown
+# (≈ 1 s and 4 s, once a module)
+LEAFWISE_MODEL_CHUNKS = [1, 7, 64, 4096]
+
+
+@pytest.mark.parametrize("chunk", LEAFWISE_MODEL_CHUNKS)
+@pytest.mark.parametrize("case", ["1800", "8000", "one_leaf"])
+def test_leafwise_model_matches_plain_and_ref(case, chunk, tpch_1800,
+                                              tpch_8000):
+    """The leafwise design's stages, modelled, fold two batches into one
+    running accumulator exactly as the plain version does, and as the
+    reference's numpy oracle does over their concatenation."""
+    from repro.kernels.ref import fused_ingest_ref
+
+    frozen, records = leafwise_case(case, tpch_1800, tpch_8000)
+    ops = port_operands(frozen)
+    acc_m, acc_p = (tfk.IngestAccumulator(ops) for _ in range(2))
+    halves = (records[:1234], records[1234:])
+    got = [leafwise_fold_model(h, ops, acc_m, chunk) for h in halves]
+    want = [tfk.fused_ingest_plain(torch.from_numpy(h), acc_p).numpy()
+            for h in halves]
+    np.testing.assert_array_equal(np.concatenate(got), np.concatenate(want))
+    for name, a, b in zip(acc_m.FIELDS, acc_m.tensors(), acc_p.tensors()):
+        assert torch.equal(a, b), name
+    want_bids, want_part = fused_ingest_ref(frozen, records)
+    np.testing.assert_array_equal(np.concatenate(got), want_bids)
+    part = acc_m.partial(carry_tree(frozen))
+    for f in ("counts", "lo", "hi", "cat", "adv"):
+        assert np.array_equal(getattr(part, f), getattr(want_part, f)), f
+
+
+@pytest.mark.parametrize("case", ["1800", "8000", "one_leaf"])
+def test_leafwise_scan_and_scatter_give_the_stable_argsort(case, tpch_1800,
+                                                           tpch_8000):
+    frozen, records = leafwise_case(case, tpch_1800, tpch_8000)
+    ids = frozen.route(records)
+    hist, offsets, order = leafwise_sort(ids, frozen.n_leaves)
+    np.testing.assert_array_equal(
+        order, torch.argsort(torch.from_numpy(ids), stable=True).numpy())
+    assert offsets[-1] == ids.shape[0] and (np.diff(offsets) == hist).all()
+    np.testing.assert_array_equal(ids[order][offsets[:-1][hist > 0]],
+                                  np.flatnonzero(hist))
+
+
+@pytest.fixture(scope="module")
+def pallas_1300(tpch_1300):
+    """The Pallas kernel's outputs (interpret mode) on 1,300 leaves."""
+    frozen, records = tpch_1300
+    k, rec, valid = pallas_operands(frozen, records)
+    return tuple(np.asarray(x) for x in rfk.fused_ingest_pallas(
+        rec, valid, *(jnp.asarray(k[n]) for n in (
+            "dim_onehot", "cutpoint", "in_mask_t", "is_cat", "cat_off",
+            "adv_cols", "adv_sel", "kind", "pathpos", "pathneg", "leafid",
+        )),
+        tile_m=TILE_M, tile_l=rplan.LANE, n_cat_bits=k["n_cat_bits"],
+        n_adv=k["n_adv"], interpret=True,
+    ))
+
+
+@pytest.mark.parametrize("chunk", LEAFWISE_MODEL_CHUNKS)
+def test_leafwise_model_matches_pallas_past_one_block(chunk, tpch_1300,
+                                                      pallas_1300):
+    frozen, records = tpch_1300
+    bids, counts, lo, hi, cat, advt, advf = pallas_1300
+    acc = tfk.IngestAccumulator(port_operands(frozen))
+    got = leafwise_fold_model(records, port_operands(frozen), acc, chunk)
+    m, L = records.shape[0], frozen.n_leaves
+    bits, na = frozen.leaf_cat.shape[1], frozen.cuts.n_adv
+    np.testing.assert_array_equal(got, bids[:m, 0] - 1)
+    np.testing.assert_array_equal(acc.counts.numpy(), counts[0, :L])
+    ne = counts[0, :L] > 0
+    np.testing.assert_array_equal(acc.lo.numpy()[ne], lo[:L][ne])
+    np.testing.assert_array_equal(acc.hi.numpy()[ne], hi[:L][ne])
+    np.testing.assert_array_equal(
+        tops.unpack_words(acc.cat.numpy(), bits), cat[:L, :bits] != 0)
+    np.testing.assert_array_equal(
+        tops.unpack_words(acc.advt.numpy(), na), advt[:L, :na] != 0)
+    np.testing.assert_array_equal(
+        tops.unpack_words(acc.advf.numpy(), na), advf[:L, :na] != 0)
+
+
 OPTIN = 232_448  # an H100's opt-in shared bytes a block
 TPCH_SHAPE = (21, 5, 1, 11, 3)  # columns, cat and adv words, cat columns, adv
 
@@ -714,14 +883,15 @@ def test_layout_plan_splits_every_leaf_once(shape):
     # the cluster kernel's split, which the plan takes or a caller forces
     plan = tfk.layout_plan(shape, OPTIN, "cluster")
     assert plan.smem <= OPTIN and plan.warps >= tfk.MIN_WARPS
-    # unforced, the cluster kernel only at two blocks of 32 warps (the
-    # finer layout's 1,250 leaves); past that the global kernel, which was
-    # as fast or faster on an H100 (1,800 leaves leave a block 17 warps)
-    if L == 1250:
-        assert planned == plan and (plan.cluster, plan.warps) == (2, 32)
-    else:
-        assert planned == tfk.Plan(tfk.VARIANTS["global"], 8, 0)
-        assert (plan.cluster, plan.warps) != (2, 32)
+    # unforced, the leafwise design where route_descend_prefix's warps fit
+    # beside its histogram, else the global kernel (160 columns); the
+    # cluster kernel only forced: two
+    # blocks of 32 warps at the finer layout's 1,250 leaves, fewer warps or
+    # more blocks past it (1,800 leaves leave a block 17 warps)
+    assert planned == (tfk.leafwise_plan(shape, OPTIN)
+                       if L in (1250, 1800, 7500, 20_000)
+                       else tfk.Plan(tfk.VARIANTS["global"], 8, 0))
+    assert ((plan.cluster, plan.warps) == (2, 32)) == (L == 1250)
     owners = {cluster_owner(plan, leaf) for leaf in range(L)}
     assert len(owners) == L  # one (range, block, slot) a leaf
     assert all(r < plan.ranges and b < plan.cluster and s < plan.per_block
@@ -740,6 +910,72 @@ def test_layout_plan_splits_every_leaf_once(shape):
         plan.per_block * tfk.leaf_bytes(shape) + tfk.table_bytes(shape) + 8
         + plan.warps * (tfk.tile_bytes(shape[1])
                         + tfk.inbox_bytes(plan.cluster)))
+
+
+# by leaves at tpch-40M's shape: the plan's design, and the leafwise
+# design's warps and shared bytes (forced, or the plan's): its route's block
+# is route_descend_prefix's 632 nodes and 21 warps' tiles (66,560 bytes)
+# plus 4 bytes a leaf, two blocks an SM up to 12,288 leaves, then one block
+# of as many warps as fit (at most 32); the plan takes it while 21 warps
+# fit (41,472 leaves)
+LEAFWISE_PLANS = {
+    724: ("shared", 21, 66_560 + 4 * 724),
+    1250: ("leafwise", 21, 66_560 + 4 * 1250),
+    1800: ("leafwise", 21, 66_560 + 4 * 1800),
+    7167: ("leafwise", 21, 66_560 + 4 * 7167),
+    7168: ("leafwise", 21, 66_560 + 4 * 7168),
+    8000: ("leafwise", 21, 66_560 + 4 * 8000),
+    12_288: ("leafwise", 21, 66_560 + 4 * 12_288),
+    12_289: ("leafwise", 32, 10_112 + 32 * 2688 + 4 * 12_289),
+    16_383: ("leafwise", 32, 10_112 + 32 * 2688 + 4 * 16_383),
+    16_384: ("leafwise", 32, 10_112 + 32 * 2688 + 4 * 16_384),
+    20_000: ("leafwise", 32, 10_112 + 32 * 2688 + 4 * 20_000),
+    41_472: ("leafwise", 21, 10_112 + 21 * 2688 + 4 * 41_472),
+    41_473: ("global", 20, 10_112 + 20 * 2688 + 4 * 41_473),
+    50_000: ("global", 8, 10_112 + 8 * 2688 + 4 * 50_000),
+}
+
+
+@pytest.mark.parametrize("n_leaves", sorted(LEAFWISE_PLANS))
+def test_layout_plan_takes_the_leafwise_design(n_leaves):
+    shape = (n_leaves, *TPCH_SHAPE)
+    kernel, warps, smem = LEAFWISE_PLANS[n_leaves]
+    plan = tfk.layout_plan(shape, OPTIN)
+    assert plan.kernel == tfk.VARIANTS[kernel]
+    forced = tfk.layout_plan(shape, OPTIN, "leafwise")
+    assert (forced.warps, forced.smem) == (warps, smem) and smem <= OPTIN
+    assert forced.prefix == 632
+    assert forced.most == forced.cluster == forced.ranges == 0
+    assert tfk.leafwise_reaches(shape, OPTIN) == (n_leaves <= 41_472)
+    if n_leaves > 724:  # past one block: leafwise wherever it reaches
+        assert (kernel == "leafwise") == (n_leaves <= 41_472)
+    if kernel == "leafwise":
+        assert plan == forced
+    elif kernel == "global":
+        assert plan == tfk.Plan(tfk.VARIANTS["global"], 8, 0)
+    two = trk.blocks_per_sm(warps, smem, OPTIN) >= 2
+    assert two == (warps == 21 and n_leaves <= 12_288)
+    # the route's warps may be forced
+    assert tfk.layout_plan(shape, OPTIN, "leafwise", 8) == \
+        forced._replace(warps=8, smem=forced.smem - (forced.warps - 8) * 2688)
+
+
+def test_leafwise_plan_on_shapes_it_cannot_take():
+    """Unforced, wide_case's 160 columns take the global kernel (21 warps'
+    tiles do not fit); forced, the leafwise route stages the root alone
+    beside as many warps as fit.  Past 256 columns or 32 advanced-cut
+    words the fold cannot run: forcing it raises."""
+    wide = (200, 160, 2, 1, 1, 1)
+    assert tfk.layout_plan(wide, OPTIN) == tfk.Plan(tfk.VARIANTS["global"],
+                                                    8, 0)
+    forced = tfk.layout_plan(wide, OPTIN, "leafwise")
+    assert (forced.prefix, forced.warps) == (1, 11)
+    assert forced.smem == 16 + 800 + 11 * 4 * 32 * 160 <= OPTIN
+    for shape in ((200, 257, 2, 1, 1, 1), (2000, 21, 5, 33, 11, 1040)):
+        assert not tfk.leafwise_reaches(shape, OPTIN)
+        assert tfk.layout_plan(shape, OPTIN).kernel == tfk.VARIANTS["global"]
+        with pytest.raises(ValueError, match="leafwise fold takes at most"):
+            tfk.layout_plan(shape, OPTIN, "leafwise")
 
 
 def _query_case(seed):
