@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import query as qry
 from repro_torch.core.qdtree import FrozenQdTree, IncrementalTightener
 from repro_torch.engine import plan as planlib
@@ -212,7 +213,8 @@ class DeviceAccumulator:
         self.tree = tree
         self.device = device
         self.launch = launch
-        self.acc = fk.IngestAccumulator(ops, launch)
+        with tracing.span("ingest.accumulator"):
+            self.acc = fk.IngestAccumulator(ops, launch)
 
     def fold(self, records, return_bids: bool = False,
              on_device: bool = False):
@@ -254,7 +256,8 @@ class TorchBackend(Backend):
         return rk.route(_on_device(records, device), ops).cpu().numpy()
 
     def accumulator(self, tree, cache, device, launch=None):
-        ops = self._tree_plan(tree, cache, device).operands
+        with tracing.span("ingest.plan"):
+            ops = self._tree_plan(tree, cache, device).operands
         if launch is None and device.type == "cuda":
             from repro_torch.engine import autotune
 

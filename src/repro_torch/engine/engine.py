@@ -29,6 +29,7 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import query as qry
 from repro_torch.core.qdtree import FrozenQdTree, IncrementalTightener
 from repro_torch.engine import backends as be
@@ -398,69 +399,83 @@ class LayoutEngine:
         :class:`WindowStat` goes to ``on_observation``; the run's total
         lands in ``IngestReport.observation``.
         """
-        builds0 = planlib.build_counts()
-        probe = (
-            self.observation_probe(observe, backend=backend)
-            if observe is not None
-            else None
-        )
-        observed = WindowStat() if probe is not None else None
-        tightener = IncrementalTightener(self.tree) if tighten else None
-        sizes = None if tighten else np.zeros(self.tree.n_leaves, np.int64)
-        use_fused = fused and tightener is not None
-        need_bids = buffers is not None or probe is not None
-        # the ids stay on the device for a spill of tensor batches, and for
-        # an observation the probe scores there (only its sum comes back)
-        device_probe = probe is not None and probe.on_device is not None
-        n_batches = n_records = 0
-        t0 = time.perf_counter()
-        acc = (
-            self._backend(backend).accumulator(self.tree, self.plans,
-                                               self.device)
-            if use_fused else None
-        )
-        for batch in batches:
-            if batch.shape[0] == 0:
-                continue
-            if use_fused:
-                bids = acc.fold(
-                    batch, return_bids=need_bids,
-                    on_device=(device_probe and buffers is None) or (
-                        buffers is not None
-                        and not isinstance(batch, np.ndarray)),
+        with tracing.span("ingest"):
+            with tracing.span("ingest.open"):
+                builds0 = planlib.build_counts()
+                probe = (
+                    self.observation_probe(observe, backend=backend)
+                    if observe is not None
+                    else None
                 )
-            else:
-                bids = self.route(batch, backend=backend)
-                if tightener is not None:
-                    tightener.update(be.as_host(batch), bids)
+                observed = WindowStat() if probe is not None else None
+                tightener = (IncrementalTightener(self.tree) if tighten
+                             else None)
+                sizes = (None if tighten
+                         else np.zeros(self.tree.n_leaves, np.int64))
+                use_fused = fused and tightener is not None
+                need_bids = buffers is not None or probe is not None
+                # the ids stay on the device for a spill of tensor batches,
+                # and for an observation the probe scores there (only its
+                # sum comes back)
+                device_probe = (probe is not None
+                                and probe.on_device is not None)
+                n_batches = n_records = 0
+                t0 = time.perf_counter()
+                acc = (
+                    self._backend(backend).accumulator(self.tree, self.plans,
+                                                       self.device)
+                    if use_fused else None
+                )
+            for batch in batches:
+                if batch.shape[0] == 0:
+                    continue
+                if use_fused:
+                    with tracing.span("ingest.fold"):
+                        bids = acc.fold(
+                            batch, return_bids=need_bids,
+                            on_device=(device_probe and buffers is None) or (
+                                buffers is not None
+                                and not isinstance(batch, np.ndarray)),
+                        )
                 else:
-                    sizes += np.bincount(bids, minlength=sizes.shape[0])
-            if buffers is not None:
-                buffers.append(batch, bids)
-            if probe is not None:
-                stat = probe.observe(bids if device_probe else be.as_host(bids))
-                observed = observed.merge(stat)
-                if on_observation is not None:
-                    on_observation(stat)
-            n_batches += 1
-            n_records += batch.shape[0]
-        if use_fused:
-            tightener.merge(acc.partial())
-        if tightener is not None:
-            tightener.apply()
-            sizes = tightener.counts.copy()
-        wall = time.perf_counter() - t0
-        return IngestReport(
-            n_batches=n_batches,
-            n_records=n_records,
-            block_sizes=sizes,
-            wall_s=wall,
-            backend=backend or self.backend,
-            plan_cache=self.plans.stats(),
-            builds=planlib.build_delta(builds0, planlib.build_counts()),
-            observation=observed,
-            fused=use_fused,
-        )
+                    bids = self.route(batch, backend=backend)
+                    if tightener is not None:
+                        tightener.update(be.as_host(batch), bids)
+                    else:
+                        sizes += np.bincount(bids, minlength=sizes.shape[0])
+                if buffers is not None:
+                    buffers.append(batch, bids)
+                if probe is not None:
+                    stat = probe.observe(
+                        bids if device_probe else be.as_host(bids))
+                    observed = observed.merge(stat)
+                    if on_observation is not None:
+                        on_observation(stat)
+                n_batches += 1
+                n_records += batch.shape[0]
+            with tracing.span("ingest.close"):
+                if use_fused:
+                    partial = acc.partial()
+                    with tracing.span("ingest.merge"):
+                        tightener.merge(partial)
+                if tightener is not None:
+                    with tracing.span("ingest.apply"):
+                        tightener.apply()
+                        sizes = tightener.counts.copy()
+                wall = time.perf_counter() - t0
+                with tracing.span("ingest.report"):
+                    return IngestReport(
+                        n_batches=n_batches,
+                        n_records=n_records,
+                        block_sizes=sizes,
+                        wall_s=wall,
+                        backend=backend or self.backend,
+                        plan_cache=self.plans.stats(),
+                        builds=planlib.build_delta(builds0,
+                                                   planlib.build_counts()),
+                        observation=observed,
+                        fused=use_fused,
+                    )
 
     # -- introspection -------------------------------------------------------
     def stats(self) -> dict:

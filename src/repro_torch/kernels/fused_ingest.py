@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.qdtree import FrozenQdTree, TightenPartial
 from repro_torch.core.routing import adv_truth
 from repro_torch.kernels import _build
@@ -411,11 +412,12 @@ class IngestAccumulator:
                                  f"at most {I32_MAX} rows a batch, not {m}")
             scratch = tuple(_build.ptr(t) for t in
                             self.leafwise_scratch(m, stream).values())
-        rc = _build.library("fused_ingest").fused_ingest_launch(
-            _build.ptr(records), m, d, *self._tree_args,
-            _build.ptr(out) if bids else None, *self._acc_args, *scratch,
-            *self._launch, stream,
-        )
+        with tracing.span("fused_ingest.launch"):
+            rc = _build.library("fused_ingest").fused_ingest_launch(
+                _build.ptr(records), m, d, *self._tree_args,
+                _build.ptr(out) if bids else None, *self._acc_args,
+                *scratch, *self._launch, stream,
+            )
         if rc:
             # a stage that did not run may leave the batch's per-leaf
             # counts, which must be zero on entry: the next batch on this
@@ -455,25 +457,28 @@ class IngestAccumulator:
         identities and ``hi`` becomes exclusive (max + 1): bit-identical
         to ``IncrementalTightener.update`` over every folded record.
         """
-        host = self.buf.cpu().numpy()
-        np_types = {torch.int64: np.int64, torch.int32: np.int32}
-        f = {
-            name: host[off:off + n].view(np_types[dtype]).reshape(shape)
-            for name, off, n, shape, dtype in self._layout
-        }
-        i64 = np.iinfo(np.int64)
-        counts = f["counts"].copy()
-        ne = counts > 0
-        lo = np.where(ne[:, None], f["lo"].astype(np.int64), i64.max)
-        hi = np.where(ne[:, None], f["hi"].astype(np.int64) + 1, i64.min)
-        cat = unpack_words(f["cat"], tree.leaf_cat.shape[1]) & ne[:, None]
-        adv = np.zeros_like(tree.leaf_adv)
-        na = tree.cuts.n_adv
-        if na:
-            adv[:, :, 0] = unpack_words(f["advt"], na)
-            adv[:, :, 1] = unpack_words(f["advf"], na)
-            adv &= ne[:, None, None]
-        return TightenPartial(counts=counts, lo=lo, hi=hi, cat=cat, adv=adv)
+        with tracing.span("ingest.partial.copy"):
+            host = self.buf.cpu().numpy()
+        with tracing.span("ingest.partial.unpack"):
+            np_types = {torch.int64: np.int64, torch.int32: np.int32}
+            f = {
+                name: host[off:off + n].view(np_types[dtype]).reshape(shape)
+                for name, off, n, shape, dtype in self._layout
+            }
+            i64 = np.iinfo(np.int64)
+            counts = f["counts"].copy()
+            ne = counts > 0
+            lo = np.where(ne[:, None], f["lo"].astype(np.int64), i64.max)
+            hi = np.where(ne[:, None], f["hi"].astype(np.int64) + 1, i64.min)
+            cat = unpack_words(f["cat"], tree.leaf_cat.shape[1]) & ne[:, None]
+            adv = np.zeros_like(tree.leaf_adv)
+            na = tree.cuts.n_adv
+            if na:
+                adv[:, :, 0] = unpack_words(f["advt"], na)
+                adv[:, :, 1] = unpack_words(f["advf"], na)
+                adv &= ne[:, None, None]
+            return TightenPartial(counts=counts, lo=lo, hi=hi, cat=cat,
+                                  adv=adv)
 
 
 def plan_shape(ops: dict) -> tuple[int, ...]:

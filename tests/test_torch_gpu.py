@@ -957,6 +957,86 @@ def test_engine_ingest_launches_the_plans_kernels_once_a_batch(n_leaves):
         np.testing.assert_array_equal(a, b)
 
 
+def _profiled_ingests(eng, rec, passes=3):
+    """The program's spans and the profiler's events of ``passes`` ingests
+    of ``rec`` in 7,777-row batches, in one profiled session."""
+    from repro_torch import tracing
+    from repro_torch.engine import sharded
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        tracing.start()
+        for _ in range(passes):
+            eng.ingest(sharded.micro_batches(rec, 7777))
+        torch.cuda.synchronize()
+        spans = tracing.stop()
+    return spans, list(prof.profiler.kineto_results.events())
+
+
+def _clock_margins(spans, events, kernels_a_batch):
+    """Least ns by which (host) each ``fused_ingest.launch`` span holds the
+    CUDA calls that launched its batch's kernels, as the profiler stamps
+    them; (device) a kernel starts after its call; (copy) a copy back lies
+    inside its ``ingest.partial.copy`` span.  Negative: out by that much."""
+    launches = sorted((s, e) for name, s, e in spans
+                      if name == "fused_ingest.launch")
+    device = [e for e in events if e.device_type().name == "CUDA"]
+    calls = {e.correlation_id(): e for e in events
+             if e.device_type().name != "CUDA"}
+    kernels = sorted((e for e in device if "fused_ingest" in e.name()),
+                     key=lambda e: e.start_ns())
+    assert len(kernels) == kernels_a_batch * len(launches)
+    host, dev = [], []
+    for i, k in enumerate(kernels):
+        call = calls[k.correlation_id()]
+        s, e = launches[i // kernels_a_batch]
+        host.append(min(call.start_ns() - s, e - call.end_ns()))
+        dev.append(k.start_ns() - call.start_ns())
+    copies = sorted((e.start_ns(), e.end_ns()) for e in device
+                    if "DtoH" in e.name())
+    windows = sorted((s, e) for name, s, e in spans
+                     if name == "ingest.partial.copy")
+    assert len(copies) == len(windows)
+    copy = [min(a - s, e - b) for (a, b), (s, e) in zip(copies, windows)]
+    return min(host), min(dev), min(copy)
+
+
+@pytest.mark.parametrize("n_leaves", [724, LEAFWISE_TREES[0]])
+def test_ingest_spans_share_the_profilers_clock(n_leaves):
+    """The program's spans are on the profiler's host clock: each
+    ``fused_ingest.launch`` span holds the CUDA calls that queued its
+    batch's kernels, as the profiler stamps them, to 20 us, in each of two
+    profiled sessions; a batch is one launch span.  In a session this short
+    the profiler's device stamps keep to its host stamps to 0.25 ms (one
+    can stamp the device early, PERF.md §6): each kernel starts after its
+    call and each copy back of ``partial`` lies inside its
+    ``ingest.partial.copy`` span, to that."""
+    from repro_torch.engine import sharded
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    frozen, records = tpch_case(n_leaves, 40_000)
+    rec = torch.from_numpy(records).to(dev)
+    eng = LayoutEngine(_fresh(frozen))
+    eng.ingest(sharded.micro_batches(rec, 7777))  # warm
+    torch.cuda.synchronize()
+    for session in ("first", "second"):
+        before = _build.launch_counts()
+        spans, events = _profiled_ingests(eng, rec)
+        moved = {k: n - before[k] for k, n in _build.launch_counts().items()
+                 if k.startswith("fused_ingest") and n != before[k]}
+        # the plan's design: one kernel a batch, or the leafwise design's
+        # four
+        assert len(moved) in (1, 4) and len(set(moved.values())) == 1
+        launches = [s for s in spans if s[0] == "fused_ingest.launch"]
+        assert len(launches) == sum(moved.values()) // len(moved) == 3 * 6
+        host, device, copy = _clock_margins(spans, events, len(moved))
+        print(f"{n_leaves} leaves, {session} session: least margins (ns) "
+              f"host {host}, device {device}, copy {copy}")
+        assert host >= -20_000
+        assert min(device, copy) >= -250_000
+
+
 def test_a_refused_leafwise_shape_raises_and_leaves_no_error():
     from repro_torch.kernels import _build
 
