@@ -73,6 +73,7 @@ _ARGTYPES = {
         I32, I32, I32, I32,  # the plan: kernel, warps, smem, most blocks
         I32, I32, I32,  # ... the cluster's: blocks, ranges, leaves a block
         I32,  # ... the leafwise design's staged nodes
+        I32,  # the shared kernel starts from the running aggregates
         P,  # stream
     ],
     "query_intersect": [

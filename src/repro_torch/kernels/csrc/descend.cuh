@@ -188,6 +188,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Wait until at most `kPending` of this thread's newest commit groups are
+// still in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
 // Issue the copies of tile `tile` (rows kRows*tile .. of the (m, d) batch
 // `records`) into `dst`.  A tile starts 4 * kRows * d bytes after the
 // previous one, so with a 16-byte aligned batch (`vec`) and kRows a

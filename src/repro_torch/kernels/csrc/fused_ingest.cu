@@ -25,9 +25,25 @@
 //    with 16-byte cp.async into its own buffer, so record reads coalesce;
 //    each lane then reads its row from shared memory.  The block takes as
 //    many warps as fit beside the aggregates (32 at 724 x 21): the descent
-//    is latency-bound, and other warps hide a warp's next copy.  At the
-//    end the block folds its aggregates into the running accumulators
-//    with read-checked global atomics, eight reads in flight a thread.
+//    is latency-bound, and other warps hide a warp's next copy.  Past an
+//    accumulator's first fold, the block's aggregates start as the running
+//    ones (the counts at 0), copied in by cp.async beside the first tiles'
+//    staging: min, max and or move one way, so a seed read while other
+//    blocks or streams merge is stale only in the safe direction.  A row's
+//    read-checks then fire only where it beats every batch before, and
+//    such a row marks its leaf in a bit a leaf.  At the end the block adds
+//    every count, and its warps share out the marked leaves alone, lanes
+//    over a leaf's words, each merged with a read-checked global atomic.
+//    Started from identities, a block saw about 11 rows of a leaf in the
+//    benchmark's generated order, and 15.2 shared atomics a row fired
+//    against 0.002-0.007 from the running aggregates
+//    (tools/fold_access_stats.py); the flush read all 724 leaves of every
+//    block.  Measured on an H100 (PERF.md section 6): the shared atomics
+//    were a small part of the time; the flush that skips the unmarked
+//    leaves is most of the gain.  The first fold, into the identities,
+//    keeps the identity start and the whole flush (eight reads in flight a
+//    thread): seeded, where nearly every leaf of every block is marked,
+//    it measured slower (PERF.md section 6).
 //
 //  * fused_ingest_cluster, forced only (the leafwise design measured
 //    faster where the plan took it, PERF.md section 6): for a tree whose
@@ -191,8 +207,11 @@ struct Acc {
   int n_leaves, cw, aw;
 };
 
-__device__ __forceinline__ void or_bit(uint32_t* word, uint32_t bit) {
-  if ((*word & bit) == 0) atomicOr(word, bit);
+// Set `bit` of `word` unless a plain read shows it set; whether it wrote.
+__device__ __forceinline__ bool or_bit(uint32_t* word, uint32_t bit) {
+  if (*word & bit) return false;
+  atomicOr(word, bit);
+  return true;
 }
 
 // The small tables a record's fold reads: categorical columns and their
@@ -230,17 +249,31 @@ struct Aggs {
   }
 };
 
+// Copy the fold's tables into shared memory at `at`: [cat_dims][cat_off
+// d][adv 3 x n_adv].  Ends before any barrier.
+__device__ __forceinline__ FoldTables stage_tables(int32_t* at,
+                                                   const Ingest& in) {
+  int32_t* s_cat_dims = at;
+  int32_t* s_cat_off = s_cat_dims + in.n_cat_dims;
+  int32_t* s_adv = s_cat_off + in.d;
+  for (int i = threadIdx.x; i < in.n_cat_dims; i += blockDim.x)
+    s_cat_dims[i] = in.cat_dims[i];
+  for (int i = threadIdx.x; i < in.d; i += blockDim.x)
+    s_cat_off[i] = in.cat_off[i];
+  for (int i = threadIdx.x; i < 3 * in.n_adv; i += blockDim.x)
+    s_adv[i] = in.adv[i];
+  return FoldTables{s_cat_dims, s_cat_off, s_adv, in.n_cat_dims, in.n_adv,
+                    in.bits};
+}
+
 // Lay out a block's shared memory, [stage: nwarps x 32 rows][aggregates of
-// n leaves][cat_dims][cat_off d][adv 3 x n_adv]; set the aggregates to
-// their identities and copy the tables in.  Ends before any barrier.
+// n leaves][tables]; set the aggregates to their identities and copy the
+// tables in.  Ends before any barrier.
 __device__ __forceinline__ Aggs setup_block(int32_t* smem, const Ingest& in,
                                             const Acc& g, int n,
                                             FoldTables* tables) {
   const int d = in.d, nwarps = blockDim.x >> 5;
   const Aggs a = Aggs::at(smem + nwarps * 32 * d, n, d, g.cw, g.aw);
-  int32_t* s_cat_dims = a.end(n, g.aw);
-  int32_t* s_cat_off = s_cat_dims + in.n_cat_dims;
-  int32_t* s_adv = s_cat_off + d;
   for (int i = threadIdx.x; i < n; i += blockDim.x) a.counts[i] = 0;
   for (int i = threadIdx.x; i < n * d; i += blockDim.x) {
     a.lo[i] = INT32_MAX;
@@ -248,42 +281,96 @@ __device__ __forceinline__ Aggs setup_block(int32_t* smem, const Ingest& in,
   }
   for (int i = threadIdx.x; i < n * (g.cw + 2 * g.aw); i += blockDim.x)
     a.cat[i] = 0;  // cat, advt and advf are contiguous
-  for (int i = threadIdx.x; i < in.n_cat_dims; i += blockDim.x)
-    s_cat_dims[i] = in.cat_dims[i];
-  for (int i = threadIdx.x; i < d; i += blockDim.x)
-    s_cat_off[i] = in.cat_off[i];
-  for (int i = threadIdx.x; i < 3 * in.n_adv; i += blockDim.x)
-    s_adv[i] = in.adv[i];
-  *tables = FoldTables{s_cat_dims, s_cat_off, s_adv, in.n_cat_dims, in.n_adv,
-                       in.bits};
+  *tables = stage_tables(a.end(n, g.aw), in);
   return a;
+}
+
+// Seed the block's aggregates of all L leaves, `s`, with the running lo,
+// hi, cat, advt and advf, which hold their words in the same order: 16-byte
+// cp.async from every thread where both ends of an array are 16-byte
+// aligned, 4-byte elsewhere, in the calling thread's open commit group.
+// Every block reads the same words at once, so each starts its 16-byte
+// chunks at its own place in them.  (One TMA bulk copy an array, by one
+// thread onto an mbarrier, measured no faster on an H100: PERF.md section
+// 6.)
+__device__ __forceinline__ void seed_aggs(const Aggs& s, const Acc& g, int d) {
+  const int L = g.n_leaves;
+  int32_t* const dst[5] = {s.lo, s.hi, reinterpret_cast<int32_t*>(s.cat),
+                           reinterpret_cast<int32_t*>(s.advt),
+                           reinterpret_cast<int32_t*>(s.advf)};
+  const int32_t* const src[5] = {g.lo, g.hi,
+                                 reinterpret_cast<const int32_t*>(g.cat),
+                                 reinterpret_cast<const int32_t*>(g.advt),
+                                 reinterpret_cast<const int32_t*>(g.advf)};
+  const int n[5] = {L * d, L * d, L * g.cw, L * g.aw, L * g.aw};
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const bool vec = ((reinterpret_cast<uintptr_t>(src[k]) |
+                       __cvta_generic_to_shared(dst[k])) & 15) == 0;
+    const int whole = vec ? n[k] & ~3 : 0;
+    const int chunks = whole >> 2;
+    const int first = (int)((int64_t)blockIdx.x * chunks / gridDim.x);
+    for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+      const int i = c + first < chunks ? c + first : c + first - chunks;
+      cp_async16(dst[k] + 4 * i, src[k] + 4 * i);
+    }
+    for (int i = whole + threadIdx.x; i < n[k]; i += blockDim.x)
+      cp_async4(dst[k] + i, src[k] + i);
+  }
 }
 
 // Fold one record (row `rec`, block `leaf`) into a set of accumulators
 // whose per-leaf rows start at the given pointers.  Used on shared and on
 // global memory alike; inlined, so each call site's atomics address the
-// right space.
-__device__ __forceinline__ void fold_record(const int32_t* rec, int d,
+// right space.  Returns whether any atomic ran (a call site that does not
+// ask compiles without the test).
+__device__ __forceinline__ bool fold_record(const int32_t* rec, int d,
                                             const FoldTables& t, int32_t* lo,
                                             int32_t* hi, uint32_t* cat,
                                             uint32_t* advt, uint32_t* advf) {
+  bool wrote = false;
   for (int j = 0; j < d; ++j) {
     const int32_t v = rec[j];
-    if (v < lo[j]) atomicMin(lo + j, v);
-    if (v > hi[j]) atomicMax(hi + j, v);
+    if (v < lo[j]) {
+      atomicMin(lo + j, v);
+      wrote = true;
+    }
+    if (v > hi[j]) {
+      atomicMax(hi + j, v);
+      wrote = true;
+    }
   }
   for (int k = 0; k < t.n_cat_dims; ++k) {
     const int dd = t.cat_dims[k];
     int pos = rec[dd] + t.cat_off[dd];
     pos = min(max(pos, 0), t.bits - 1);
-    or_bit(cat + (pos >> 5), 1u << (pos & 31));
+    wrote |= or_bit(cat + (pos >> 5), 1u << (pos & 31));
   }
   for (int a = 0; a < t.n_adv; ++a) {
     const int32_t* p = t.adv + 3 * a;
     const bool truth = adv_true(p[1], rec[p[0]], rec[p[2]]);
-    or_bit((truth ? advt : advf) + (a >> 5), 1u << (a & 31));
+    wrote |= or_bit((truth ? advt : advf) + (a >> 5), 1u << (a & 31));
   }
+  return wrote;
 }
+
+// The read-checked merges into the running aggregates: an atomic only
+// where the block's value `v` moves the running word, read as `seen`.
+struct MergeMin {
+  __device__ void operator()(int32_t* p, int32_t v, int32_t seen) const {
+    if (v < seen) atomicMin(p, v);
+  }
+};
+struct MergeMax {
+  __device__ void operator()(int32_t* p, int32_t v, int32_t seen) const {
+    if (v > seen) atomicMax(p, v);
+  }
+};
+struct MergeOr {
+  __device__ void operator()(uint32_t* p, uint32_t v, uint32_t seen) const {
+    if ((seen & v) != v) atomicOr(p, v);
+  }
+};
 
 // Fold the block's aggregates `s` into the running ones `g`, read-checked:
 // kFlushBatch independent reads in flight a thread, then their atomics.
@@ -322,24 +409,124 @@ __device__ __forceinline__ void flush_leaves(const Aggs& s, const Acc& g,
     if (c)
       atomicAdd(g.counts + first + (int64_t)i * step, (unsigned long long)c);
   }
-  flush(s.lo, g.lo + (int64_t)first * d, n * d, d, step,
-        [](int32_t* p, int32_t v, int32_t seen) {
-          if (v < seen) atomicMin(p, v);
-        });
-  flush(s.hi, g.hi + (int64_t)first * d, n * d, d, step,
-        [](int32_t* p, int32_t v, int32_t seen) {
-          if (v > seen) atomicMax(p, v);
-        });
-  const auto bits_or = [](uint32_t* p, uint32_t v, uint32_t seen) {
-    if ((seen & v) != v) atomicOr(p, v);
-  };
-  flush(s.cat, g.cat + (int64_t)first * g.cw, n * g.cw, g.cw, step, bits_or);
+  flush(s.lo, g.lo + (int64_t)first * d, n * d, d, step, MergeMin{});
+  flush(s.hi, g.hi + (int64_t)first * d, n * d, d, step, MergeMax{});
+  flush(s.cat, g.cat + (int64_t)first * g.cw, n * g.cw, g.cw, step,
+        MergeOr{});
   flush(s.advt, g.advt + (int64_t)first * g.aw, n * g.aw, g.aw, step,
-        bits_or);
+        MergeOr{});
   flush(s.advf, g.advf + (int64_t)first * g.aw, n * g.aw, g.aw, step,
-        bits_or);
+        MergeOr{});
 }
 
+// One word of leaf `leaf`'s aggregates: word k of [lo d][hi d][cat cw]
+// [advt aw][advf aw], its value in the block's (s) and its address in the
+// running ones (g), and how it merges (0 MergeMin, 1 MergeMax, 2 MergeOr).
+struct LeafWord {
+  int32_t* at;
+  int32_t v;
+  int op;
+};
+
+__device__ __forceinline__ LeafWord leaf_word(const Aggs& s, const Acc& g,
+                                              int d, int leaf, int k) {
+  if (k < d) return {g.lo + (int64_t)leaf * d + k, s.lo[leaf * d + k], 0};
+  if ((k -= d) < d)
+    return {g.hi + (int64_t)leaf * d + k, s.hi[leaf * d + k], 1};
+  k -= d;
+  const uint32_t* sw;
+  uint32_t* gw;
+  if (k < g.cw) {
+    sw = s.cat + leaf * g.cw + k;
+    gw = g.cat + (int64_t)leaf * g.cw + k;
+  } else if ((k -= g.cw) < g.aw) {
+    sw = s.advt + leaf * g.aw + k;
+    gw = g.advt + (int64_t)leaf * g.aw + k;
+  } else {
+    k -= g.aw;
+    sw = s.advf + leaf * g.aw + k;
+    gw = g.advf + (int64_t)leaf * g.aw + k;
+  }
+  return {reinterpret_cast<int32_t*>(gw), (int32_t)*sw, 2};
+}
+
+// Merge one leaf of the block's aggregates into the running ones, a warp's
+// lanes over its words, kMergeWords reads in flight a lane (the leaf's
+// 2 d + cw + 2 aw words in one round at 21 columns).
+constexpr int kMergeWords = 2;
+
+__device__ __forceinline__ void merge_leaf(const Aggs& s, const Acc& g, int d,
+                                           int leaf, int lane) {
+  const int n = 2 * d + g.cw + 2 * g.aw;
+  for (int k0 = lane; k0 < n; k0 += 32 * kMergeWords) {
+    LeafWord w[kMergeWords];
+    int32_t seen[kMergeWords];
+#pragma unroll
+    for (int u = 0; u < kMergeWords; ++u) {
+      const int k = k0 + 32 * u;
+      w[u].op = -1;
+      if (k < n) {
+        w[u] = leaf_word(s, g, d, leaf, k);
+        seen[u] = __ldcg(w[u].at);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kMergeWords; ++u) {
+      if (w[u].op == 0) MergeMin{}(w[u].at, w[u].v, seen[u]);
+      if (w[u].op == 1) MergeMax{}(w[u].at, w[u].v, seen[u]);
+      if (w[u].op == 2)
+        MergeOr{}(reinterpret_cast<uint32_t*>(w[u].at), w[u].v, seen[u]);
+    }
+  }
+}
+
+// Flush the shared kernel's block: every count, then the leaves marked in
+// `changed` (a bit a leaf), shared out in turn by their rank among the
+// marked: warp w merges ranks w, w + nwarps, ...
+__device__ __forceinline__ void flush_marked(const Aggs& s, const Acc& g,
+                                             int d, const uint32_t* changed) {
+  const int L = g.n_leaves;
+  for (int i = threadIdx.x; i < L; i += blockDim.x) {
+    const int c = s.counts[i];
+    if (c) atomicAdd(g.counts + i, (unsigned long long)c);
+  }
+  const int nwarps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int words = (L + 31) >> 5;
+  int before = 0;  // marked leaves in the words before w0
+  for (int w0 = 0; w0 < words; w0 += 32) {
+    const uint32_t bits = w0 + lane < words ? changed[w0 + lane] : 0u;
+    const int c = __popc(bits);
+    int incl = c;  // the warp's inclusive scan of the words' marks
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += x;
+    }
+    const int first = before + incl - c;  // rank of this word's first mark
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    for (int r = before + ((warp - before) % nwarps + nwarps) % nwarps;
+         r < before + total; r += nwarps) {
+      // the word that holds rank r, and its (r - first)-th mark
+      const int src = __ffs(__ballot_sync(
+                          0xffffffffu, r >= first && r < first + c)) - 1;
+      uint32_t b = __shfl_sync(0xffffffffu, bits, src);
+      for (int k = r - __shfl_sync(0xffffffffu, first, src); k > 0; --k)
+        b &= b - 1;
+      merge_leaf(s, g, d, (w0 + src) * 32 + __ffs(b) - 1, lane);
+    }
+    before += total;
+  }
+}
+
+// Shared memory: [stage: nwarps x 32 rows][aggregates of all L leaves]
+// [tables][changed: a bit a leaf].  kSeeded: the aggregates start as the
+// running ones (seed_aggs), the counts at 0; a row that moves a value of
+// its leaf marks the leaf, and the flush merges only the marked leaves
+// beyond their counts.  Otherwise, for an accumulator's first fold (it
+// holds the identities), they start as the identities and the flush merges
+// every leaf.
+template <bool kSeeded>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     fused_ingest_shared(Ingest in, Acc g) {
   extern __shared__ __align__(16) int32_t smem[];
@@ -347,12 +534,18 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int nwarps = blockDim.x >> 5, warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   FoldTables tables;
-  const Aggs s = setup_block(smem, in, g, L, &tables);
-  __syncthreads();
+  const Aggs s = kSeeded ? Aggs::at(smem + nwarps * 32 * d, L, d, g.cw, g.aw)
+                         : setup_block(smem, in, g, L, &tables);
+  if (kSeeded) {
+    seed_aggs(s, g, d);
+    cp_async_commit();
+  } else {
+    __syncthreads();
+  }
 
   // each warp walks its own tiles of 32 rows through its one buffer: the
   // next tile's copy is issued once this one is folded, and other warps
-  // hide it.
+  // hide it.  Seeded, the first goes out beside the seed.
   const int64_t tiles = (in.m + 31) / 32;
   const int64_t stride = (int64_t)gridDim.x * nwarps;
   const bool vec = (reinterpret_cast<uintptr_t>(in.records) & 15) == 0;
@@ -360,6 +553,18 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   int64_t t = (int64_t)blockIdx.x * nwarps + warp;
   if (t < tiles) stage_tile(cur, in.records, in.m, d, t, lane, vec);
   cp_async_commit();
+  uint32_t* changed = nullptr;
+  if (kSeeded) {
+    for (int i = threadIdx.x; i < L; i += blockDim.x) s.counts[i] = 0;
+    tables = stage_tables(s.end(L, g.aw), in);
+    changed = reinterpret_cast<uint32_t*>(
+        const_cast<int32_t*>(tables.adv) + 3 * in.n_adv);
+    for (int i = threadIdx.x; i < (L + 31) >> 5; i += blockDim.x)
+      changed[i] = 0;
+    cp_async_wait<1>();  // this thread's seed words (its tile may still fly)
+    __syncthreads();     // every seed word has landed, every count is 0
+  }
+
   for (; t < tiles; t += stride) {
     cp_async_wait_all();  // this tile's copies have landed (own lane's)
     __syncwarp();        // ... and every lane's
@@ -370,9 +575,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
           descend<true>(rec, in.nodes, in.depth, in.in_mask, in.bits);
       if (in.bids != nullptr) in.bids[r] = leaf;
       atomicAdd(s.counts + leaf, 1);
-      fold_record(rec, d, tables, s.lo + leaf * d, s.hi + leaf * d,
-                  s.cat + leaf * g.cw, s.advt + leaf * g.aw,
-                  s.advf + leaf * g.aw);
+      const bool moved =
+          fold_record(rec, d, tables, s.lo + leaf * d, s.hi + leaf * d,
+                      s.cat + leaf * g.cw, s.advt + leaf * g.aw,
+                      s.advf + leaf * g.aw);
+      if (kSeeded && moved) or_bit(changed + (leaf >> 5), 1u << (leaf & 31));
     }
     __syncwarp();  // every lane is done with `cur` before it is refilled
     if (t + stride < tiles)
@@ -381,7 +588,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   }
   cp_async_wait_all();
   __syncthreads();
-  flush_leaves(s, g, d, 0, L, 1);
+  if (kSeeded)
+    flush_marked(s, g, d, changed);
+  else
+    flush_leaves(s, g, d, 0, L, 1);
 }
 
 // Grid: (clusters a range x C, ranges); the cluster's block of rank k in
@@ -982,6 +1192,13 @@ extern "C" int fused_ingest_plan(int variant, int warps, int smem,
       (prefix < 1 || prefix > 2LL * n_leaves - 1 || fold_groups(d) == 0 || aw > 32 ||
        smem < 16LL * prefix + 128LL * d * warps + 4LL * n_leaves))
     return (int)cudaErrorInvalidValue;
+  // the shared kernel: at least the tiles, the counts, lo, hi and advanced-
+  // cut words, and a changed bit a leaf (layout_plan adds the categorical
+  // words and the tables)
+  if (variant == kShared &&
+      smem < 128LL * d * warps + 4LL * n_leaves * (1 + 2 * d + 2 * aw) +
+                 4LL * ((n_leaves + 31) / 32))
+    return (int)cudaErrorInvalidValue;
   int dev = 0, optin = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (!err)
@@ -990,13 +1207,18 @@ extern "C" int fused_ingest_plan(int variant, int warps, int smem,
   if (!err)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err) return (int)err;
-  const void* kernel = variant == kShared ? (const void*)fused_ingest_shared
+  const void* kernel = variant == kShared
+                           ? (const void*)fused_ingest_shared<true>
                        : variant == kCluster
                            ? (const void*)fused_ingest_cluster
                            : (const void*)fused_ingest_leafwise_route;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem > optin ? smem : optin);
+  if (!err && variant == kShared)  // an accumulator's first fold
+    err = cudaFuncSetAttribute((const void*)fused_ingest_shared<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem > optin ? smem : optin);
   if (variant == kShared || variant == kLeafwise) {
     int per_sm = 0;
     if (!err)
@@ -1037,8 +1259,10 @@ extern "C" int fused_ingest_plan(int variant, int warps, int smem,
 }
 
 // One batch, by the plan fused_ingest_plan checked: no host query of the
-// card.  The leafwise design's scratch (kernels/fused_ingest.py::
-// IngestAccumulator): ids (m,) int32 (unused when bids are asked for: they
+// card.  seeded: the shared kernel starts its blocks from the running
+// aggregates (0 for an accumulator's first fold, which holds the
+// identities; exact either way).  The leafwise design's scratch
+// (kernels/fused_ingest.py::IngestAccumulator): ids (m,) int32 (unused when bids are asked for: they
 // take its place), slots (m,) int32, entries (m,) int64, hist (L,) int32,
 // zero between batches, offsets (L + 1,) int32; null for the other
 // designs.  Returns the first launch's error, or cudaGetLastError().
@@ -1051,7 +1275,7 @@ extern "C" int fused_ingest_launch(
     int32_t* ids, int32_t* slots, void* entries, int32_t* hist,
     int32_t* offsets,
     int variant, int warps, int smem, int most, int cluster, int ranges,
-    int per_block, int prefix, void* stream) {
+    int per_block, int prefix, int seeded, void* stream) {
   Ingest in{records, m, d, reinterpret_cast<const int4*>(nodes), depth,
             cat_off, in_mask, bits, adv, cat_dims, n_cat_dims, n_adv, bids};
   Acc g{reinterpret_cast<unsigned long long*>(counts), lo, hi,
@@ -1062,8 +1286,12 @@ extern "C" int fused_ingest_launch(
   if (variant == kShared) {
     int64_t blocks = (tiles + warps - 1) / warps;
     if (blocks > most) blocks = most;
-    fused_ingest_shared<<<(unsigned)blocks, warps * 32, (size_t)smem, st>>>(
-        in, g);
+    if (seeded)
+      fused_ingest_shared<true>
+          <<<(unsigned)blocks, warps * 32, (size_t)smem, st>>>(in, g);
+    else
+      fused_ingest_shared<false>
+          <<<(unsigned)blocks, warps * 32, (size_t)smem, st>>>(in, g);
   } else if (variant == kCluster) {
     // the resident clusters shared among the ranges, never more than a
     // range's tiles need

@@ -163,11 +163,19 @@ def block_leaves(shape: tuple, optin: int, cluster: int) -> int:
     return max(1, free // leaf_bytes(shape))
 
 
+def shared_fixed_bytes(shape: tuple) -> int:
+    """The shared kernel's bytes beside its warps' tiles: the whole tree's
+    aggregates, the tables and a bit a leaf for the leaves a block's rows
+    changed (4 * ceil(L / 32))."""
+    L = shape[0]
+    return L * leaf_bytes(shape) + table_bytes(shape) + 4 * (-(-L // 32))
+
+
 def shared_warps_fit(shape: tuple, optin: int) -> int:
-    """Warps whose tiles fit beside the whole tree's aggregates (at most
+    """Warps whose tiles fit beside :func:`shared_fixed_bytes` (at most
     MAX_WARPS, 0 when none does)."""
-    fixed = shape[0] * leaf_bytes(shape) + table_bytes(shape)
-    return max(0, min(MAX_WARPS, (optin - fixed) // tile_bytes(shape[1])))
+    return max(0, min(MAX_WARPS, (optin - shared_fixed_bytes(shape))
+                      // tile_bytes(shape[1])))
 
 
 def leafwise_plan(shape: tuple, optin: int,
@@ -254,8 +262,7 @@ def layout_plan(shape: tuple, optin: int, variant: Optional[str] = None,
         return Plan(VARIANTS["global"], warps or 8, 0)
     if variant == "shared":
         w = warps or max(1, fit)
-        return Plan(VARIANTS["shared"], w,
-                    L * leaf_bytes(shape) + table_bytes(shape) + w * tile)
+        return Plan(VARIANTS["shared"], w, shared_fixed_bytes(shape) + w * tile)
     if variant != "cluster":
         raise ValueError(f"unknown fused_ingest variant {variant!r}")
     if cluster is None:
@@ -315,6 +322,11 @@ class IngestAccumulator:
       space in word ``b // 32`` at ``b % 32``;
     * ``advt`` / ``advf`` (L, aw) int32 advanced-cut bits: the cut was
       seen true / false.
+
+    The shared kernel's first fold starts its blocks from the identities;
+    every later fold from the running aggregates, so that a row writes
+    only where it moves them (exact either way: min, max and or move one
+    way).
     """
 
     FIELDS = ("counts", "lo", "hi", "cat", "advt", "advf")
@@ -365,6 +377,7 @@ class IngestAccumulator:
             *(p(t) for t in self.tensors()), L, cw, aw,
         )
         self._launch = None
+        self._seeded = False  # a fold has launched: no longer the identities
         self._scratch: dict[int, dict] = {}  # by stream: leafwise only
         if dev.type == "cuda":
             shape = plan_shape(ops)
@@ -416,8 +429,9 @@ class IngestAccumulator:
             rc = _build.library("fused_ingest").fused_ingest_launch(
                 _build.ptr(records), m, d, *self._tree_args,
                 _build.ptr(out) if bids else None, *self._acc_args,
-                *scratch, *self._launch, stream,
+                *scratch, *self._launch, int(self._seeded), stream,
             )
+        self._seeded = True
         if rc:
             # a stage that did not run may leave the batch's per-leaf
             # counts, which must be zero on entry: the next batch on this

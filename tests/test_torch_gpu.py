@@ -567,7 +567,9 @@ def test_shared_plan_takes_every_warp_that_fits():
     for shape in ((724, 21, 5, 1, 11, 3), (40, 5, 2, 1, 2, 6),
                   (900, 21, 5, 1, 11, 3)):
         L, d, cw, aw, n_cat, n_adv = shape
-        fixed = 4 * L * (1 + 2 * d + cw + 2 * aw) + 4 * (n_cat + d + 3 * n_adv)
+        # the aggregates, the tables and a changed bit a leaf
+        fixed = (4 * L * (1 + 2 * d + cw + 2 * aw) + 4 * (n_cat + d + 3 * n_adv)
+                 + 4 * -(-L // 32))
         warps = min(32, (optin - fixed) // (4 * 32 * d))
         kernel, got_warps, smem, most = _plan(dev.index, shape, None)
         if warps < 4:
@@ -648,6 +650,161 @@ def _assert_oracle(frozen, records, bids, acc):
     part = acc.partial(frozen)
     for f in ("counts", "lo", "hi", "cat", "adv"):
         np.testing.assert_array_equal(getattr(part, f), getattr(want, f), f)
+
+
+def _shared_accumulators(ops):
+    """An accumulator the plan gives the shared kernel, and one for the
+    plain version."""
+    acc = tfk.IngestAccumulator(ops)
+    assert acc._launch.kernel == tfk.VARIANTS["shared"]
+    return acc, tfk.IngestAccumulator(ops)
+
+
+def _fold_pair(acc, plain, batches):
+    for b in batches:
+        acc.fold(b)
+        tfk.fused_ingest_plain(b, plain)
+    torch.cuda.synchronize()
+    _assert_same(acc, plain)
+
+
+def _moving_rows(acc, ops, pool):
+    """For each way a row can move a leaf's running aggregates (a new
+    minimum, a new maximum, an unseen categorical value, an advanced cut
+    newly seen true, newly seen false): the first row of ``pool`` that
+    does, by index."""
+    from repro_torch.core.routing import adv_truth
+
+    leaf = tfk.route_plain(pool, ops).long()
+    lo, hi = acc.lo[leaf], acc.hi[leaf]
+    cat_dims = ops["cat_dims"].long()
+    pos = (pool[:, cat_dims] + ops["cat_off"][cat_dims]).clamp(
+        0, int(ops["bits"]) - 1).long()
+    cat = acc.cat[leaf[:, None], pos >> 5]
+    unseen_cat = ((cat >> (pos & 31)) & 1) == 0
+    n_adv = int(ops["n_adv"])
+    truth = adv_truth(pool, ops["adv"])[:, :n_adv]
+    a = torch.arange(n_adv, device=pool.device)
+
+    def unseen(words, wanted):
+        bit = (words[leaf[:, None], a >> 5] >> (a & 31)) & 1
+        return ((bit == 0) & wanted).any(1)
+
+    kinds = {
+        "min": (pool < lo).any(1), "max": (pool > hi).any(1),
+        "cat": unseen_cat.any(1), "adv_true": unseen(acc.advt, truth),
+        "adv_false": unseen(acc.advf, ~truth),
+    }
+    return {k: int(v.nonzero()[0]) for k, v in kinds.items()}, leaf
+
+
+def test_shared_fold_of_a_batch_again_moves_only_the_counts():
+    """The first fold starts from the identities; a second fold of the
+    same batch starts every block from the aggregates the first left: no
+    row moves a value, and only the counts change."""
+    dev = _cuda()
+    frozen, records = tpch_case(724, 2**16 + 5)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(records).to(dev)
+    acc, plain = _shared_accumulators(ops)
+    assert not acc._seeded
+    _fold_pair(acc, plain, [rec])
+    assert acc._seeded
+    first = [t.clone() for t in acc.tensors()]
+    _fold_pair(acc, plain, [rec])
+    assert torch.equal(acc.counts, 2 * first[0])
+    for name, now, was in zip(acc.FIELDS[1:], acc.tensors()[1:], first[1:]):
+        assert torch.equal(now, was), name
+
+
+def test_shared_fold_merges_each_leaf_a_row_moves():
+    """A seeded accumulator, then a batch of rows it has seen with five
+    rows spread among them that each move a leaf: a new minimum, a new
+    maximum, an unseen categorical value, an advanced cut newly seen true
+    and newly seen false.  Each of those leaves is marked and merged: the
+    accumulator moves there, and equals the plain version."""
+    dev = _cuda()
+    frozen, records = tpch_case(724, 60_000)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(records).to(dev)
+    seen, pool = rec[:40_000], rec[40_000:]
+    acc, plain = _shared_accumulators(ops)
+    _fold_pair(acc, plain, [seen])
+    picks, leaf = _moving_rows(acc, ops, pool)
+    batch = seen.clone()
+    at = torch.linspace(0, batch.shape[0] - 1, len(picks)).long()
+    batch[at.to(dev)] = pool[torch.tensor(list(picks.values()), device=dev)]
+    before = [t.clone() for t in acc.tensors()[1:]]
+    _fold_pair(acc, plain, [batch])
+    for kind, i in picks.items():
+        lf = int(leaf[i])
+        assert any(not torch.equal(now[lf], was[lf]) for now, was in
+                   zip(acc.tensors()[1:], before)), kind
+
+
+def test_shared_folds_from_two_streams_into_one_accumulator():
+    """Two threads, each on its own stream, fold their halves into one
+    accumulator three times: a block's seed read while the other stream
+    merges is stale only in the safe direction."""
+    import threading
+
+    dev = _cuda()
+    frozen, records = tpch_case(724, 200_000)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(records).to(dev)
+    acc, plain = _shared_accumulators(ops)
+    torch.cuda.synchronize()
+
+    def fold(x):
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            for _ in range(3):
+                acc.fold(x)
+            torch.cuda.current_stream(dev).synchronize()
+
+    threads = [threading.Thread(target=fold, args=(x,))
+               for x in rec.chunk(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    for _ in range(3):
+        tfk.fused_ingest_plain(rec, plain)
+    torch.cuda.synchronize()
+    _assert_same(acc, plain)
+
+
+@pytest.mark.parametrize("n_leaves", [723, 724])
+def test_shared_seed_from_an_unaligned_accumulator(n_leaves):
+    """At 723 leaves the running lo starts 8 bytes past a 16-byte line
+    (after 723 int64 counts), so the seed goes 4 bytes at a time; at 724
+    16 bytes at a time.  An unaligned batch (rows 1..) with a ragged tail,
+    folded in uneven batches, equals the plain version either way."""
+    dev = _cuda()
+    frozen, records = tpch_case(n_leaves, 70_000)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    rec = torch.from_numpy(records).to(dev)[1:]
+    acc, plain = _shared_accumulators(ops)
+    assert (acc.lo.data_ptr() % 16 == 0) == (n_leaves == 724)
+    bounds = [0, 1, 34, 4135, 40_001, rec.shape[0]]
+    _fold_pair(acc, plain, [rec[s:e] for s, e in zip(bounds, bounds[1:])])
+    _fold_pair(acc, plain, [rec[33:]])
+
+
+def test_shared_kernel_near_its_reach():
+    """900 leaves at 21 columns, tpch-40M's shape: 19 warps fit beside the
+    aggregates and a changed bit a leaf on an H100."""
+    dev = _cuda()
+    frozen, records = tpch_case(900, 3 * 2**15 + 7)
+    ops = tplan.to_device(tplan.pack_route_constants(frozen), dev)
+    shape = tfk.plan_shape(ops)
+    assert shape == (900, 21, 5, 1, 11, 3)
+    rec = torch.from_numpy(records).to(dev)
+    acc, plain = _shared_accumulators(ops)
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    assert acc._launch.warps == tfk.shared_warps_fit(shape, optin)
+    _fold_pair(acc, plain, list(rec.split(2**15)))
+    _fold_pair(acc, plain, list(rec.split(2**15)))
 
 
 # the cluster kernel's (blocks a cluster, ranges): each size, and a tree

@@ -912,6 +912,23 @@ def test_layout_plan_splits_every_leaf_once(shape):
                         + tfk.inbox_bytes(plan.cluster)))
 
 
+@pytest.mark.parametrize("n_leaves", [1, 31, 33, 723, 724, 900])
+def test_shared_plan_counts_a_changed_bit_a_leaf(n_leaves):
+    """The shared kernel's bytes: the aggregates, the tables and a bit a
+    leaf for the leaves a block's rows changed (4 * ceil(L / 32) bytes),
+    then as many 32-row tiles as fit (csrc/fused_ingest.cu's
+    fused_ingest_plan checks the same bit words)."""
+    shape = (n_leaves, *TPCH_SHAPE)
+    fixed = (n_leaves * tfk.leaf_bytes(shape) + tfk.table_bytes(shape)
+             + 4 * -(-n_leaves // 32))
+    assert tfk.shared_fixed_bytes(shape) == fixed
+    tile = tfk.tile_bytes(shape[1])
+    plan = tfk.layout_plan(shape, OPTIN, "shared")
+    assert plan.warps == tfk.shared_warps_fit(shape, OPTIN) == min(
+        tfk.MAX_WARPS, (OPTIN - fixed) // tile)
+    assert plan.smem == fixed + plan.warps * tile <= OPTIN
+
+
 # by leaves at tpch-40M's shape: the plan's design, and the leafwise
 # design's warps and shared bytes (forced, or the plan's): its route's block
 # is route_descend_prefix's 632 nodes and 21 warps' tiles (66,560 bytes)
